@@ -1,0 +1,190 @@
+"""InternVideo2-1B temporal encoder trunk (port of the bf16 path of
+grounded_video_llm_tpu/models/internvideo2.py).
+
+Per-frame 14x14 patch conv (tubelet 1), CLS + 3D sin-cos positions, then
+depth-1 (39 of 40) pre-RMSNorm blocks with QK-RMSNorm over the flattened
+heads, fp32-forced LayerScale, an exact-GELU MLP and non-causal attention in
+bounded-softmax mode (QK-RMSNorm bounds the scores).
+
+Parameters are the JAX tree as a dict of tensors, stacked per block:
+  patch_kernel [P,P,3,D] (HWIO), patch_bias [D], cls_token [D],
+  pos_embed [1+T*L, D]
+  blocks: {norm1_w, qkv_kernel [Lyr,D,3D], q_norm_w, k_norm_w, proj, ls1,
+           norm2_w, fc1, fc2, ls2}
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..core.config import InternVideo2Config
+from ..ops.attention import mha
+from ..ops.normalization import layer_scale, rms_norm
+from .param_utils import layer_slice, truncated_normal
+
+
+# ---------------------------------------------------------------------------
+# 3D sin-cos position embeddings (numpy, host)
+# ---------------------------------------------------------------------------
+
+
+def _sincos_1d(embed_dim: int, pos: np.ndarray) -> np.ndarray:
+    assert embed_dim % 2 == 0
+    omega = np.arange(embed_dim // 2, dtype=np.float64) / (embed_dim / 2.0)
+    omega = 1.0 / 10000 ** omega
+    out = np.einsum("m,d->md", pos.reshape(-1), omega)
+    return np.concatenate([np.sin(out), np.cos(out)], axis=1)
+
+
+def get_3d_sincos_pos_embed(embed_dim: int, grid_size: int, t_size: int,
+                            cls_token: bool = False) -> np.ndarray:
+    """[T*H*W, D] (optionally with a leading zero CLS row). Temporal gets
+    D/4 dims, spatial 3D/4 (h and w each 3D/8), concatenated
+    [temporal | spatial]."""
+    assert embed_dim % 4 == 0
+    dim_spatial = embed_dim // 4 * 3
+    dim_temporal = embed_dim // 4
+
+    grid_h = np.arange(grid_size, dtype=np.float32)
+    grid_w = np.arange(grid_size, dtype=np.float32)
+    grid = np.stack(np.meshgrid(grid_w, grid_h), axis=0)   # w first
+    emb_h = _sincos_1d(dim_spatial // 2, grid[0])
+    emb_w = _sincos_1d(dim_spatial // 2, grid[1])
+    pos_spatial = np.concatenate([emb_h, emb_w], axis=1)   # [H*W, 3D/4]
+
+    pos_temporal = _sincos_1d(dim_temporal,
+                              np.arange(t_size, dtype=np.float32))
+
+    pos_temporal = np.repeat(pos_temporal[:, None, :], grid_size ** 2, axis=1)
+    pos_spatial = np.repeat(pos_spatial[None, :, :], t_size, axis=0)
+    pos = np.concatenate([pos_temporal, pos_spatial],
+                         axis=-1).reshape(-1, embed_dim)
+    if cls_token:
+        pos = np.concatenate([np.zeros((1, embed_dim)), pos], axis=0)
+    return pos.astype(np.float32)
+
+
+def interpolate_temporal_pos_embed(pos_embed: np.ndarray, orig_t: int,
+                                   new_t: int,
+                                   spatial_tokens: int) -> np.ndarray:
+    """Linearly interpolate the temporal axis of a [1+T*L, D] pos embed
+    (align_corners=False), as when loading the 4-frame checkpoint into the
+    8-frame model."""
+    cls_row, rest = pos_embed[:1], pos_embed[1:]
+    D = pos_embed.shape[-1]
+    grid = rest.reshape(orig_t, spatial_tokens, D)
+    new_pos = (np.arange(new_t) + 0.5) / new_t
+    out = np.empty((new_t, spatial_tokens, D), dtype=pos_embed.dtype)
+    for j, p in enumerate(new_pos):
+        x = p * orig_t - 0.5
+        lo = int(np.floor(x))
+        hi = min(lo + 1, orig_t - 1)
+        w = x - lo
+        lo = max(lo, 0)
+        out[j] = (1 - w) * grid[lo] + w * grid[hi]
+    return np.concatenate([cls_row, out.reshape(-1, D)], axis=0)
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def init_params(cfg: InternVideo2Config, *, generator: torch.Generator,
+                device, dtype=torch.float32):
+    D, Lyr = cfg.embed_dim, cfg.depth
+    I = cfg.mlp_hidden
+    P = cfg.patch_size
+    kw = dict(generator=generator, device=device, dtype=dtype)
+
+    def init(shape):
+        return truncated_normal(shape, 0.02, **kw)
+
+    def dense(d_in, d_out):
+        return {"kernel": init((Lyr, d_in, d_out)),
+                "bias": torch.zeros(Lyr, d_out, device=device, dtype=dtype)}
+
+    def full(value):
+        return torch.full((Lyr, D), value, device=device, dtype=dtype)
+
+    t = cfg.num_frames // cfg.tubelet_size
+    pos = get_3d_sincos_pos_embed(D, cfg.image_size // P, t, cls_token=True)
+    return {
+        "patch_kernel": init((P, P, 3, D)),
+        "patch_bias": torch.zeros(D, device=device, dtype=dtype),
+        "cls_token": torch.zeros(D, device=device, dtype=dtype),
+        "pos_embed": torch.from_numpy(pos).to(device=device, dtype=dtype),
+        "blocks": {
+            "norm1_w": full(1.0),
+            "qkv_kernel": init((Lyr, D, 3 * D)),
+            "q_norm_w": full(1.0),
+            "k_norm_w": full(1.0),
+            "proj": dense(D, D),
+            "ls1": full(cfg.layerscale_init),
+            "norm2_w": full(1.0),
+            "fc1": dense(D, I),
+            "fc2": dense(I, D),
+            "ls2": full(cfg.layerscale_init),
+        },
+    }
+
+
+# ---------------------------------------------------------------------------
+# Forward
+# ---------------------------------------------------------------------------
+
+
+def _block(x, bp, cfg: InternVideo2Config):
+    B, S, D = x.shape
+    H = cfg.num_heads
+    Dh = cfg.head_dim
+
+    h = rms_norm(x, bp["norm1_w"], cfg.rms_eps)
+    q, k, v = (h @ bp["qkv_kernel"]).split(D, dim=-1)   # [B, S, D] each
+    if cfg.qk_normalization:
+        # RMSNorm over the flattened head dim
+        q = rms_norm(q, bp["q_norm_w"], cfg.rms_eps)
+        k = rms_norm(k, bp["k_norm_w"], cfg.rms_eps)
+    q = q.reshape(B, S, H, Dh)
+    k = k.reshape(B, S, H, Dh)
+    v = v.reshape(B, S, H, Dh)
+    # QK-RMSNorm bounds the scores, so the kernel keeps a fixed softmax offset
+    attn = mha(q, k, v, causal=False,
+               bounded_softmax=cfg.qk_normalization).reshape(B, S, D)
+    attn = attn @ bp["proj"]["kernel"] + bp["proj"]["bias"]
+    x = x + layer_scale(attn, bp["ls1"])
+
+    h = rms_norm(x, bp["norm2_w"], cfg.rms_eps)
+    h = F.gelu(h @ bp["fc1"]["kernel"] + bp["fc1"]["bias"],
+               approximate="none")
+    h = h @ bp["fc2"]["kernel"] + bp["fc2"]["bias"]
+    return x + layer_scale(h, bp["ls2"])
+
+
+def patch_embed(params, cfg: InternVideo2Config,
+                pixels: torch.Tensor) -> torch.Tensor:
+    """pixels [B, T, S, S, 3] → [B, T*L, D]; tubelet 1 is a per-frame 2D
+    conv."""
+    B, T, Hp, Wp, C = pixels.shape
+    kernel = params["patch_kernel"]                       # [P, P, 3, D] HWIO
+    flat = pixels.reshape(B * T, Hp, Wp, C).to(kernel.dtype)
+    patches = F.conv2d(flat.permute(0, 3, 1, 2), kernel.permute(3, 2, 0, 1),
+                       stride=cfg.patch_size)             # [B*T, D, 16, 16]
+    patches = patches.flatten(2).transpose(1, 2) + params["patch_bias"]
+    return patches.reshape(B, T * cfg.patches_per_frame, cfg.embed_dim)
+
+
+def features(params, cfg: InternVideo2Config,
+             pixels: torch.Tensor) -> torch.Tensor:
+    """The trunk with early exit after num_blocks_used blocks → [B, 1+T*L, D]
+    (CLS included; callers drop it)."""
+    x = patch_embed(params, cfg, pixels)
+    B = x.shape[0]
+    cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.embed_dim)
+    x = torch.cat([cls, x], dim=1)
+    x = x + params["pos_embed"].to(x.dtype)
+    for i in range(cfg.num_blocks_used):
+        x = _block(x, layer_slice(params["blocks"], i), cfg)
+    return x

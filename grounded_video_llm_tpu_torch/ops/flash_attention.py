@@ -1,0 +1,245 @@
+"""Flash-attention forward: the hand-written CUDA kernel (csrc/flash_fwd.cu)
+and its plain PyTorch version (port of the forward half of
+grounded_video_llm_tpu/ops/flash_attention.py).
+
+``flash_fwd`` keeps the contract of the JAX ``_flash_fwd``: q [B,Sq,H,D],
+k/v [B,Sk,Hkv,D], an additive fp32 key bias [B,Sk], returns (o [B,Sq,H,D],
+lse [B,H,Sq] fp32). On CPU tensors it runs ``flash_fwd_reference``; on CUDA
+tensors it launches the kernel or raises. There is no fallback between the
+two and no backward in this module yet.
+
+The kernel library is compiled with nvcc at first use, from the source in
+this checkout, into ``build/torch_kernels/<source hash>/`` under the
+repository root, and loaded with ctypes (no PyTorch headers, so the build
+takes seconds).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional, Tuple
+
+import torch
+
+NEG_INF = float(torch.finfo(torch.float32).min)
+# Fixed exp offset replacing the row max when scores are known to be bounded
+# (QK-RMSNormed InternVideo2 attention). Softmax is offset-invariant, so the
+# result is the same; exp(s - 40) overflows fp32 only at s > 128.4.
+BOUNDED_OFFSET = 40.0
+# Finite start of the online-softmax running max: -inf - -inf is NaN.
+_M_INIT = -1e30
+_LOG2E = 1.4426950408889634
+
+HEAD_DIMS = (64, 88, 96, 128)
+
+_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_fwd.cu"
+_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+class CudaKernel:
+    """A ctypes-bound entry point of a kernel library built from one CUDA
+    source, plus the number of launches made through its wrapper. argtypes:
+    the C signature (c_void_p for every pointer and the stream)."""
+
+    def __init__(self, source: Path, symbol: str, argtypes):
+        self.source = source
+        self.symbol = symbol
+        self.argtypes = argtypes
+        self.launches = 0
+        self.build_seconds: Optional[float] = None
+        self.build_log = ""
+        self._fn = None
+
+    def library_path(self) -> Path:
+        digest = hashlib.sha256(self.source.read_bytes()
+                                + " ".join(_NVCC_FLAGS).encode())
+        return (_BUILD_ROOT / digest.hexdigest()[:16]
+                / f"lib{self.source.stem}.so")
+
+    def build(self) -> Path:
+        """Compile the source with nvcc unless this exact source (by hash)
+        was built already. Raises if nvcc is missing or fails."""
+        so = self.library_path()
+        if so.exists():
+            return so
+        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+        if not os.path.exists(nvcc):
+            raise RuntimeError(
+                f"nvcc not found: cannot build {self.source.name}")
+        so.parent.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(self.source)],
+            capture_output=True, text=True)
+        self.build_seconds = time.perf_counter() - t0
+        self.build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
+                               f"{self.build_log}")
+        os.replace(tmp, so)
+        return so
+
+    def function(self):
+        if self._fn is None:
+            lib = ctypes.CDLL(str(self.build()))
+            fn = getattr(lib, self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        return self._fn
+
+
+# gvllm_flash_fwd(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv, D, scale, causal,
+#                 bounded, window, q_offset, stream) -> cudaError_t
+FLASH_FWD = CudaKernel(
+    _CSRC, "gvllm_flash_fwd",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+
+def flash_fwd_reference(q, k, v, bias, scale, causal, bounded=False,
+                        window=None, has_bias=True, q_offset=None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: fp32 einsum and softmax with the
+    kernel's bias, causal, window, dead-row and lse conventions. bias is
+    added when has_bias (non-causal) or always (causal), as in the two
+    Pallas kernels; the causal kernel ignores bounded."""
+    B, Sq, H, D = q.shape
+    _, Sk, Hkv, _ = k.shape
+    G = H // Hkv
+    if q_offset is None:
+        q_offset = Sk - Sq
+    qf = q.float().reshape(B, Sq, Hkv, G, D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k.float()).reshape(
+        B, H, Sq, Sk)
+    add_bias = bias is not None and (causal or has_bias)
+    bounded = bounded and not causal
+    if bounded and not add_bias:
+        # raw scores feed exp2 through one fused scale (the encoder path)
+        m = torch.full((B, H, Sq, 1), BOUNDED_OFFSET, device=q.device)
+        p = torch.exp2(s * (scale * _LOG2E) - BOUNDED_OFFSET * _LOG2E)
+    else:
+        s = s * scale
+        if add_bias:
+            s = s + bias.float()[:, None, None, :]
+        if causal:
+            qpos = torch.arange(Sq, device=q.device)[:, None] + q_offset
+            kpos = torch.arange(Sk, device=q.device)[None, :]
+            keep = kpos <= qpos
+            if window is not None:
+                keep = keep & (qpos - kpos < window)
+            s = torch.where(keep, s, NEG_INF)
+        if bounded:
+            m = torch.full((B, H, Sq, 1), BOUNDED_OFFSET, device=q.device)
+            p = torch.exp2(s * _LOG2E - BOUNDED_OFFSET * _LOG2E)
+        else:
+            m = s.amax(dim=-1, keepdim=True).clamp_min(_M_INIT)
+            p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)                        # [B, H, Sq, 1]
+    dead = l <= 0.0
+    l_safe = torch.where(dead, 1.0, l)
+    o = torch.einsum("bhgqk,bkhd->bhgqd", p.reshape(B, Hkv, G, Sq, Sk),
+                     v.float()).reshape(B, H, Sq, D)
+    o = torch.where(dead, 0.0, o / l_safe)
+    lse = torch.where(dead, torch.inf, m + torch.log(l_safe))[..., 0]
+    return o.permute(0, 2, 1, 3).to(q.dtype).contiguous(), lse
+
+
+def _check_launch_args(q, k, v, bias, window):
+    tensors = [q, k, v] + ([bias] if bias is not None else [])
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("flash_fwd: q, k, v and bias must share a device")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash_fwd kernel takes bf16 {name}, "
+                            f"got {t.dtype}")
+        if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_fwd kernel takes a contiguous, 16-byte "
+                             f"aligned [B, S, H, D] {name}")
+    B, Sq, H, D = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
+        raise ValueError(f"flash_fwd: k {tuple(k.shape)} / v "
+                         f"{tuple(v.shape)} do not match q {tuple(q.shape)}")
+    Hkv = k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"flash_fwd: {H} q heads over {Hkv} kv heads")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"flash_fwd kernel head dims are {HEAD_DIMS}, "
+                         f"got {D}")
+    if Sq == 0 or k.shape[1] == 0:
+        raise ValueError("flash_fwd: empty sequence")
+    if bias is not None and (bias.dtype != torch.float32
+                             or bias.shape != (B, k.shape[1])
+                             or not bias.is_contiguous()):
+        raise ValueError("flash_fwd kernel takes a contiguous fp32 [B, Sk] "
+                         "bias")
+    if window is not None and window <= 0:
+        raise ValueError(f"flash_fwd: window must be positive, got {window}")
+
+
+def flash_fwd(q, k, v, bias, scale, causal, bounded=False, window=None,
+              has_bias=True, q_offset=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B,Sq,H,D], lse [B,H,Sq] fp32). CPU tensors run the plain version;
+    CUDA tensors launch the kernel (each launch counts in
+    FLASH_FWD.launches) or raise."""
+    if q.device.type == "cpu":
+        return flash_fwd_reference(q, k, v, bias, scale, causal, bounded,
+                                   window, has_bias, q_offset)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_fwd: no kernel for device {q.device}")
+    if not (causal or has_bias):
+        bias = None
+    _check_launch_args(q, k, v, bias, window)
+    B, Sq, H, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    if q_offset is None:
+        q_offset = Sk - Sq
+    fn = FLASH_FWD.function()
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+             bias.data_ptr() if bias is not None else None,
+             o.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, Hkv, D,
+             float(scale), int(causal), int(bounded),
+             int(window) if window is not None else 0, int(q_offset),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    FLASH_FWD.launches += 1
+    return o, lse
+
+
+def flash_mha(q, k, v, *, causal: bool = False,
+              mask: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None,
+              bounded_softmax: bool = False,
+              sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Attention through flash_fwd. mask: [B, Sk] keep-mask or None.
+    bounded_softmax: skip the row-max pass (qk-normed scores only).
+    sliding_window: causal only; keep keys with qpos - kpos < window."""
+    if mask is not None and mask.dim() != 2:
+        raise ValueError("flash_mha takes a [B, Sk] keep-mask; got "
+                         f"{tuple(mask.shape)}")
+    if sliding_window is not None and not causal:
+        raise ValueError("sliding_window requires causal attention")
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    bias = None
+    if mask is not None:
+        bias = torch.where(mask.bool(), 0.0, NEG_INF).float().contiguous()
+    # split q/k/v projections arrive as strided views; the kernel reads
+    # dense [B, S, H, D]
+    o, _ = flash_fwd(q.contiguous(), k.contiguous(), v.contiguous(), bias,
+                     scale, causal, bounded_softmax, sliding_window,
+                     mask is not None)
+    return o

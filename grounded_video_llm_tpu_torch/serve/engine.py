@@ -1,0 +1,166 @@
+"""High-level inference engine (port of the lockstep single-video path of
+grounded_video_llm_tpu/serve/engine.py).
+
+Pipeline: video file → 96-frame 'middle' sampling → host uint8 resize/crop →
+prompt build (qa / grounding / referring) → encode, splice, prefill, decode
+on the device → temporal-token parsing.
+
+    engine = InferenceEngine(params, cfg, tokenizer, device="cuda")
+    result = engine.run(video_path, prompt, mode="grounding")
+
+``run_frames`` takes already decoded frames (uint8 [F, H, W, 3]) and runs
+everything after the decoder. After each request ``last_timings`` holds its
+phase times in seconds (preprocess, encode, prefill, decode), the prompt
+length in tokens and the number of tokens generated.
+
+Not ported yet: int8 serving (``quantize``), beam search, speculative
+decoding, the feature and prefix caches and batched streaming.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from grounded_video_llm_tpu.text import codec
+from grounded_video_llm_tpu.text.templates import (DEFAULT_IMAGE_TOKEN,
+                                                   GROUNDING_TOKEN,
+                                                   get_template)
+from grounded_video_llm_tpu.text.tokenizer import (pad_batch_generate,
+                                                   tokenize_with_image)
+from grounded_video_llm_tpu.video.reader import read_frames
+
+from ..core.config import GenerateConfig, VLMConfig
+from ..ops.preprocess import dual_stream_resize_host
+from .generate import decode_texts, generate_tokens
+
+
+@dataclasses.dataclass
+class InferenceResult:
+    text: str
+    parsed: str
+    duration: float
+    intervals: List[tuple]
+
+
+class InferenceEngine:
+    def __init__(self, params, cfg: VLMConfig, tokenizer,
+                 gen_cfg: Optional[GenerateConfig] = None, seed: int = 42,
+                 device=None, quantize: Optional[str] = None):
+        if quantize:
+            raise NotImplementedError(
+                f"quantize={quantize!r}: int8 serving comes with the int8 "
+                "slice (int8 GEMV, int8 KV-cache attention and cache-write "
+                "kernels); bf16 serving is ported")
+        self.params = params
+        self.cfg = cfg
+        self.tokenizer = tokenizer
+        self.gen_cfg = gen_cfg or GenerateConfig()
+        self.template = get_template(cfg.llm_name)
+        self.device = torch.device(
+            device if device is not None
+            else params["llm"]["embed"].device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        self.last_timings: dict = {}
+
+    # -- input construction -------------------------------------------------
+
+    def build_prompt(self, prompt: str, mode: str, duration: float) -> str:
+        assert mode in ("qa", "grounding", "referring")
+        if mode == "grounding":
+            q = DEFAULT_IMAGE_TOKEN + " " + GROUNDING_TOKEN + "\n" + prompt
+        elif mode == "referring":
+            q = DEFAULT_IMAGE_TOKEN + "\n" + codec.encode_referring_query(
+                prompt, duration, self.cfg.num_temporal_tokens)
+        else:
+            q = DEFAULT_IMAGE_TOKEN + "\n" + prompt
+        conv = [{"from": "human", "value": q}, {"from": "gpt", "value": ""}]
+        return self.template.encode_for_generation(conv)
+
+    def tokenize_prompt(self, text_prompt: str) -> List[int]:
+        """Token ids of a built prompt, its <image> slot as
+        IMAGE_TOKEN_INDEX."""
+        return tokenize_with_image(text_prompt, self.tokenizer)
+
+    def preprocess_frames(self, frames: np.ndarray):
+        """uint8 [F, H, W, 3] → (temporal [F,224,224,3], spatial
+        [segs,336,336,3]) uint8; normalization runs on the device."""
+        return dual_stream_resize_host(
+            frames, self.cfg.num_segs, self.cfg.temporal_image_size,
+            self.cfg.spatial_image_size)
+
+    def preprocess_video(self, video_path: str):
+        vf = read_frames(video_path, self.cfg.num_frames, sample="middle")
+        temporal, spatial = self.preprocess_frames(vf.frames)
+        return temporal, spatial, vf.duration
+
+    # -- generation ---------------------------------------------------------
+
+    def generate(self, prompts: List[str], temporal: np.ndarray,
+                 spatial: np.ndarray,
+                 gen_cfg: Optional[GenerateConfig] = None) -> List[str]:
+        """temporal [B,F,224,224,3], spatial [B,segs,336,336,3] (or unbatched
+        [F,...] / [segs,...] shared by every prompt)."""
+        g = gen_cfg or self.gen_cfg
+        if g.num_beams > 1:
+            raise NotImplementedError(
+                "num_beams > 1: beam search is not ported yet")
+        if g.spec_draft_len > 0:
+            raise NotImplementedError(
+                "spec_draft_len > 0: speculative decoding is not ported yet "
+                "(it needs the int8 verify-attention kernel)")
+        B = len(prompts)
+        if temporal.ndim == 4:
+            temporal = np.broadcast_to(temporal[None], (B, *temporal.shape))
+        if spatial.ndim == 4:
+            spatial = np.broadcast_to(spatial[None], (B, *spatial.shape))
+        seqs = [self.tokenize_prompt(p) for p in prompts]
+        input_ids, attn_mask = pad_batch_generate(
+            seqs, self.tokenizer.pad_token_id, self.cfg.max_txt_len)
+
+        def dev(a):  # np.array copies: broadcast views are read-only
+            return torch.from_numpy(np.array(a)).to(self.device)
+
+        self.last_timings = timings = {}
+        tokens, lengths = generate_tokens(
+            self.params, self.cfg, dev(input_ids).long(),
+            dev(attn_mask).long(), dev(spatial), dev(temporal),
+            self.generator, max_new_tokens=g.max_new_tokens,
+            temperature=g.temperature, top_p=g.top_p, do_sample=g.do_sample,
+            eos_token_id=self.tokenizer.eos_token_id,
+            pad_token_id=self.tokenizer.pad_token_id,
+            quantize_cache=g.quantize_cache, timings=timings)
+        timings["new_tokens"] = int(lengths.max())
+        timings["prompt_len"] = int(input_ids.shape[1])
+        return decode_texts(self.tokenizer, tokens, lengths,
+                            self.tokenizer.eos_token_id)
+
+    def _result(self, text: str, duration: float) -> InferenceResult:
+        parsed = codec.parse_time_interval(
+            text, duration, self.cfg.num_temporal_tokens, self.cfg.llm_name)
+        intervals = codec.extract_intervals(
+            text, duration, self.cfg.num_temporal_tokens)
+        return InferenceResult(text, parsed, duration, intervals)
+
+    def run_frames(self, frames: np.ndarray, duration: float, prompt: str,
+                   mode: str = "qa",
+                   gen_cfg: Optional[GenerateConfig] = None
+                   ) -> InferenceResult:
+        """One request from decoded frames uint8 [F, H, W, 3]."""
+        t0 = time.perf_counter()
+        temporal, spatial = self.preprocess_frames(frames)
+        preprocess_s = time.perf_counter() - t0
+        text_prompt = self.build_prompt(prompt, mode, duration)
+        texts = self.generate([text_prompt], temporal, spatial, gen_cfg)
+        self.last_timings["preprocess"] = preprocess_s
+        return self._result(texts[0], duration)
+
+    def run(self, video_path: str, prompt: str, mode: str = "qa",
+            gen_cfg: Optional[GenerateConfig] = None) -> InferenceResult:
+        vf = read_frames(video_path, self.cfg.num_frames, sample="middle")
+        return self.run_frames(vf.frames, vf.duration, prompt, mode, gen_cfg)

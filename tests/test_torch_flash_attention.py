@@ -1,0 +1,104 @@
+"""The port's flash_fwd (plain version on CPU) against the JAX _flash_fwd in
+Pallas interpret mode: o AND lse, over bias / bounded / causal / window /
+GQA / ragged S / head-dim cases. fp32, at the repo's kernel bar (rtol 2e-4,
+atol 2e-5, as tests/test_flash_attention.py)."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from grounded_video_llm_tpu.ops.flash_attention import _flash_fwd
+from grounded_video_llm_tpu_torch.ops.flash_attention import (NEG_INF,
+                                                              flash_fwd,
+                                                              flash_mha)
+
+RTOL, ATOL = 2e-4, 2e-5
+
+# (B, Sq, Sk, H, Hkv, D, causal, bounded, has_bias, window, pad_rows)
+# pad_rows: per batch row, how many leading keys the mask removes
+CASES = {
+    "noncausal": (2, 64, 64, 4, 4, 16, False, False, False, None, (0, 0)),
+    "noncausal_bias": (2, 64, 64, 4, 4, 16, False, False, True, None,
+                       (0, 9)),
+    "noncausal_bias_deadrow": (2, 40, 40, 2, 2, 16, False, False, True, None,
+                               (0, 40)),
+    "bounded": (2, 129, 129, 4, 4, 88, False, True, False, None, (0, 0)),
+    "bounded_bias": (2, 37, 37, 4, 4, 16, False, True, True, None, (0, 5)),
+    "causal": (2, 37, 37, 4, 4, 16, True, False, False, None, (0, 0)),
+    "causal_leftpad": (2, 48, 48, 4, 4, 16, True, False, True, None, (0, 11)),
+    "causal_window": (2, 129, 129, 4, 4, 16, True, False, True, 7, (0, 3)),
+    "gqa_causal": (2, 37, 37, 4, 2, 16, True, False, True, None, (0, 4)),
+    "gqa_noncausal": (1, 129, 129, 4, 2, 88, False, False, False, None, (0,)),
+    "causal_d88": (1, 129, 129, 2, 2, 88, True, False, True, None, (5,)),
+    "causal_rect": (1, 16, 40, 2, 2, 16, True, False, True, None, (2,)),
+}
+
+
+def _inputs(B, Sq, Sk, H, Hkv, D, pad_rows, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(B, Sq, H, D)).astype(np.float32)
+    k = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    v = rng.normal(size=(B, Sk, Hkv, D)).astype(np.float32)
+    mask = np.ones((B, Sk), np.int32)
+    for b, n in enumerate(pad_rows):
+        mask[b, :n] = 0
+    bias = np.where(mask > 0, 0.0, NEG_INF).astype(np.float32)
+    return q, k, v, mask, bias
+
+
+@pytest.mark.parametrize("name", list(CASES))
+def test_flash_fwd_matches_jax(name):
+    (B, Sq, Sk, H, Hkv, D, causal, bounded, has_bias, window,
+     pad_rows) = CASES[name]
+    q, k, v, _, bias = _inputs(B, Sq, Sk, H, Hkv, D, pad_rows, seed=len(name))
+    if not has_bias and not causal:
+        bias = np.zeros_like(bias)
+    scale = D ** -0.5
+    o_j, lse_j = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(bias), scale, causal, bounded=bounded,
+                            window=window, has_bias=has_bias)
+    o_t, lse_t = flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), torch.from_numpy(bias), scale,
+                           causal, bounded=bounded, window=window,
+                           has_bias=has_bias)
+    assert o_t.shape == (B, Sq, H, D) and lse_t.shape == (B, H, Sq)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), rtol=RTOL,
+                               atol=ATOL)
+    assert not np.isnan(o_t.numpy()).any()
+
+
+def test_dead_rows_are_zero_with_infinite_lse():
+    """Left-padded causal rows whose keys are all masked: o == 0 exactly and
+    lse == +inf, in both packages."""
+    B, S, H, D = 2, 48, 4, 16
+    q, k, v, _, bias = _inputs(B, S, S, H, H, D, (0, 11), seed=3)
+    o_j, lse_j = _flash_fwd(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                            jnp.asarray(bias), D ** -0.5, True)
+    o_t, lse_t = flash_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                           torch.from_numpy(v), torch.from_numpy(bias),
+                           D ** -0.5, True)
+    for o, lse in ((o_t.numpy(), lse_t.numpy()),
+                   (np.asarray(o_j), np.asarray(lse_j))):
+        assert np.all(o[1, :11] == 0.0)
+        assert np.all(np.isposinf(lse[1, :, :11]))
+        assert np.all(np.isfinite(lse[1, :, 11:]))
+        assert np.all(np.isfinite(lse[0]))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_mha_keep_mask_matches_jax(causal):
+    from grounded_video_llm_tpu.ops.flash_attention import (
+        flash_mha as jax_flash_mha)
+
+    B, S, H, D = 2, 33, 4, 16
+    q, k, v, mask, _ = _inputs(B, S, S, H, 2, D, (0, 6), seed=11)
+    out_j = jax_flash_mha(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                          causal=causal, mask=jnp.asarray(mask))
+    out_t = flash_mha(torch.from_numpy(q), torch.from_numpy(k),
+                      torch.from_numpy(v), causal=causal,
+                      mask=torch.from_numpy(mask))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=RTOL,
+                               atol=ATOL)

@@ -13,10 +13,9 @@ from typing import Optional
 
 import torch
 
-from grounded_video_llm_tpu.text.tokenizer import load_tokenizer
-
 from ..core.config import VLMConfig
 from ..models import vlm
+from ..text.tokenizer import load_tokenizer
 
 
 def build_params(cfg: VLMConfig, device, dtype=torch.bfloat16,

@@ -10,7 +10,9 @@ Parameters are the JAX tree as a dict of tensors, stacked per layer:
   embeddings: class_embedding [D], patch_kernel [P,P,3,D] (HWIO),
               position_embedding [1+N,D]
   pre_ln: {scale, bias}
-  layers: {ln1, q, k, v, o, ln2, fc1, fc2}, each [L, ...]
+  layers: {ln1, q, k, v, o, ln2, fc1, fc2}, each [L, ...]; after
+          serve/quantize.quantize_clip_for_serving every "kernel" is a W8A8
+          Int8Weight (ops/int8_matmul.matmul_any)
   post_ln: {scale, bias}   (kept for checkpoint fidelity; unused)
 """
 
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from ..core.config import CLIPVisionConfig
 from ..ops.attention import mha
+from ..ops.int8_matmul import matmul_any
 from ..ops.normalization import layer_norm
 from .param_utils import layer_slice, normal
 
@@ -70,16 +73,19 @@ def _layer(x, lp, cfg: CLIPVisionConfig):
     residual = x
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
                    cfg.layer_norm_eps)
-    q = (h @ lp["q"]["kernel"] + lp["q"]["bias"]).reshape(B, S, H, -1)
-    k = (h @ lp["k"]["kernel"] + lp["k"]["bias"]).reshape(B, S, H, -1)
-    v = (h @ lp["v"]["kernel"] + lp["v"]["bias"]).reshape(B, S, H, -1)
+    q = (matmul_any(h, lp["q"]["kernel"]) + lp["q"]["bias"]).reshape(
+        B, S, H, -1)
+    k = (matmul_any(h, lp["k"]["kernel"]) + lp["k"]["bias"]).reshape(
+        B, S, H, -1)
+    v = (matmul_any(h, lp["v"]["kernel"]) + lp["v"]["bias"]).reshape(
+        B, S, H, -1)
     attn = mha(q, k, v, causal=False).reshape(B, S, D)
-    x = residual + (attn @ lp["o"]["kernel"] + lp["o"]["bias"])
+    x = residual + (matmul_any(attn, lp["o"]["kernel"]) + lp["o"]["bias"])
     residual = x
     h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"],
                    cfg.layer_norm_eps)
-    h = quick_gelu(h @ lp["fc1"]["kernel"] + lp["fc1"]["bias"])
-    return residual + (h @ lp["fc2"]["kernel"] + lp["fc2"]["bias"])
+    h = quick_gelu(matmul_any(h, lp["fc1"]["kernel"]) + lp["fc1"]["bias"])
+    return residual + (matmul_any(h, lp["fc2"]["kernel"]) + lp["fc2"]["bias"])
 
 
 def embed(params, cfg: CLIPVisionConfig, pixels: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,12 @@ patch kernels, stacked layers). The bridge builds the expected tree on the
 meta device (shapes only, no memory), fills every leaf from the numpy tree
 by its path, and fails loudly on a missing, extra, reused or misshapen
 tensor.
+
+A serving-int8 tree (the JAX ``serve/quantize.py``) maps exactly: each
+``{"q", "scale"}`` pair becomes an ``Int8Weight`` (values and scales copied
+bit for bit, whatever ``dtype`` says), the ``"w8a8": None`` marker its
+``w8a8`` flag, and the LLM's embedding pair an ``Int8Embedding``. Any other
+entry of such a pair (a calibrated ``x_scale``) is refused.
 """
 
 from __future__ import annotations
@@ -17,11 +23,18 @@ import numpy as np
 import torch
 
 from ..core.config import VLMConfig
+from ..ops.int8_matmul import Int8Embedding, Int8Weight
 from . import vlm
+
+_EMBED = ("llm", "embed")
+
+
+def _is_int8_pair(tree) -> bool:
+    return isinstance(tree, dict) and {"q", "scale"} <= set(tree)
 
 
 def _flatten(tree, prefix: Tuple[str, ...] = ()) -> Dict[Tuple[str, ...], object]:
-    if isinstance(tree, dict):
+    if isinstance(tree, dict) and not _is_int8_pair(tree):
         out = {}
         for k, v in tree.items():
             out.update(_flatten(v, prefix + (k,)))
@@ -35,11 +48,38 @@ def _set(tree: dict, path: Tuple[str, ...], value) -> None:
     tree[path[-1]] = value
 
 
+def _int8_from_jax(path, pair: dict, shape, device):
+    name = "/".join(path)
+    extra = sorted(set(pair) - {"q", "scale", "w8a8"})
+    if extra:
+        raise ValueError(f"params_from_jax: {name} has {extra}; static "
+                         "activation scales are not ported")
+    if pair.get("w8a8", None) is not None:
+        raise ValueError(f"params_from_jax: {name}/w8a8 must be the None "
+                         "marker")
+    q, s = np.asarray(pair["q"]), np.asarray(pair["scale"])
+    want_s = shape[:1] if path == _EMBED else shape[:-2] + shape[-1:]
+    if (q.dtype != np.int8 or s.dtype != np.float32
+            or q.shape != shape or s.shape != want_s):
+        raise ValueError(f"params_from_jax: {name} int8 pair is "
+                         f"{q.dtype}{q.shape} / {s.dtype}{s.shape}, expected "
+                         f"int8{shape} / float32{want_s}")
+    qt = torch.from_numpy(q.copy()).to(device)
+    st = torch.from_numpy(s.copy()).to(device)
+    if path == _EMBED:
+        if "w8a8" in pair:
+            raise ValueError("params_from_jax: the embedding has no w8a8 "
+                             "marker")
+        return Int8Embedding(qt, st)
+    return Int8Weight(qt, st, "w8a8" in pair)
+
+
 def params_from_jax(np_tree, cfg: VLMConfig, device,
                     dtype=torch.float32) -> dict:
-    """np_tree: the JAX ``vlm.init_params`` pytree with numpy leaves (e.g.
-    ``jax.tree_util.tree_map(np.asarray, params)``) → this package's params
-    on ``device`` in ``dtype``. Every leaf is used exactly once."""
+    """np_tree: the JAX ``vlm.init_params`` pytree (serving-quantized or
+    not) with numpy leaves (e.g. ``jax.tree_util.tree_map(np.asarray,
+    params)``) → this package's params on ``device``, dense tensors in
+    ``dtype``. Every leaf is used exactly once."""
     expected = vlm.init_params(cfg, generator=None, device="meta",
                                dtype=dtype)
     want = _flatten(expected)
@@ -51,12 +91,18 @@ def params_from_jax(np_tree, cfg: VLMConfig, device,
                          f"unexpected {extra}")
     used = 0
     for path, meta in want.items():
-        arr = np.asarray(have[path])
-        if tuple(arr.shape) != tuple(meta.shape):
-            raise ValueError(f"params_from_jax: {'/'.join(path)} has shape "
-                             f"{arr.shape}, expected {tuple(meta.shape)}")
-        _set(expected, path, torch.from_numpy(
-            np.array(arr, dtype=np.float32)).to(device=device, dtype=dtype))
+        shape = tuple(meta.shape)
+        src = have[path]
+        if _is_int8_pair(src):
+            value = _int8_from_jax(path, src, shape, device)
+        else:
+            arr = np.asarray(src)
+            if tuple(arr.shape) != shape:
+                raise ValueError(f"params_from_jax: {'/'.join(path)} has "
+                                 f"shape {arr.shape}, expected {shape}")
+            value = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+                device=device, dtype=dtype)
+        _set(expected, path, value)
         used += 1
     if used != len(have) or used != len(want):
         raise ValueError(f"params_from_jax: used {used} of {len(have)} JAX "

@@ -10,7 +10,9 @@ Parameters are the JAX tree as a dict of tensors, stacked per block:
   patch_kernel [P,P,3,D] (HWIO), patch_bias [D], cls_token [D],
   pos_embed [1+T*L, D]
   blocks: {norm1_w, qkv_kernel [Lyr,D,3D], q_norm_w, k_norm_w, proj, ls1,
-           norm2_w, fc1, fc2, ls2}
+           norm2_w, fc1, fc2, ls2}; after
+          serve/quantize.quantize_video_encoder_for_serving qkv_kernel and
+          the proj/fc1/fc2 kernels are W8A8 Int8Weights
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from ..core.config import InternVideo2Config
 from ..ops.attention import mha
+from ..ops.int8_matmul import matmul_any
 from ..ops.normalization import layer_scale, rms_norm
 from .param_utils import layer_slice, truncated_normal
 
@@ -142,7 +145,7 @@ def _block(x, bp, cfg: InternVideo2Config):
     Dh = cfg.head_dim
 
     h = rms_norm(x, bp["norm1_w"], cfg.rms_eps)
-    q, k, v = (h @ bp["qkv_kernel"]).split(D, dim=-1)   # [B, S, D] each
+    q, k, v = matmul_any(h, bp["qkv_kernel"]).split(D, dim=-1)  # [B,S,D]
     if cfg.qk_normalization:
         # RMSNorm over the flattened head dim
         q = rms_norm(q, bp["q_norm_w"], cfg.rms_eps)
@@ -153,13 +156,13 @@ def _block(x, bp, cfg: InternVideo2Config):
     # QK-RMSNorm bounds the scores, so the kernel keeps a fixed softmax offset
     attn = mha(q, k, v, causal=False,
                bounded_softmax=cfg.qk_normalization).reshape(B, S, D)
-    attn = attn @ bp["proj"]["kernel"] + bp["proj"]["bias"]
+    attn = matmul_any(attn, bp["proj"]["kernel"]) + bp["proj"]["bias"]
     x = x + layer_scale(attn, bp["ls1"])
 
     h = rms_norm(x, bp["norm2_w"], cfg.rms_eps)
-    h = F.gelu(h @ bp["fc1"]["kernel"] + bp["fc1"]["bias"],
+    h = F.gelu(matmul_any(h, bp["fc1"]["kernel"]) + bp["fc1"]["bias"],
                approximate="none")
-    h = h @ bp["fc2"]["kernel"] + bp["fc2"]["bias"]
+    h = matmul_any(h, bp["fc2"]["kernel"]) + bp["fc2"]["bias"]
     return x + layer_scale(h, bp["ls2"])
 
 

@@ -1,13 +1,20 @@
-"""Decoder-only causal LM, Phi-3.5-mini bf16 path (port of
+"""Decoder-only causal LM, Phi-3.5-mini serving path (port of
 grounded_video_llm_tpu/models/llm.py).
 
 Pre-RMSNorm blocks with a fused qkv projection, SiLU-gated fused gate_up MLP,
 LongRoPE and fp32 logits. Weights are [D_in, D_out] kernels stacked along a
-leading layer axis, as in the JAX package.
+leading layer axis, as in the JAX package; after ``serve/quantize.py`` they
+are ``Int8Weight``s and the embedding an ``Int8Embedding`` (activations then
+run in bf16).
 
-Decode uses a fixed-shape KV cache [L, B, max_len, Hkv, Dh] with a validity
-mask over slots. Not ported yet: the int8 serving stack (int8 weights,
-QuantKVCache), LoRA, training, prefix-KV and cascade decode.
+Decode uses a fixed-shape cache with a validity mask over slots: the bf16
+``KVCache`` [L, B, max_len, Hkv, Dh] or the int8 ``QuantKVCache``
+(ops/decode_attention_int8 for its layout). int8 projections below the
+GEMM switch run ops/int8_matmul.int8_matmul, weight-only, except in a decode
+step on the int8 cache, where a weight under the w8a8 marker runs its w8a8
+branch (JAX's K3); there the attention runs K4 and the cache write K5. Not
+ported yet: LoRA, training, prefix-KV, cascade decode, speculative verify
+and continuous batching.
 """
 
 from __future__ import annotations
@@ -15,11 +22,14 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-import torch.nn.functional as F
 
 from ..core.config import LLMConfig
 from ..core.dtypes import matmul_f32
 from ..ops.attention import decode_attention, mha
+from ..ops.cache_write import scatter_write
+from ..ops.decode_attention_int8 import decode_attention_int8, quantize_kv
+from ..ops.int8_matmul import (INT8_GEMM_MIN_ROWS, Int8Embedding, Int8Weight,
+                               dynamic_int8_matmul, int8_matmul)
 from ..ops.normalization import rms_norm
 from ..ops.rope import apply_rope, llm_rope_tables
 from .param_utils import layer_slice, normal
@@ -38,6 +48,38 @@ class KVCache(NamedTuple):
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(batch, dtype=torch.int32, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[2]
+
+
+class QuantKVCache(NamedTuple):
+    """int8 KV cache with one fp32 scale per (slot, kv head). Unwritten
+    slots hold 0 with scale 1, the JAX package's padding."""
+    k: torch.Tensor        # [L, B, Hkv, max_len, Dh] int8
+    k_scale: torch.Tensor  # [L, B, Hkv, max_len] fp32
+    v: torch.Tensor
+    v_scale: torch.Tensor
+    length: torch.Tensor   # [B] int32
+
+    @classmethod
+    def create(cls, cfg: LLMConfig, batch: int, max_len: int, device=None):
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len,
+                 cfg.head_dim)
+
+        def values():
+            return torch.zeros(shape, dtype=torch.int8, device=device)
+
+        def scales():
+            return torch.ones(shape[:4], dtype=torch.float32, device=device)
+
+        return cls(values(), scales(), values(), scales(),
+                   torch.zeros(batch, dtype=torch.int32, device=device))
+
+    @property
+    def max_len(self) -> int:
+        return self.k.shape[3]
 
 
 def init_params(cfg: LLMConfig, *, generator: torch.Generator, device,
@@ -70,31 +112,60 @@ def init_params(cfg: LLMConfig, *, generator: torch.Generator, device,
     }
 
 
-def embed_lookup(embed: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
-    """Dense embedding gather (the int8 table comes with the int8 stack)."""
-    if not isinstance(embed, torch.Tensor):
-        raise NotImplementedError(
-            "embed_lookup: only the dense bf16/fp32 table is ported; the "
-            "int8 embedding table comes with the int8 serving slice")
+def embed_lookup(embed, token_ids: torch.Tensor,
+                 dtype=torch.bfloat16) -> torch.Tensor:
+    """Embedding gather; an int8 table dequantizes its rows into dtype."""
+    if isinstance(embed, Int8Embedding):
+        rows = embed.q[token_ids].float()
+        return (rows * embed.scale[token_ids][..., None]).to(dtype)
     return embed[token_ids]
 
 
-def _dense(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    return x @ kernel
+def embed_dtype(embed) -> torch.dtype:
+    """Activation dtype implied by an embedding table (int8 → bf16)."""
+    return torch.bfloat16 if isinstance(embed, Int8Embedding) else embed.dtype
 
 
-def _qkv(x, lp, cfg: LLMConfig):
+def _matmul_maybe_int8(x: torch.Tensor, kernel,
+                       w8a8_decode: bool = False) -> torch.Tensor:
+    """x [..., D] @ kernel for a dense or int8 weight. int8 with rows at or
+    above INT8_GEMM_MIN_ROWS: W8A8 under the w8a8 marker, else the weight
+    dequantized once into x's dtype and a plain matmul; fewer rows: the int8
+    decode kernel, weight-only unless w8a8_decode (a decode step on the int8
+    cache) and the weight carries the marker."""
+    if not isinstance(kernel, Int8Weight):
+        return x @ kernel
+    rows = x.numel() // x.shape[-1]
+    if rows >= INT8_GEMM_MIN_ROWS:
+        if kernel.w8a8:
+            return dynamic_int8_matmul(x, kernel.q, kernel.scale)
+        w = kernel.q.to(x.dtype) * kernel.scale.to(x.dtype)
+        return matmul_f32(x, w).to(x.dtype)
+    out = int8_matmul(x.reshape(-1, x.shape[-1]), kernel.q, kernel.scale,
+                      w8a8_decode and kernel.w8a8)
+    return out.reshape(*x.shape[:-1], out.shape[-1])
+
+
+def _qkv(x, lp, cfg: LLMConfig, w8a8_decode: bool = False):
     B, S, _ = x.shape
-    q, k, v = _dense(x, lp["qkv_kernel"]).split(
+    q, k, v = _matmul_maybe_int8(x, lp["qkv_kernel"], w8a8_decode).split(
         [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     return (q.reshape(B, S, cfg.num_heads, cfg.head_dim),
             k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
             v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim))
 
 
-def _mlp(h, lp, cfg: LLMConfig):
-    gate, up = _dense(h, lp["gate_up_kernel"]).chunk(2, dim=-1)
-    return _dense(F.silu(gate) * up, lp["down_kernel"])
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu as the JAX package computes it, x * 1 / (1 + exp(-x)),
+    rounding to x's dtype after each step (in bf16 that is not
+    F.silu's single rounding)."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def _mlp(h, lp, cfg: LLMConfig, w8a8_decode: bool = False):
+    gate, up = _matmul_maybe_int8(h, lp["gate_up_kernel"],
+                                  w8a8_decode).chunk(2, dim=-1)
+    return _matmul_maybe_int8(silu(gate) * up, lp["down_kernel"], w8a8_decode)
 
 
 def _layer_full(x, lp, cfg: LLMConfig, cos, sin, attn_mask):
@@ -105,72 +176,87 @@ def _layer_full(x, lp, cfg: LLMConfig, cos, sin, attn_mask):
     q, k = apply_rope(q, k, cos, sin)
     attn = mha(q, k, v, causal=True, mask=attn_mask,
                sliding_window=cfg.sliding_window).reshape(B, S, cfg.q_dim)
-    x = x + _dense(attn, lp["o_kernel"])
+    x = x + _matmul_maybe_int8(attn, lp["o_kernel"])
     h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
     x = x + _mlp(h, lp, cfg)
     return x, (k, v)
 
 
+def _write_prompt_kv(cache, i: int, k: torch.Tensor, v: torch.Tensor):
+    """Layer i's prompt k/v [B, S, Hkv, Dh] into the cache's slots [0, S):
+    as they are (bf16 cache) or quantized per (slot, kv head) (int8)."""
+    S = k.shape[1]
+    if isinstance(cache, KVCache):
+        cache.k[i, :, :S] = k
+        cache.v[i, :, :S] = v
+        return
+    for vals, scales, x in ((cache.k, cache.k_scale, k),
+                            (cache.v, cache.v_scale, v)):
+        xq, xs = quantize_kv(x)                  # [B,S,Hkv,Dh], [B,S,Hkv]
+        vals[i, :, :, :S] = xq.transpose(1, 2)
+        scales[i, :, :, :S] = xs.transpose(1, 2)
+
+
 def forward_hidden(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
-                   attn_mask: torch.Tensor, kv_out: tuple) -> torch.Tensor:
+                   attn_mask: torch.Tensor, cache) -> torch.Tensor:
     """Run all decoder layers → hidden [B, S, D]; the JAX function with
     collect_kv=True and kv_pad_to=max_len.
 
-    Every layer's k/v is written in place into kv_out, a cache's own
-    [L, B, max_len, Hkv, Dh] buffers, so no second prompt-length copy
-    exists. The LongRoPE factors are chosen from max_len, the cache
-    capacity, as in JAX prefill."""
-    S = inputs_embeds.shape[1]
-    k_out, v_out = kv_out
+    Every layer's k/v is written in place into the cache's buffers (a
+    KVCache or QuantKVCache), so no second prompt-length copy exists. The
+    LongRoPE factors are chosen from max_len, the cache capacity, as in JAX
+    prefill."""
     # left-padded prompts: position = cumsum(mask) - 1, clamped
     positions = (torch.cumsum(attn_mask.long(), dim=-1) - 1).clamp_min(0)
-    cos, sin = llm_rope_tables(cfg, positions, seq_len_hint=k_out.shape[2])
+    cos, sin = llm_rope_tables(cfg, positions, seq_len_hint=cache.max_len)
 
     lay = params["layers"]
     x = inputs_embeds
     for i in range(lay["input_norm_w"].shape[0]):
         x, (k, v) = _layer_full(x, layer_slice(lay, i), cfg, cos, sin,
                                 attn_mask)
-        k_out[i, :, :S] = k
-        v_out[i, :, :S] = v
+        _write_prompt_kv(cache, i, k, v)
     return rms_norm(x, params["final_norm_w"], cfg.rms_eps)
 
 
 def logits_from_hidden(params, hidden: torch.Tensor) -> torch.Tensor:
-    """fp32 logits, accumulated in fp32 over the stored-dtype lm_head (no
-    fp32 copy of the [D, V] matrix per step)."""
-    return matmul_f32(hidden, params["lm_head"])
+    """fp32 logits. A dense lm_head accumulates in fp32 over its stored
+    dtype (no fp32 copy of the [D, V] matrix per step); an int8 lm_head
+    gives x's dtype first, then fp32, as in the JAX package."""
+    lm_head = params["lm_head"]
+    if isinstance(lm_head, Int8Weight):
+        return _matmul_maybe_int8(hidden, lm_head).float()
+    return matmul_f32(hidden, lm_head)
 
 
 def prefill(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
-            attn_mask: torch.Tensor, cache: KVCache):
+            attn_mask: torch.Tensor, cache):
     """Run the left-padded prompt once → (last-position logits [B, V] fp32,
-    KVCache filled up to S). The prompt's k/v are written into the given
-    cache's buffers in place."""
+    the cache filled up to S). The cache's type (KVCache or QuantKVCache)
+    decides how the prompt's k/v are stored; its buffers are written in
+    place."""
     B, S, _ = inputs_embeds.shape
-    hidden = forward_hidden(params, cfg, inputs_embeds, attn_mask,
-                            (cache.k, cache.v))
+    hidden = forward_hidden(params, cfg, inputs_embeds, attn_mask, cache)
     length = torch.full((B,), S, dtype=torch.int32,
                         device=inputs_embeds.device)
     logits = logits_from_hidden(params, hidden[:, -1:, :])
-    return logits[:, 0], KVCache(cache.k, cache.v, length)
+    return logits[:, 0], cache._replace(length=length)
 
 
 def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
-                cache: KVCache, valid_mask: torch.Tensor,
-                positions: torch.Tensor,
+                cache, valid_mask: torch.Tensor, positions: torch.Tensor,
                 active: Optional[torch.Tensor] = None):
-    """One decode step on the bf16 cache → (logits [B, V] fp32, cache,
-    valid_mask with the new slot set). token_embeds [B, 1, D]; valid_mask
-    [B, max_len] attendable slots; positions [B] of the new token."""
+    """One decode step → (logits [B, V] fp32, cache, valid_mask with the new
+    slot set). token_embeds [B, 1, D]; cache a KVCache or QuantKVCache;
+    valid_mask [B, max_len] attendable slots; positions [B] of the new
+    token. The caller's cache buffers are updated in place; the returned
+    cache shares them."""
     if active is not None:
-        # the bf16 write below uses one slot shared by every row; ragged
-        # per-row slots (continuous batching) need the int8 scatter path
         raise NotImplementedError(
-            "decode_step(active=...) (continuous batching) requires a "
-            "QuantKVCache; the bf16 KVCache path writes one shared slot")
+            "decode_step(active=...) (continuous batching) is not ported yet")
+    quant = isinstance(cache, QuantKVCache)
     B = token_embeds.shape[0]
-    max_len = cache.k.shape[2]
+    max_len = cache.max_len
     cos, sin = llm_rope_tables(cfg, positions[:, None], seq_len_hint=max_len)
 
     write_idx = cache.length.clamp_max(max_len - 1)      # [B]
@@ -191,25 +277,38 @@ def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
     for i in range(lay["input_norm_w"].shape[0]):
         lp = layer_slice(lay, i)
         h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg)
+        q, k, v = _qkv(h, lp, cfg, w8a8_decode=quant)
         q, k = apply_rope(q, k, cos, sin)
-        attn = decode_attention(q, cache.k[i], cache.v[i], attn_valid,
-                                k_new=k, v_new=v)
-        x = x + _dense(attn.reshape(B, 1, cfg.q_dim), lp["o_kernel"])
+        if quant:
+            attn = decode_attention_int8(
+                q, cache.k[i], cache.k_scale[i], cache.v[i], cache.v_scale[i],
+                attn_valid, k, v, scale=cfg.head_dim ** -0.5)
+        else:
+            attn = decode_attention(q, cache.k[i], cache.v[i], attn_valid,
+                                    k_new=k, v_new=v)
+        x = x + _matmul_maybe_int8(attn.reshape(B, 1, cfg.q_dim),
+                                   lp["o_kernel"], quant)
         h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg)
+        x = x + _mlp(h, lp, cfg, w8a8_decode=quant)
         new_ks.append(k[:, 0])
         new_vs.append(v[:, 0])
 
-    # One deferred write per cache, IN PLACE: batch serving keeps lengths
-    # uniform (left-padded prompts), so every row writes the same slot. The
-    # index stays a device tensor (no host sync per token). The caller's
-    # cache tensors are updated; the returned cache shares them.
-    slot_idx = write_idx[:1].long()
-    for buf, new in ((cache.k, new_ks), (cache.v, new_vs)):
-        buf.index_copy_(2, slot_idx,
-                        torch.stack(new)[:, :, None].to(buf.dtype))
-    new_cache = KVCache(cache.k, cache.v, cache.length + 1)
+    if quant:
+        # quantize the step's k/v per (layer, row, kv head), then one K5
+        # launch writes values and scales at each row's own slot
+        kq, ks = quantize_kv(torch.stack(new_ks))        # [L,B,Hkv,Dh]
+        vq, vs = quantize_kv(torch.stack(new_vs))
+        scatter_write([cache.k, cache.k_scale, cache.v, cache.v_scale],
+                      [kq, ks, vq, vs], write_idx)
+    else:
+        # batch serving keeps lengths uniform (left-padded prompts), so every
+        # row writes the same slot; the index stays a device tensor (no host
+        # sync per token)
+        slot_idx = write_idx[:1].long()
+        for buf, new in ((cache.k, new_ks), (cache.v, new_vs)):
+            buf.index_copy_(2, slot_idx,
+                            torch.stack(new)[:, :, None].to(buf.dtype))
+    new_cache = cache._replace(length=cache.length + 1)
     slot = (torch.arange(max_len, device=valid_mask.device)[None, :]
             == write_idx[:, None])
     valid_mask = valid_mask.bool() | slot

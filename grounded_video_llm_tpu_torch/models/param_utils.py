@@ -1,7 +1,7 @@
 """Parameter helpers shared by the models: seeded random initializers with
 the JAX package's schemes (jax.nn.initializers.normal, truncated_normal and
 lecun_normal) drawn from an explicit torch.Generator, and per-layer slicing
-of stacked parameter trees.
+of stacked parameter trees (dense tensors and ``Int8Weight``s).
 
 Samples are drawn in fp32 one leading-axis slice at a time and cast into a
 tensor of the target dtype, so a stacked [L, ...] weight never exists twice
@@ -14,6 +14,8 @@ import math
 from typing import Sequence
 
 import torch
+
+from ..ops.int8_matmul import Int8Weight
 
 # std of a unit normal truncated to [-2, 2]; JAX divides by it so the
 # truncated draw keeps the requested stddev
@@ -51,7 +53,10 @@ def lecun_normal(shape, *, generator, device, dtype):
 
 
 def layer_slice(tree, i: int):
-    """Layer i of a tree of stacked [L, ...] tensors, as views."""
+    """Layer i of a tree of stacked [L, ...] tensors or int8 weights, as
+    views."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
+    if isinstance(tree, Int8Weight):
+        return tree.layer(i)
     return tree[i]

@@ -24,12 +24,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from grounded_video_llm_tpu.text.templates import (IGNORE_INDEX,
-                                                   IMAGE_TOKEN_INDEX)
-
 from ..core.config import VLMConfig
 from ..ops.preprocess import (INTERNVIDEO_MEAN, INTERNVIDEO_STD,
                               OPENAI_DATASET_MEAN, OPENAI_DATASET_STD)
+from ..text.templates import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from . import clip_vit, internvideo2, llm as llm_mod, projectors
 from .param_utils import normal
 
@@ -150,7 +148,7 @@ def splice_multimodal(input_ids: torch.Tensor,          # [B, S]
                       labels: Optional[torch.Tensor],   # [B, S] or None
                       attn_mask: torch.Tensor,          # [B, S]
                       video_features: torch.Tensor,     # [B, NV, H]
-                      embed_table: torch.Tensor,        # [V, H]
+                      embed_table,                      # [V, H] or int8
                       is_text: Optional[torch.Tensor] = None,  # [B] bool
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor],
                                  torch.Tensor]:
@@ -181,7 +179,8 @@ def splice_multimodal(input_ids: torch.Tensor,          # [B, S]
     gathered_ids = torch.gather(input_ids, 1, t)
     safe_ids = torch.where(gathered_ids == IMAGE_TOKEN_INDEX, 0,
                            gathered_ids)
-    text_embeds = llm_mod.embed_lookup(embed_table, safe_ids)   # [B,S_out,H]
+    text_embeds = llm_mod.embed_lookup(
+        embed_table, safe_ids, llm_mod.embed_dtype(embed_table))  # [B,S_out,H]
 
     vj = (j - vstart[:, None]).clamp(0, NV - 1)
     video_gathered = torch.gather(

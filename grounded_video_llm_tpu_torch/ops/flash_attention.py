@@ -8,24 +8,17 @@ lse [B,H,Sq] fp32). On CPU tensors it runs ``flash_fwd_reference``; on CUDA
 tensors it launches the kernel or raises. There is no fallback between the
 two and no backward in this module yet.
 
-The kernel library is compiled with nvcc at first use, from the source in
-this checkout, into ``build/torch_kernels/<source hash>/`` under the
-repository root, and loaded with ctypes (no PyTorch headers, so the build
-takes seconds).
+The kernel library is built at first use by ``ops/cuda_build.py``.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
+
+from .cuda_build import CudaKernel
 
 NEG_INF = float(torch.finfo(torch.float32).min)
 # Fixed exp offset replacing the row max when scores are known to be bounded
@@ -38,70 +31,10 @@ _LOG2E = 1.4426950408889634
 
 HEAD_DIMS = (64, 88, 96, 128)
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc" / "flash_fwd.cu"
-_BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-
-
-class CudaKernel:
-    """A ctypes-bound entry point of a kernel library built from one CUDA
-    source, plus the number of launches made through its wrapper. argtypes:
-    the C signature (c_void_p for every pointer and the stream)."""
-
-    def __init__(self, source: Path, symbol: str, argtypes):
-        self.source = source
-        self.symbol = symbol
-        self.argtypes = argtypes
-        self.launches = 0
-        self.build_seconds: Optional[float] = None
-        self.build_log = ""
-        self._fn = None
-
-    def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(_NVCC_FLAGS).encode())
-        return (_BUILD_ROOT / digest.hexdigest()[:16]
-                / f"lib{self.source.stem}.so")
-
-    def build(self) -> Path:
-        """Compile the source with nvcc unless this exact source (by hash)
-        was built already. Raises if nvcc is missing or fails."""
-        so = self.library_path()
-        if so.exists():
-            return so
-        nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-        if not os.path.exists(nvcc):
-            raise RuntimeError(
-                f"nvcc not found: cannot build {self.source.name}")
-        so.parent.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *_NVCC_FLAGS, "-o", str(tmp), str(self.source)],
-            capture_output=True, text=True)
-        self.build_seconds = time.perf_counter() - t0
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
-                               f"{self.build_log}")
-        os.replace(tmp, so)
-        return so
-
-    def function(self):
-        if self._fn is None:
-            lib = ctypes.CDLL(str(self.build()))
-            fn = getattr(lib, self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
-
-
 # gvllm_flash_fwd(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv, D, scale, causal,
 #                 bounded, window, q_offset, stream) -> cudaError_t
 FLASH_FWD = CudaKernel(
-    _CSRC, "gvllm_flash_fwd",
+    "flash_fwd.cu", "gvllm_flash_fwd",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 
@@ -204,17 +137,14 @@ def flash_fwd(q, k, v, bias, scale, causal, bounded=False, window=None,
     Sk, Hkv = k.shape[1], k.shape[2]
     if q_offset is None:
         q_offset = Sk - Sq
-    fn = FLASH_FWD.function()
     o = torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-             bias.data_ptr() if bias is not None else None,
-             o.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, Hkv, D,
-             float(scale), int(causal), int(bounded),
-             int(window) if window is not None else 0, int(q_offset),
-             torch.cuda.current_stream(q.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: cudaError {err}")
+    FLASH_FWD(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+              bias.data_ptr() if bias is not None else None,
+              o.data_ptr(), lse.data_ptr(), B, Sq, Sk, H, Hkv, D,
+              float(scale), int(causal), int(bounded),
+              int(window) if window is not None else 0, int(q_offset),
+              torch.cuda.current_stream(q.device).cuda_stream)
     FLASH_FWD.launches += 1
     return o, lse
 

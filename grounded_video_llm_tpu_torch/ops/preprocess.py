@@ -1,8 +1,8 @@
 """Host half of frame preprocessing (port of
 grounded_video_llm_tpu/ops/preprocess.py): shorter-edge PIL-exact bicubic
 resize and center crop, staying uint8. Normalization runs on the device
-(models/vlm.py:_maybe_normalize). The resize itself is the JAX package's
-framework-free ops/pil_resize.py, imported rather than copied.
+(models/vlm.py:_maybe_normalize). The resize itself is the port's copy of
+the JAX package's framework-free ops/pil_resize.py.
 
 Output layout is channel-last [T, S, S, 3] uint8.
 """
@@ -13,9 +13,8 @@ from typing import Tuple
 
 import numpy as np
 
-from grounded_video_llm_tpu.ops.pil_resize import (resize_bicubic_batch_u8,
-                                                   resized_shape_torchvision)
-from grounded_video_llm_tpu.video.sampling import spatial_indices
+from ..video.sampling import spatial_indices
+from .pil_resize import resize_bicubic_batch_u8, resized_shape_torchvision
 
 OPENAI_DATASET_MEAN = (0.48145466, 0.4578275, 0.40821073)
 OPENAI_DATASET_STD = (0.26862954, 0.26130258, 0.27577711)

@@ -2,9 +2,10 @@
 grounded_video_llm_tpu/serve/generate.py).
 
 Prompts are left-padded so the newest token sits at a fixed position; the KV
-cache is preallocated at [L, B, prompt+video+max_new rounded up to 128, Hkv,
-Dh]; the decode loop is a Python loop with per-row EOS (finished rows emit
-pad) that stops when every row is done. Only new tokens are returned.
+cache (bf16, or int8 with ``quantize_cache``) is preallocated for
+prompt+video+max_new slots rounded up to 128; the decode loop is a Python
+loop with per-row EOS (finished rows emit pad) that stops when every row is
+done. Only new tokens are returned.
 
 Sampling draws from an explicit torch.Generator. Greedy decoding is
 token-exact against the JAX package; sampled decoding is not (the two
@@ -12,7 +13,8 @@ frameworks' random streams differ).
 
 ``timings``: pass a dict to have the phases (encode, prefill, decode)
 timed on the host clock; each boundary synchronizes the device first, so
-the seconds are device work, not enqueue time.
+the seconds are device work, not enqueue time. It also gets
+``decode_steps``, the number of decode_step calls.
 """
 
 from __future__ import annotations
@@ -68,24 +70,29 @@ class _PhaseClock:
         self.timings[phase] = self.timings.get(phase, 0.0) + now - self.t
         self.t = now
 
+    def count(self, name: str, n: int) -> None:
+        if self.timings is not None:
+            self.timings[name] = self.timings.get(name, 0) + n
+
 
 def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
                             video_features, generator, *, max_new_tokens,
                             temperature, top_p, do_sample, eos_token_id,
                             pad_token_id, quantize_cache, clock):
     """splice → prefill → decode loop."""
-    if quantize_cache:
-        raise NotImplementedError(
-            "quantize_cache (int8 KV cache) comes with the int8 serving "
-            "slice; the bf16 cache is ported")
     B, S = input_ids.shape
     embeds, _, mask = vlm.splice_multimodal(
         input_ids, None, attn_mask, video_features, params["llm"]["embed"])
     S_full = embeds.shape[1]
     max_len = -(-(S_full + max_new_tokens) // 128) * 128
 
-    cache = llm_mod.KVCache.create(cfg.llm, B, max_len, dtype=embeds.dtype,
-                                   device=embeds.device)
+    if quantize_cache:
+        cache = llm_mod.QuantKVCache.create(cfg.llm, B, max_len,
+                                            device=embeds.device)
+    else:
+        cache = llm_mod.KVCache.create(cfg.llm, B, max_len,
+                                       dtype=embeds.dtype,
+                                       device=embeds.device)
     logits, cache = llm_mod.prefill(params["llm"], cfg.llm, embeds, mask,
                                     cache)
     clock.mark("prefill")
@@ -94,20 +101,23 @@ def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
     valid0[:, :S_full] = mask.bool()
     # the next position continues after the last valid one
     pos0 = mask.sum(dim=-1).to(torch.int32)
-    out = _decode_loop(params, cfg, logits, cache, valid0, pos0, generator,
-                       max_new_tokens=max_new_tokens, temperature=temperature,
-                       top_p=top_p, do_sample=do_sample,
-                       eos_token_id=eos_token_id, pad_token_id=pad_token_id)
+    out, lengths, steps = _decode_loop(
+        params, cfg, logits, cache, valid0, pos0, generator,
+        max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
+        do_sample=do_sample, eos_token_id=eos_token_id,
+        pad_token_id=pad_token_id)
     clock.mark("decode")
-    return out
+    clock.count("decode_steps", steps)
+    return out, lengths
 
 
 def _decode_loop(params, cfg: VLMConfig, logits, cache, valid0, pos0,
                  generator, *, max_new_tokens, temperature, top_p, do_sample,
                  eos_token_id, pad_token_id
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Sample the first token from the prefill logits, then decode until
-    max_new_tokens or every row has emitted EOS."""
+    max_new_tokens or every row has emitted EOS → (tokens, lengths, number
+    of decode steps)."""
     B = logits.shape[0]
     tok = sample_logits(logits, generator, temperature, top_p, do_sample)
     out = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.int64,
@@ -129,7 +139,7 @@ def _decode_loop(params, cfg: VLMConfig, logits, cache, valid0, pos0,
         tok = nxt
         step += 1
     lengths = (out != pad_token_id).sum(dim=-1)
-    return out, lengths
+    return out, lengths, step - 1
 
 
 def generate_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,

@@ -166,10 +166,16 @@ def test_engine_text_and_parse_match_jax(model):
                                          ("spec_draft_len", 4),
                                          ("quantize_cache", True)])
 def test_engine_refuses_unported_modes(model, field, value):
+    """Beam search and speculative decoding are refused when a request
+    asks for them. The int8 cache is ported; what int8 serving still lacks,
+    static activation scales, is refused when the engine is made."""
     cfg, _, _, tp, tok = model
-    eng = TEngine(tp, cfg, tok, GenerateConfig(max_new_tokens=2,
-                                               **{field: value}))
+    gen = GenerateConfig(max_new_tokens=2, **{field: value})
+    for quantize in ("int8", "int8_full"):
+        with pytest.raises(NotImplementedError):
+            TEngine(tp, cfg, tok, gen, quantize=quantize, static_scales=True)
+    if field == "quantize_cache":
+        return
+    eng = TEngine(tp, cfg, tok, gen)
     with pytest.raises(NotImplementedError):
         eng.run_frames(_frames(5, cfg.num_frames), 5.0, "hi", mode="qa")
-    with pytest.raises(NotImplementedError):
-        TEngine(tp, cfg, tok, quantize="int8")

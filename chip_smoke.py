@@ -16,7 +16,12 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    int8 kernels' device times come from CUDA-graph replays, so the Python
    wrappers' launch cost is left out and printed beside them):
    flash_fwd (K1/K2: CLIP, InternVideo2 bounded, prefill causal, B=2
-   left-padded, edge cases); the one int8_matmul wrapper over its two
+   left-padded, edge cases); flash_bwd (K7: the grounded training shape
+   [1, 7515, 32, 96] causal with a right-padded mask, its plain version run
+   kv head by kv head, the SDPA backward beside it; B=2 with right
+   paddings; GQA with 8 kv heads of 128, non-causal D=88, a window, an
+   explicit q_offset, left padding with dead rows whose dq must be exactly
+   0); the one int8_matmul wrapper over its two
    kernels, w8a8 (int8_gemv, K3's w8a8 branch) and weight-only (int8_matmul,
    K6 and K3's weight-only branch): both at M 1 and 6 on the four Phi-3.5
    projections, weight-only also at M 1, 6, 255 on O 9216 and the lm_head's
@@ -27,7 +32,8 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    against the same weights on the host (plain versions): bf16 (card) vs
    fp32 (host), then int8 and int8_full with the int8 cache (same int8
    weights on both sides): video features, prefill logits, one decode
-   step's logits;
+   step's logits; then one grounded training microbatch with LoRA
+   attached (B != 0): the loss and every trainable leaf's gradient;
 5. the main path, full-width Phi-3.5 (vlm_config("phi3.5",
    stage="inference"), seeded random weights) on one seeded synthetic
    96-frame video resized once: a bf16 request, then the int8 modes through
@@ -39,7 +45,18 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    Each path runs with every launch count set to 0 just before it; its
    counts are read just after and held against the counts the config
    implies. Phase times, peak device memory, and a shape/finiteness check of
-   the features and logits.
+   the features and logits;
+6. the training path on the same weights: vlm_config("phi3.5",
+   stage="grounded") at full width, LoRA r=128 attached, the grounded
+   preset at a global batch of 2 in microbatches of 1 (grad_accum 2),
+   LoRA dropout 0.05, remat on, four synthetic grounded samples each
+   truncated at 4096 text tokens (spliced length 7,515), two optimizer
+   steps through TrainingStrategy.run_training: per step loss, grad_norm,
+   seconds, peak memory; the first step must change nothing (lr 0), the
+   second move every trainable leaf, no frozen leaf may change by a bit,
+   and the launch counts must be the config's (per microbatch flash_fwd
+   23 + 39 + 32 + 32 for the remat recompute, flash_bwd 32); a phase split
+   of one more microbatch and the model-FLOP share.
 
 The last three lines are the card, one JSON object describing the kernels,
 and {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -60,7 +77,17 @@ MAX_NEW_TOKENS = 32
 BOUND_O = 2e-2      # max |o_kernel - o_plain|: bf16 P and bf16 output
 BOUND_O_REL = 5e-3  # ||do|| / ||o_plain||; measured 1.9e-3 to 2.4e-3
 BOUND_LSE = 1e-3    # max |lse_kernel - lse_plain|: fp32 row statistics
+# K7 vs its plain version (same bf16 inputs, the same bf16 roundings of P
+# and dS, fp32 sums in another order): ||dX - dX_plain|| / ||dX_plain|| for
+# dq, dk and dv; measured at most 1.8e-4, 3.0e-4 and 3.8e-4 over every
+# case (H100), so 5x the worst. A kernel that skips a k tile moves the sums
+# by the share of the softmax weight it drops, far more.
+BOUND_BWD_REL = (2e-3, 2e-3, 2e-3)
 BOUND_SMALL = 3e-2  # relative L2, card path vs host path
+# one training microbatch, card bf16 vs host fp32 (depth-cut model);
+# measured 2.3e-6 on the loss and at most 2.1e-2 on a gradient (H100):
+BOUND_TRAIN_LOSS = 1e-3    # relative difference of the loss
+BOUND_TRAIN_GRAD = 1e-1    # relative L2 of each trainable leaf's gradient
 # the same with W8A8 activations: a row is rounded to 1/254 of its absmax,
 # so a sum-order difference that moves one quotient across a .5 boundary
 # costs that much, where bf16 alone costs 1/256 of the element
@@ -80,6 +107,7 @@ HBM_BPS, BF16_OPS, INT8_OPS = 3.35e12, 989e12, 1979e12
 PKG = "grounded_video_llm_tpu_torch"
 SOURCES = {
     "flash_fwd": f"{PKG}/csrc/flash_fwd.cu",
+    "flash_bwd": f"{PKG}/csrc/flash_bwd.cu",
     "int8_gemv": f"{PKG}/csrc/int8_matmul.cu",
     "int8_matmul": f"{PKG}/csrc/int8_matmul.cu",
     "decode_attention_int8": f"{PKG}/csrc/decode_attention_int8.cu",
@@ -89,6 +117,9 @@ REPLACES = {
     "flash_fwd": "grounded_video_llm_tpu/ops/flash_attention.py:53 "
                  "(_fwd_kernel) + :140 (_fwd_kernel_causal), pallas_call "
                  "at :299",
+    "flash_bwd": "grounded_video_llm_tpu/ops/flash_attention.py:515 "
+                 "(_bwd_dq_kernel :326) + :534 (_bwd_dkv_kernel :389), "
+                 "driven by _flash_bwd :462",
     "int8_gemv": "grounded_video_llm_tpu/ops/int8_matmul.py:151 "
                  "(int8_matmul_layer, pallas_call; kernel at :132), its "
                  "w8a8 branch (:136-145)",
@@ -359,6 +390,224 @@ def flash_phase(torch, fa, cfg, S_pre):
         f"plain {fam.plain_ms:.3f} ms, sdpa {fam.library_ms:.3f} ms, bound "
         f"{bms:.3f} ms ({by})")
     return fam, sum(per_req.values())
+
+
+# ---------------------------------------------------------------------------
+# K7 flash_bwd
+# ---------------------------------------------------------------------------
+
+
+def visible_pairs(mask, Sq, Sk, causal, window, q_offset):
+    """(q row, key) pairs the attention keeps, summed over the batch: the
+    work this data needs (mask [B, Sk] bool on the host)."""
+    valid = np.asarray(mask, bool)
+    csum = np.concatenate([np.zeros((valid.shape[0], 1), np.int64),
+                           np.cumsum(valid, axis=1)], axis=1)
+    if not causal:
+        return int(Sq * csum[:, -1].sum())
+    qpos = np.arange(Sq) + q_offset
+    hi = np.clip(qpos + 1, 0, Sk)                      # keys [lo, hi)
+    lo = np.zeros_like(hi) if window is None else np.clip(
+        qpos - window + 1, 0, Sk)
+    lo = np.minimum(lo, hi)
+    return int((csum[:, hi] - csum[:, lo]).sum())
+
+
+def flash_bwd_plain(torch, fa, q, k, v, bias, o, lse, do, scale, causal,
+                    window, q_offset):
+    """The plain version kv head by kv head, so its fp32 [G, Sq, Sk]
+    tensors fit on the card at the training shape."""
+    Hkv = k.shape[2]
+    G = q.shape[2] // Hkv
+    dq, dk, dv = [], [], []
+    for hk in range(Hkv):
+        hs = slice(hk * G, (hk + 1) * G)
+        a, b_, c = fa.flash_bwd_reference(
+            q[:, :, hs], k[:, :, hk:hk + 1], v[:, :, hk:hk + 1], bias,
+            o[:, :, hs], lse[:, hs], do[:, :, hs], scale, causal, window,
+            q_offset)
+        dq.append(a)
+        dk.append(b_)
+        dv.append(c)
+    return torch.cat(dq, 2), torch.cat(dk, 2), torch.cat(dv, 2)
+
+
+def sdpa_backward_ms(torch, q, k, v, keep, do, scale, reps):
+    """Library yardstick: scaled_dot_product_attention forward + backward
+    (torch.autograd.grad) minus its forward, with the mask as the boolean
+    [B, 1, Sq, Sk] attn_mask SDPA takes. → (ms, backend)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    F = torch.nn.functional
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    dot = do.transpose(1, 2)
+    gqa = q.shape[2] != k.shape[2]
+    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                    SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                def fwd():
+                    return F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=keep, scale=scale,
+                        enable_gqa=gqa)
+
+                def fwd_bwd():
+                    out = fwd()
+                    return torch.autograd.grad(out, (qt, kt, vt), dot)
+
+                fwd_bwd()
+                ms = cuda_ms(torch, fwd_bwd, reps) - cuda_ms(torch, fwd, reps)
+            return ms, backend.name
+        except RuntimeError:
+            continue
+    return float("nan"), "none"
+
+
+def check_flash_bwd(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
+                    causal=True, pads=None, left=False, window=None,
+                    q_offset=None, expect_dead=False, seed=0, timed=False,
+                    reps=10):
+    """K7 vs its plain version at one shape → dict of measured numbers.
+    o and lse come from the forward kernel, do is random. pads: per batch
+    row, how many keys the mask removes (at the end, or at the start with
+    left=True); expect_dead: whether that leaves rows with no valid key,
+    whose dq must be exactly 0."""
+    Sk = Sq if Sk is None else Sk
+    Hkv = H if Hkv is None else Hkv
+    q_off = Sk - Sq if q_offset is None else q_offset
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device="cuda").to(
+            torch.bfloat16)
+
+    q, do = randn(B, Sq, H, D), randn(B, Sq, H, D)
+    k, v = randn(B, Sk, Hkv, D), randn(B, Sk, Hkv, D)
+    mask = torch.ones(B, Sk, device="cuda", dtype=torch.bool)
+    for b, n in enumerate(pads or ()):
+        if n and left:
+            mask[b, :n] = False
+        elif n:
+            mask[b, Sk - n:] = False
+    bias = (torch.where(mask, 0.0, fa.NEG_INF).float().contiguous()
+            if pads is not None else None)
+    scale = D ** -0.5
+    o, lse = fa.flash_fwd(q, k, v, bias, scale, causal, False, window,
+                          bias is not None, q_offset)
+    before = fa.FLASH_BWD.launches
+
+    def kernel():
+        return fa.flash_bwd(q, k, v, bias, o, lse, do, scale, causal, window,
+                            q_offset)
+
+    def plain():
+        return flash_bwd_plain(torch, fa, q, k, v, bias, o, lse, do, scale,
+                               causal, window, q_offset)
+
+    got = kernel()
+    want = plain()
+    torch.cuda.synchronize()
+    launched = fa.FLASH_BWD.launches == before + 1
+    rels, worst = [], 0.0
+    for x, y in zip(got, want):
+        d = x.float() - y.float()
+        rels.append(float(torch.linalg.vector_norm(d)
+                          / torch.linalg.vector_norm(y.float()).clamp_min(
+                              1e-30)))
+        worst = max(worst, float(d.abs().max()))
+    finite = all(bool(torch.isfinite(x).all()) for x in got)
+    dead = torch.isposinf(lse).permute(0, 2, 1)      # [B, Sq, H]
+    n_dead = int(dead.sum())
+    dead_zero = bool((got[0][dead] == 0).all()) if n_dead else True
+    ok = (finite and launched and dead_zero
+          and all(r <= b for r, b in zip(rels, BOUND_BWD_REL)))
+    pairs = visible_pairs(mask.cpu().numpy(), Sq, Sk, causal, window, q_off)
+    flops = 10.0 * D * pairs * H          # five products per visible pair
+    nbytes = (2 * (3 * B * Sq * H * D + 2 * B * Sk * Hkv * D)   # q do o k v
+              + 4 * B * H * Sq + (4 * B * Sk if bias is not None else 0)
+              + 2 * (B * Sq * H * D + 2 * B * Sk * Hkv * D))    # dq dk dv
+    bms, by = bound_ms(nbytes, flops, BF16_OPS)
+    nan = float("nan")
+    ms = plain_ms = lib_ms = nan
+    backend = "-"
+    if timed:
+        ms = cuda_ms(torch, kernel, reps)
+        plain_ms = cuda_ms(torch, plain, 2)
+        qpos = torch.arange(Sq, device="cuda")[:, None] + q_off
+        kpos = torch.arange(Sk, device="cuda")[None, :]
+        keep = mask[:, None, None, :].expand(B, 1, Sq, Sk)
+        if causal:
+            vis = kpos <= qpos
+            if window is not None:
+                vis = vis & (qpos - kpos < window)
+            keep = keep & vis
+        lib_ms, backend = sdpa_backward_ms(torch, q, k, v, keep, do, scale,
+                                           reps)
+        del keep
+    log(f"[kernel] flash_bwd {name:<22} q={[B, Sq, H, D]} kv={[B, Sk, Hkv, D]}"
+        f" causal={causal} window={window} q_offset={q_offset} "
+        f"dead_rows={n_dead} dq_dead_rows_zero={dead_zero} "
+        f"rel|ddq|={rels[0]:.3e} rel|ddk|={rels[1]:.3e} rel|ddv|={rels[2]:.3e}"
+        f" (<= {BOUND_BWD_REL}) max|d|={worst:.3e} visible_pairs={pairs}"
+        + (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+           f"sdpa_bwd_ms={lib_ms:.4f} ({backend}) bound_ms={bms:.4f} ({by}) "
+           f"TFLOP/s={flops / ms / 1e9:.1f}" if timed else "")
+        + f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_bwd {name}: kernel disagrees with the "
+                             "plain version")
+    if (n_dead > 0) != expect_dead:
+        raise AssertionError(f"flash_bwd {name}: {n_dead} dead rows, expected"
+                             f" {'some' if expect_dead else 'none'}")
+    del q, k, v, do, o, lse, got, want
+    torch.cuda.empty_cache()
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
+
+
+def flash_bwd_phase(torch, fa, cfg, S_train):
+    """K7 at the training shape (timed), B = 2 with two right paddings, and
+    the edge cases. The family's numbers are per microbatch: one launch
+    per LLM layer at the training shape."""
+    fam = Family("flash_bwd")
+    L = cfg.llm
+    # K2 at the same shape, for comparison (the forward runs twice per
+    # layer and microbatch: once, and again in the remat recompute)
+    check_flash(torch, fa, "train_causal", 1, S_train, L.num_heads,
+                L.head_dim, causal=True, pads=(0,), window=L.sliding_window,
+                seed=49)
+    r = check_flash_bwd(torch, fa, "train_causal", 1, S_train, L.num_heads,
+                        L.head_dim, pads=(37,), window=L.sliding_window,
+                        seed=50, timed=True)
+    check_flash_bwd(torch, fa, "b2_rightpad", 2, 1500, L.num_heads,
+                    L.head_dim, pads=(0, 211), window=L.sliding_window,
+                    seed=51)
+    check_flash_bwd(torch, fa, "b2_rightpad_both", 2, 777, L.num_heads,
+                    L.head_dim, pads=(65, 300), seed=52)
+    edges = [
+        ("gqa_d128", dict(B=2, Sq=300, H=32, Hkv=8, D=128, pads=(0, 50))),
+        ("noncausal_d88", dict(B=2, Sq=2049, H=16, D=88, causal=False,
+                               pads=(0, 100))),
+        ("window", dict(B=1, Sq=700, H=4, D=96, window=64, pads=(13,))),
+        ("q_offset", dict(B=1, Sq=100, Sk=333, H=4, D=96, q_offset=150,
+                          pads=(0,))),
+        ("leftpad_dead_rows", dict(B=2, Sq=300, H=4, D=96, pads=(0, 77),
+                                   left=True, expect_dead=True)),
+        ("tiny", dict(B=1, Sq=1, Sk=5, H=2, D=64)),
+    ]
+    for i, (name, kw) in enumerate(edges):
+        check_flash_bwd(torch, fa, name, seed=60 + i, **kw)
+    fam.add(L.num_layers, r["ms"], r["plain_ms"], r["bytes"], r["flops"],
+            "bf16", r["library_ms"])
+    fam.max_err = r["max_abs_err"]
+    bms, by = fam.bound()
+    log(f"[kernel] flash_bwd per microbatch ({L.num_layers} launches at "
+        f"[1, {S_train}, {L.num_heads}, {L.head_dim}]): kernel {fam.ms:.3f} "
+        f"ms, plain {fam.plain_ms:.3f} ms, sdpa backward "
+        f"{fam.library_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    return fam
 
 
 # ---------------------------------------------------------------------------
@@ -758,6 +1007,167 @@ def small_reference(torch, cfg_full, seed, quantize):
 
 
 # ---------------------------------------------------------------------------
+# Training: samples, the model-FLOP formula, the small reference
+# ---------------------------------------------------------------------------
+
+
+def grounded_text(seed: int, rounds: int) -> str:
+    """A grounded conversation rendered by the Phi-3.5 template: the video
+    placeholder in the first question, every answer a time interval in
+    quantized <n> tokens, the grounding mark the dataset adds."""
+    from grounded_video_llm_tpu_torch.text import codec
+    from grounded_video_llm_tpu_torch.text.templates import get_template
+
+    rng = np.random.default_rng(seed)
+    events = ["the host turns to the camera", "a car passes the studio window",
+              "the weather map appears", "the anchor reads the headline",
+              "a reporter walks along the street", "the crowd starts to cheer"]
+    conv = []
+    for r in range(rounds):
+        a, b = sorted(int(x) for x in rng.integers(0, 301, size=2))
+        query = (f"Give you a textual query: '{events[r % len(events)]}, "
+                 f"then the scene changes and {events[(r + 3) % 6]}'. When "
+                 "does the described content occur in the video? Please "
+                 "return the start and end timestamps.")
+        conv.append({"from": "human",
+                     "value": ("<image>\n" if r == 0 else "") + query})
+        conv.append({"from": "gpt", "value": f"From <{a}> to <{b}>."})
+    return get_template("phi3.5").encode(
+        codec.mark_grounding_conversations(conv))
+
+
+def train_samples(temporal, spatial, n: int, rounds: int, seed: int):
+    """n grounded samples over one resized video (uint8 pixels, normalized
+    on the card by encode_video)."""
+    return [{"video_ids": f"synthetic{i}", "text_inputs":
+             grounded_text(seed + i, rounds),
+             "temporal_pixel_values": temporal,
+             "spatial_pixel_values": spatial} for i in range(n)]
+
+
+def train_step_flops(params, cfg, B: int, S_text: int) -> float:
+    """Model FLOPs of one grounded train microbatch, the formula of
+    bench_train.py:102 (train_step_flops) over this package's tree: frozen
+    encoders forward only (early exit, penultimate CLIP layer), projectors
+    as bench_train.py counts them (its "image_projector" key names no leaf,
+    so the mm_projector is not counted, as there), the LLM's GEMMs three
+    times (forward, remat recompute, dx), the lm_head forward once more,
+    causal attention 4.5 times its forward."""
+    from grounded_video_llm_tpu_torch.train.optimizer import tree_items
+
+    def gemm_per_token(tree):
+        total = 0
+        for path, leaf in tree_items(tree):
+            name = path.lower()
+            if not any(k in name for k in ("kernel", "lm_head", "lora")):
+                continue
+            if "bias" in name or leaf.dim() < 2:
+                continue
+            total += 2 * leaf.numel()
+        return total
+
+    S = S_text - 1 + cfg.num_video_tokens
+    ev, cl, lm = cfg.video, cfg.clip, cfg.llm
+    iv2 = gemm_per_token(params["video_encoder"]) * B * cfg.num_segs \
+        * ev.seq_len * ev.num_blocks_used / ev.depth
+    iv2 += ev.num_blocks_used * 4 * (B * cfg.num_segs) * ev.seq_len ** 2 \
+        * ev.embed_dim
+    clip_tok = B * cfg.num_segs * (cl.num_patches + 1)
+    clipf = gemm_per_token(params["clip"]) * clip_tok \
+        * (cl.num_layers - 1) / cl.num_layers
+    clipf += (cl.num_layers - 1) * 4 * (B * cfg.num_segs) \
+        * (cl.num_patches + 1) ** 2 * cl.hidden_size
+    proj = sum(gemm_per_token(params[k]) * B * cfg.num_video_tokens
+               for k in ("video_projector", "image_projector") if k in params)
+    llm_gemm = gemm_per_token(params["llm"]) * B * S
+    lm_head_fwd = 2 * lm.hidden_size * lm.padded_vocab_size * B * S
+    attn_fwd = lm.num_layers * 2 * B * S ** 2 * lm.q_dim
+    return float(iv2 + clipf + proj + 3.0 * llm_gemm + lm_head_fwd
+                 + 4.5 * attn_fwd)
+
+
+def small_reference_train(torch, cfg_full, seed):
+    """One grounded microbatch through forward_loss and its backward on a
+    depth-cut full-width model with LoRA attached (non-zero B): the card
+    (bf16, kernels) against the host (fp32, plain versions), same weights,
+    same batch, lora_dropout 0. Compares the loss and the gradient of every
+    trainable leaf."""
+    from grounded_video_llm_tpu_torch.cli.model_loading import (
+        build_params, build_tokenizer)
+    from grounded_video_llm_tpu_torch.core.config import (STAGE_PRESETS,
+                                                          replace)
+    from grounded_video_llm_tpu_torch.data.collate import collate
+    from grounded_video_llm_tpu_torch.models import vlm
+    from grounded_video_llm_tpu_torch.ops.preprocess import \
+        dual_stream_resize_host
+    from grounded_video_llm_tpu_torch.text.templates import get_template
+    from grounded_video_llm_tpu_torch.train import lora as lora_mod
+    from grounded_video_llm_tpu_torch.train.optimizer import (make_optimizer,
+                                                              tree_items)
+    from grounded_video_llm_tpu_torch.train.step import set_trainable
+
+    n_frames = cfg_full.video.num_frames       # one segment
+    cfg = replace(cfg_full, num_frames=n_frames, num_segs=1,
+                  clip=replace(cfg_full.clip, num_layers=3),
+                  video=replace(cfg_full.video, depth=2, num_blocks_used=2),
+                  llm=replace(cfg_full.llm, num_layers=2))
+    tok = build_tokenizer(cfg)
+    params = build_params(cfg, "cuda", torch.bfloat16, seed)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    lora = lora_mod.init_lora(cfg.llm, generator=g, device="cuda",
+                              dtype=torch.bfloat16)
+    for la in lora.values():
+        la["b"].normal_(0.0, 0.02, generator=g)
+    params["llm"] = lora_mod.attach_lora(params["llm"], lora)
+    temporal, spatial = dual_stream_resize_host(
+        synthetic_video(seed + 2, n_frames), 1)
+    sample = train_samples(temporal, spatial, 1, 6, seed)[0]
+    out = {}
+    for dev, p in (("cpu", to_host(params, torch.float32)),
+                   ("cuda", params)):
+        opt, _ = make_optimizer(STAGE_PRESETS["grounded"], 10, p)
+        set_trainable(p, opt)
+        batch = collate([sample], tok, get_template("phi3.5"),
+                        max_txt_len=cfg.max_txt_len, device=dev)
+        names = [n for n, _ in tree_items(p) if opt.trainable(n)]
+        flat = dict(tree_items(p))
+        t0 = time.perf_counter()
+        loss = vlm.forward_loss(p, cfg, batch, remat=True)
+        grads = torch.autograd.grad(loss, [flat[n] for n in names])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = (loss.detach().float().cpu(),
+                    {n: gr.float().cpu() for n, gr in zip(names, grads)},
+                    time.perf_counter() - t0, batch.input_ids.shape[1])
+    loss_err = rel_err(torch, out["cuda"][0], out["cpu"][0])
+    errs = {n: rel_err(torch, out["cuda"][1][n], out["cpu"][1][n])
+            for n in out["cpu"][1]}
+    worst = max(errs, key=errs.get)
+    ok = loss_err <= BOUND_TRAIN_LOSS and errs[worst] <= BOUND_TRAIN_GRAD
+    spliced = out["cpu"][3] - 1 + cfg.num_video_tokens
+    log(f"[small-ref] train: depth-cut full width (CLIP 2 of 3 layers, IV2 2 "
+        f"blocks, LLM 2 layers, LoRA r=128 with B != 0, 1 segment, spliced "
+        f"length {spliced}), card bf16 kernels vs host fp32 plain versions: "
+        f"loss {float(out['cuda'][0]):.5f} vs {float(out['cpu'][0]):.5f} "
+        f"rel {loss_err:.3e} (<= {BOUND_TRAIN_LOSS}); gradient rel L2 over "
+        f"{len(errs)} trainable leaves: max {errs[worst]:.3e} ({worst}), "
+        f"median {float(np.median(list(errs.values()))):.3e} (<= "
+        f"{BOUND_TRAIN_GRAD}); host {out['cpu'][2]:.1f} s, card "
+        f"{out['cuda'][2]:.2f} s {'OK' if ok else 'FAIL'}")
+    log("[small-ref] train gradients: " + ", ".join(
+        f"{n} {e:.2e}" for n, e in sorted(errs.items())))
+    if not ok:
+        raise AssertionError("training on the card disagrees with the host "
+                             "reference")
+    del params, out
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# Main path
+# ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
 
@@ -783,6 +1193,154 @@ def run_path(torch, kernels, name, fn, expect_fn):
     if got != want:
         raise AssertionError(f"{name}: launch counts {got}, expected {want}")
     return got
+
+
+def train_path(torch, kernels, params, tok, temporal, spatial):
+    """The training path: vlm_config("phi3.5", stage="grounded") at full
+    width on the given bf16 weights with LoRA r=128 attached (B != 0), the
+    grounded preset with a global batch
+    of 2 in microbatches of 1 (grad_accum 2), LoRA dropout 0.05, remat on,
+    four samples truncated by collate at max_txt_len 4096, two optimizer
+    steps through TrainingStrategy.run_training. Counts to 0 just before,
+    read just after. Raises unless loss and grad_norm are finite, the first
+    step changed nothing (lr 0), the second moved every trainable leaf,
+    every frozen leaf is bit-equal to its value before, and the launch
+    counts are the config's. → (launches, per-step records)."""
+    import dataclasses
+    import tempfile
+
+    from grounded_video_llm_tpu_torch.core.config import (STAGE_PRESETS,
+                                                          vlm_config)
+    from grounded_video_llm_tpu_torch.data.collate import collate
+    from grounded_video_llm_tpu_torch.models import vlm
+    from grounded_video_llm_tpu_torch.text.templates import get_template
+    from grounded_video_llm_tpu_torch.train import lora as lora_mod
+    from grounded_video_llm_tpu_torch.train.optimizer import tree_items
+    from grounded_video_llm_tpu_torch.train.strategy import TrainingStrategy
+
+    cfg = vlm_config("phi3.5", stage="grounded")
+    # adapters as a run mid-stage has them: B != 0. At B = 0 (a fresh
+    # attach) dL/dA is 0 until B has moved, so A could not move in step 2.
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 7)
+    lora = lora_mod.init_lora(cfg.llm, generator=g, device="cuda",
+                              dtype=torch.bfloat16)
+    for la in lora.values():
+        la["b"].normal_(0.0, 0.02, generator=g)
+    params["llm"] = lora_mod.attach_lora(params["llm"], lora)
+    orig = STAGE_PRESETS["grounded"]
+    STAGE_PRESETS["grounded"] = dataclasses.replace(
+        orig, global_batch_size=2, per_device_batch_size=1, epochs=1)
+    samples = train_samples(temporal, spatial, 4, 40, SEED)
+    run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        strat = TrainingStrategy(cfg, "grounded", params, tok,
+                                 run_dir=run_dir, n_train_examples=4,
+                                 seed=SEED)
+        if strat.grad_accum != 2:
+            raise AssertionError(f"grad_accum {strat.grad_accum}, expected 2")
+        tp = strat.state.params
+        before = {n: t.detach().to("cpu", copy=True)
+                  for n, t in tree_items(tp)}
+        trainable = {n for n in before if strat.optimizer.trainable(n)}
+        steps = []
+        clock = {}
+
+        def on_step(step, m):
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            rec = dict(m, step=step, seconds=now - clock["t"],
+                       peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+            steps.append(rec)
+            log(f"[path] train step {step}: loss={m['loss']:.5f} grad_norm="
+                f"{m['grad_norm']:.4f} step_s={rec['seconds']:.3f} "
+                f"s_per_sample={rec['seconds'] / 2:.3f} "
+                f"peak_device_memory={rec['peak_gib']:.2f} GiB")
+            if not (np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])):
+                raise AssertionError(f"step {step}: non-finite loss or "
+                                     "grad_norm")
+            changed = {n for n, t in tree_items(tp)
+                       if not torch.equal(t.detach().cpu(), before[n])}
+            if step == 1 and changed:
+                raise AssertionError(f"step 1 (lr 0) changed {sorted(changed)}")
+            if step == 2:
+                frozen_moved = sorted(changed - trainable)
+                still = sorted(trainable - changed)
+                log(f"[path] train after step 2: {len(changed)} of "
+                    f"{len(trainable)} trainable leaves moved, "
+                    f"{len(before) - len(trainable)} frozen leaves "
+                    f"bit-equal: {not frozen_moved}")
+                if frozen_moved or still:
+                    raise AssertionError(f"frozen leaves moved {frozen_moved}"
+                                         f", trainable leaves still {still}")
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            clock["t"] = time.perf_counter()
+
+        for k in kernels.values():
+            k.launches = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        clock["t"] = time.perf_counter()
+        strat.run_training(samples, resume_interval=0, on_step=on_step)
+        got = {n: k.launches for n, k in kernels.items()}
+        nl = cfg.llm.num_layers
+        per_mb = {"flash_fwd": (cfg.clip.num_layers + cfg.clip.feature_layer
+                                + 1) + cfg.video.num_blocks_used + 2 * nl,
+                  "flash_bwd": nl}
+        microbatches = 2 * strat.grad_accum
+        want = {n: microbatches * per_mb.get(n, 0) for n in kernels}
+        log(f"[path] train grounded B=1 accum=2: launches {got} expected "
+            f"{want} (per microbatch flash_fwd = CLIP "
+            f"{cfg.clip.num_layers + cfg.clip.feature_layer + 1} + IV2 "
+            f"{cfg.video.num_blocks_used} + LLM {nl} + remat recompute {nl},"
+            f" flash_bwd = {nl}; {microbatches} microbatches)")
+        if len(steps) != 2 or got != want:
+            raise AssertionError(f"train path: {len(steps)} steps, launches "
+                                 f"{got}, expected 2 steps and {want}")
+
+        # phase split of one more microbatch (outside the counted run)
+        mb = collate(samples[:1], tok, get_template("phi3.5"),
+                     max_txt_len=cfg.max_txt_len, device="cuda")
+        S_text = mb.input_ids.shape[1]
+        names = [n for n, _ in tree_items(tp) if strat.optimizer.trainable(n)]
+        flat = dict(tree_items(tp))
+
+        def timed(fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = fn()
+            torch.cuda.synchronize()
+            return r, time.perf_counter() - t0
+
+        with torch.no_grad():
+            _, enc_s = timed(lambda: vlm.encode_video(
+                tp, cfg, mb.spatial_pixels, mb.temporal_pixels))
+        loss, fwd_s = timed(lambda: vlm.forward_loss(
+            tp, cfg, mb, remat=True, lora_dropout=0.05, dropout_seed=1))
+        _, bwd_s = timed(lambda: torch.autograd.grad(
+            loss, [flat[n] for n in names]))
+        del loss
+        flops = train_step_flops(tp, cfg, 1, S_text)
+        # the last step is the steady one: step 1 also waits for the
+        # loader's first batch and the first allocations
+        step_s = steps[-1]["seconds"]
+        per_sample = step_s / 2
+        log(f"[path] train phases of one microbatch (S_text={S_text}, spliced"
+            f" {S_text - 1 + cfg.num_video_tokens}): encode_s={enc_s:.3f} "
+            f"forward_loss_s={fwd_s:.3f} (encode included) backward_s="
+            f"{bwd_s:.3f}; step 2 {step_s:.3f} s = 2 microbatches "
+            f"{2 * (fwd_s + bwd_s):.3f} s + optimizer and the rest "
+            f"{step_s - 2 * (fwd_s + bwd_s):.3f} s; model TFLOP per sample "
+            f"{flops / 1e12:.1f} (bench_train.py formula), step 2 "
+            f"{per_sample:.3f} s per sample = {flops / per_sample / 1e12:.1f}"
+            f" TFLOP/s = {flops / per_sample / BF16_OPS:.3f} of 989 TFLOP/s")
+        return got, steps
+    finally:
+        STAGE_PRESETS["grounded"] = orig
+        import shutil
+
+        shutil.rmtree(run_dir, ignore_errors=True)
 
 
 def main() -> int:
@@ -819,7 +1377,8 @@ def main() -> int:
         f"capability {torch.cuda.get_device_capability(0)}")
 
     # ---- 2. the build: one nvcc per source, all at once
-    kernels = {"flash_fwd": fa.FLASH_FWD, "int8_gemv": mm.INT8_GEMV,
+    kernels = {"flash_fwd": fa.FLASH_FWD, "flash_bwd": fa.FLASH_BWD,
+               "int8_gemv": mm.INT8_GEMV,
                "int8_matmul": mm.INT8_MATMUL,
                "decode_attention_int8": da.DECODE_ATTENTION_INT8,
                "scatter_write": cw.SCATTER_WRITE}
@@ -856,14 +1415,20 @@ def main() -> int:
 
     # ---- 3. kernels vs plain versions at the path's shapes
     flash, per_req = flash_phase(torch, fa, cfg, S_pre)
+    # the grounded train microbatch: max_txt_len text tokens, one of them
+    # the video slot
+    S_train = vlm_config("phi3.5", stage="grounded").max_txt_len - 1 \
+        + cfg.num_video_tokens
+    k7 = flash_bwd_phase(torch, fa, cfg, S_train)
     k3, k6 = gemv_phase(torch, mm, cfg)
     k4 = attention_phase(torch, da, cfg, max_len)
     k5 = write_phase(torch, cw, cfg, max_len)
-    families = {f.name: f for f in (flash, k3, k6, k4, k5)}
+    families = {f.name: f for f in (flash, k7, k3, k6, k4, k5)}
 
     # ---- 4. small references
     for quantize in (None, "int8", "int8_full"):
         small_reference(torch, cfg, SEED, quantize)
+    small_reference_train(torch, cfg, SEED)
 
     # ---- 5. main path
     frames = synthetic_video(SEED, cfg.num_frames)
@@ -949,6 +1514,12 @@ def main() -> int:
         got = run_path(torch, kernels, name, generate(weight_only, [MODES[0]],
                                                       g), x)
         launches = {k: launches[k] + got[k] for k in launches}
+    del weight_only, bf16
+    torch.cuda.empty_cache()
+
+    # ---- 6. the training path, on the same bf16 weights
+    got, _ = train_path(torch, kernels, params, tok, temporal, spatial)
+    launches = {k: launches[k] + got[k] for k in launches}
     log(f"[main] launches over every path: {launches}")
     missing = [n for n, c in launches.items() if c == 0]
     if missing:

@@ -8,6 +8,11 @@ meta device (shapes only, no memory), fills every leaf from the numpy tree
 by its path, and fails loudly on a missing, extra, reused or misshapen
 tensor.
 
+A training tree maps as well: the LoRA subtree
+``llm/layers/lora/{qkv,o,gate_up,down}/{a,b,scale}`` (its rank read from the
+tree) and a vocabulary expanded by ``train/vocab.expand_vocab`` on a config
+without the extra rows.
+
 A serving-int8 tree (the JAX ``serve/quantize.py``) maps exactly: each
 ``{"q", "scale"}`` pair becomes an ``Int8Weight`` (values and scales copied
 bit for bit, whatever ``dtype`` says), the ``"w8a8": None`` marker its
@@ -22,7 +27,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from ..core.config import VLMConfig
+from ..core.config import NUM_SPECIAL_TOKENS, VLMConfig, replace
 from ..ops.int8_matmul import Int8Embedding, Int8Weight
 from . import vlm
 
@@ -74,14 +79,36 @@ def _int8_from_jax(path, pair: dict, shape, device):
     return Int8Weight(qt, st, "w8a8" in pair)
 
 
+def _vocab_config(np_tree, cfg: VLMConfig) -> VLMConfig:
+    """cfg, or cfg with NUM_SPECIAL_TOKENS extra rows when the tree's
+    embedding was expanded from a config that had none."""
+    embed = np_tree.get("llm", {}).get("embed")
+    if embed is None or _is_int8_pair(embed):
+        return cfg
+    rows = np.asarray(embed).shape[0]
+    if (cfg.llm.num_extra_tokens == 0
+            and rows == cfg.llm.vocab_size + NUM_SPECIAL_TOKENS):
+        return replace(cfg, llm=replace(cfg.llm,
+                                        num_extra_tokens=NUM_SPECIAL_TOKENS))
+    return cfg
+
+
 def params_from_jax(np_tree, cfg: VLMConfig, device,
                     dtype=torch.float32) -> dict:
     """np_tree: the JAX ``vlm.init_params`` pytree (serving-quantized or
     not) with numpy leaves (e.g. ``jax.tree_util.tree_map(np.asarray,
     params)``) → this package's params on ``device``, dense tensors in
     ``dtype``. Every leaf is used exactly once."""
+    cfg = _vocab_config(np_tree, cfg)
     expected = vlm.init_params(cfg, generator=None, device="meta",
                                dtype=dtype)
+    lora = np_tree.get("llm", {}).get("layers", {}).get("lora")
+    if lora is not None:
+        from ..train.lora import attach_lora, init_lora
+
+        rank = np.asarray(lora["qkv"]["a"]).shape[-1]
+        expected["llm"] = attach_lora(expected["llm"], init_lora(
+            cfg.llm, generator=None, device="meta", rank=rank, dtype=dtype))
     want = _flatten(expected)
     have = _flatten(np_tree)
     missing = sorted(set(want) - set(have))

@@ -1,4 +1,4 @@
-"""Decoder-only causal LM, Phi-3.5-mini serving path (port of
+"""Decoder-only causal LM, Phi-3.5-mini serving and training paths (port of
 grounded_video_llm_tpu/models/llm.py).
 
 Pre-RMSNorm blocks with a fused qkv projection, SiLU-gated fused gate_up MLP,
@@ -12,16 +12,23 @@ Decode uses a fixed-shape cache with a validity mask over slots: the bf16
 (ops/decode_attention_int8 for its layout). int8 projections below the
 GEMM switch run ops/int8_matmul.int8_matmul, weight-only, except in a decode
 step on the int8 cache, where a weight under the w8a8 marker runs its w8a8
-branch (JAX's K3); there the attention runs K4 and the cache write K5. Not
-ported yet: LoRA, training, prefix-KV, cascade decode, speculative verify
-and continuous batching.
+branch (JAX's K3); there the attention runs K4 and the cache write K5.
+
+Training runs ``forward_hidden`` without a cache: LoRA adapters on the four
+fused projections (``layers/lora``, train/lora.py) with inverted dropout on
+their input, per-layer or grouped activation checkpointing, and the
+sequence-chunked cross entropy ``causal_lm_loss_from_hidden``. Serving and
+training share one ``_layer_full``. Not ported yet: prefix-KV, cascade
+decode, speculative verify and continuous batching.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LLMConfig
 from ..core.dtypes import matmul_f32
@@ -146,9 +153,48 @@ def _matmul_maybe_int8(x: torch.Tensor, kernel,
     return out.reshape(*x.shape[:-1], out.shape[-1])
 
 
-def _qkv(x, lp, cfg: LLMConfig, w8a8_decode: bool = False):
+_LORA_SLOT = {"qkv": 0, "o": 1, "gate_up": 2, "down": 3}
+
+
+def mix_seed(*ints: int) -> int:
+    """One 63-bit seed from a tuple of integers (numpy SeedSequence): the
+    port's counterpart of jax.random.fold_in / split for dropout keys."""
+    return int(np.random.SeedSequence([int(i) for i in ints])
+               .generate_state(2, np.uint64)[0] >> np.uint64(1))
+
+
+def lora_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+    """Inverted dropout, keep probability 1 - rate, kept values scaled by
+    1 / (1 - rate). The mask is drawn from a torch.Generator seeded with
+    ``seed`` on x's device, so an activation-checkpoint recompute draws the
+    same mask whatever the global RNG state is."""
+    g = torch.Generator(device=x.device)
+    g.manual_seed(seed)
+    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def _dense(x, kernel, lp, name: str, drop=None, w8a8_decode: bool = False):
+    """x @ kernel plus the LoRA overlay ((x @ A) @ B) * scale when the layer
+    carries one for ``name``; the delta matrix is never formed. drop:
+    (rate, layer seed) for training-only dropout on the LoRA branch input,
+    as peft does (the frozen base path sees x untouched)."""
+    y = _matmul_maybe_int8(x, kernel, w8a8_decode)
+    lora = lp.get("lora")
+    if lora is not None and name in lora:
+        la = lora[name]
+        xl = x
+        if drop is not None:
+            rate, seed = drop
+            xl = lora_dropout(x, rate, mix_seed(seed, _LORA_SLOT[name]))
+        y = y + ((xl @ la["a"]) @ la["b"]) * la["scale"][..., None, None]
+    return y
+
+
+def _qkv(x, lp, cfg: LLMConfig, w8a8_decode: bool = False, drop=None):
     B, S, _ = x.shape
-    q, k, v = _matmul_maybe_int8(x, lp["qkv_kernel"], w8a8_decode).split(
+    q, k, v = _dense(x, lp["qkv_kernel"], lp, "qkv", drop,
+                     w8a8_decode).split(
         [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     return (q.reshape(B, S, cfg.num_heads, cfg.head_dim),
             k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
@@ -162,23 +208,24 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def _mlp(h, lp, cfg: LLMConfig, w8a8_decode: bool = False):
-    gate, up = _matmul_maybe_int8(h, lp["gate_up_kernel"],
-                                  w8a8_decode).chunk(2, dim=-1)
-    return _matmul_maybe_int8(silu(gate) * up, lp["down_kernel"], w8a8_decode)
+def _mlp(h, lp, cfg: LLMConfig, w8a8_decode: bool = False, drop=None):
+    gate, up = _dense(h, lp["gate_up_kernel"], lp, "gate_up", drop,
+                      w8a8_decode).chunk(2, dim=-1)
+    return _dense(silu(gate) * up, lp["down_kernel"], lp, "down", drop,
+                  w8a8_decode)
 
 
-def _layer_full(x, lp, cfg: LLMConfig, cos, sin, attn_mask):
-    """Full-sequence (prefill) layer → (x, (k, v))."""
+def _layer_full(x, lp, cfg: LLMConfig, cos, sin, attn_mask, drop=None):
+    """Full-sequence (train / prefill) layer → (x, (k, v))."""
     B, S, D = x.shape
     h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
-    q, k, v = _qkv(h, lp, cfg)
+    q, k, v = _qkv(h, lp, cfg, drop=drop)
     q, k = apply_rope(q, k, cos, sin)
     attn = mha(q, k, v, causal=True, mask=attn_mask,
                sliding_window=cfg.sliding_window).reshape(B, S, cfg.q_dim)
-    x = x + _matmul_maybe_int8(attn, lp["o_kernel"])
+    x = x + _dense(attn, lp["o_kernel"], lp, "o", drop)
     h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
-    x = x + _mlp(h, lp, cfg)
+    x = x + _mlp(h, lp, cfg, drop=drop)
     return x, (k, v)
 
 
@@ -198,24 +245,65 @@ def _write_prompt_kv(cache, i: int, k: torch.Tensor, v: torch.Tensor):
 
 
 def forward_hidden(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
-                   attn_mask: torch.Tensor, cache) -> torch.Tensor:
-    """Run all decoder layers → hidden [B, S, D]; the JAX function with
-    collect_kv=True and kv_pad_to=max_len.
+                   attn_mask: torch.Tensor, cache=None, *, remat: bool = False,
+                   remat_group: int = 1, lora_dropout: float = 0.0,
+                   dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Run all decoder layers → hidden [B, S, D] after the final norm.
 
-    Every layer's k/v is written in place into the cache's buffers (a
-    KVCache or QuantKVCache), so no second prompt-length copy exists. The
-    LongRoPE factors are chosen from max_len, the cache capacity, as in JAX
-    prefill."""
+    With a cache (prefill; the JAX function with collect_kv=True and
+    kv_pad_to=max_len): every layer's k/v is written in place into the
+    cache's buffers (a KVCache or QuantKVCache), so no second prompt-length
+    copy exists, and the LongRoPE factors are chosen from max_len, the cache
+    capacity.
+
+    Without one (training): the factors are chosen from S, the reference's
+    per-forward rule. remat checkpoints every layer, or every remat_group
+    layers (torch.utils.checkpoint, non-reentrant): the backward recomputes
+    each group's forward once, so only the group boundaries stay alive.
+    lora_dropout > 0 with a dropout_seed drops the LoRA branch inputs, each
+    layer and projection with its own seed derived from dropout_seed."""
     # left-padded prompts: position = cumsum(mask) - 1, clamped
     positions = (torch.cumsum(attn_mask.long(), dim=-1) - 1).clamp_min(0)
-    cos, sin = llm_rope_tables(cfg, positions, seq_len_hint=cache.max_len)
+    S = inputs_embeds.shape[1]
+    cos, sin = llm_rope_tables(
+        cfg, positions,
+        seq_len_hint=cache.max_len if cache is not None else S)
 
     lay = params["layers"]
+    L = lay["input_norm_w"].shape[0]
     x = inputs_embeds
-    for i in range(lay["input_norm_w"].shape[0]):
-        x, (k, v) = _layer_full(x, layer_slice(lay, i), cfg, cos, sin,
-                                attn_mask)
-        _write_prompt_kv(cache, i, k, v)
+    if cache is not None:
+        if remat or lora_dropout > 0.0:
+            raise ValueError("forward_hidden: remat and dropout are for the "
+                             "cache-free training forward")
+        for i in range(L):
+            x, (k, v) = _layer_full(x, layer_slice(lay, i), cfg, cos, sin,
+                                    attn_mask)
+            _write_prompt_kv(cache, i, k, v)
+        return rms_norm(x, params["final_norm_w"], cfg.rms_eps)
+
+    def drop_for(i):
+        if lora_dropout > 0.0 and dropout_seed is not None:
+            return (lora_dropout, mix_seed(dropout_seed, i))
+        return None
+
+    def run(h, first, count):
+        for i in range(first, first + count):
+            h, _ = _layer_full(h, layer_slice(lay, i), cfg, cos, sin,
+                               attn_mask, drop_for(i))
+        return h
+
+    group = remat_group if remat else 1
+    if L % group:
+        raise ValueError(f"remat_group {group} must divide num_layers {L}")
+    for first in range(0, L, group):
+        if remat:
+            # the dropout masks come from explicit per-layer seeds, so the
+            # recompute needs no saved RNG state
+            x = checkpoint(run, x, first, group, use_reentrant=False,
+                           preserve_rng_state=False)
+        else:
+            x = run(x, first, group)
     return rms_norm(x, params["final_norm_w"], cfg.rms_eps)
 
 
@@ -227,6 +315,104 @@ def logits_from_hidden(params, hidden: torch.Tensor) -> torch.Tensor:
     if isinstance(lm_head, Int8Weight):
         return _matmul_maybe_int8(hidden, lm_head).float()
     return matmul_f32(hidden, lm_head)
+
+
+def forward_logits(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
+                   attn_mask: torch.Tensor, remat: bool = False,
+                   lora_dropout: float = 0.0,
+                   dropout_seed: Optional[int] = None) -> torch.Tensor:
+    """Training forward → fp32 logits [B, S, V]."""
+    hidden = forward_hidden(params, cfg, inputs_embeds, attn_mask,
+                            remat=remat, lora_dropout=lora_dropout,
+                            dropout_seed=dropout_seed)
+    return logits_from_hidden(params, hidden)
+
+
+def causal_lm_loss(logits: torch.Tensor, labels: torch.Tensor,
+                   ignore_index: int = -100) -> torch.Tensor:
+    """Shifted cross entropy in fp32, the mean over non-ignored targets
+    (HF CausalLM loss semantics)."""
+    shift_logits = logits[:, :-1].float()
+    shift_labels = labels[:, 1:]
+    valid = shift_labels != ignore_index
+    safe = torch.where(valid, shift_labels, 0).long()
+    logp = torch.log_softmax(shift_logits, dim=-1)
+    ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+    total = torch.where(valid, -ll, 0.0).sum()
+    return total / valid.sum().clamp_min(1)
+
+
+class _ChunkedCE(torch.autograd.Function):
+    """Sum of the shifted cross entropy over chunks of the sequence, the
+    fp32 [chunk, V] logits of one chunk at a time: the forward keeps none of
+    them, the backward recomputes each chunk's logits (the JAX scan body
+    under jax.checkpoint). d lm_head is summed over the chunks in fp32 and
+    cast once. Returns (total, count) as fp32 scalars; count has no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, hidden, lm_head, labels, ignore_index, chunk):
+        B, S, _ = hidden.shape
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for c0 in range(0, S - 1, chunk):
+            c1 = min(c0 + chunk, S - 1)
+            logits = matmul_f32(hidden[:, c0:c1], lm_head)
+            lab = labels[:, c0 + 1:c1 + 1]
+            valid = lab != ignore_index
+            safe = torch.where(valid, lab, 0).long()
+            logp = torch.log_softmax(logits, dim=-1)
+            ll = torch.gather(logp, -1, safe[..., None])[..., 0]
+            total = total + torch.where(valid, -ll, 0.0).sum()
+            count = count + valid.sum()
+        ctx.save_for_backward(hidden, lm_head, labels)
+        ctx.ignore_index, ctx.chunk = ignore_index, chunk
+        ctx.mark_non_differentiable(count)
+        return total, count
+
+    @staticmethod
+    def backward(ctx, g_total, _g_count):
+        hidden, lm_head, labels = ctx.saved_tensors
+        B, S, D = hidden.shape
+        d_hidden = torch.zeros_like(hidden) if ctx.needs_input_grad[0] \
+            else None
+        d_head = (torch.zeros(lm_head.shape, dtype=torch.float32,
+                              device=lm_head.device)
+                  if ctx.needs_input_grad[1] else None)
+        for c0 in range(0, S - 1, ctx.chunk):
+            c1 = min(c0 + ctx.chunk, S - 1)
+            h_c = hidden[:, c0:c1]
+            logits = matmul_f32(h_c, lm_head)
+            lab = labels[:, c0 + 1:c1 + 1]
+            valid = lab != ctx.ignore_index
+            safe = torch.where(valid, lab, 0).long()
+            # d(-log softmax[label]) / d logits = softmax - onehot(label)
+            g = torch.softmax(logits, dim=-1)
+            g.scatter_add_(-1, safe[..., None],
+                           -torch.ones_like(g[..., :1]))
+            g = g * (valid[..., None] * g_total)
+            g = g.to(hidden.dtype)
+            if d_hidden is not None:
+                d_hidden[:, c0:c1] = matmul_f32(g, lm_head.t()).to(
+                    hidden.dtype)
+            if d_head is not None:
+                d_head += matmul_f32(h_c.reshape(-1, D).t(),
+                                     g.reshape(-1, g.shape[-1]))
+        if d_head is not None:
+            d_head = d_head.to(lm_head.dtype)
+        return d_hidden, d_head, None, None, None
+
+
+def causal_lm_loss_from_hidden(params, hidden: torch.Tensor,
+                               labels: torch.Tensor, ignore_index: int = -100,
+                               chunk: int = 1024) -> torch.Tensor:
+    """Sequence-chunked shifted cross entropy: the same value as
+    logits_from_hidden + causal_lm_loss, but the fp32 [S, V] logits never
+    exist whole (at S = 7.5k and V = 32k they would be 0.93 GB, twice over
+    in the backward); each chunk's are recomputed in the backward."""
+    total, count = _ChunkedCE.apply(hidden, params["lm_head"], labels,
+                                    ignore_index, chunk)
+    return total / count.clamp_min(1)
 
 
 def prefill(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,

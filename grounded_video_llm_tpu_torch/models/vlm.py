@@ -1,5 +1,5 @@
-"""The composite dual-stream VLM: encode, fuse, splice (port of the serving
-half of grounded_video_llm_tpu/models/vlm.py).
+"""The composite dual-stream VLM: encode, fuse, splice, loss (port of
+grounded_video_llm_tpu/models/vlm.py).
 
   encode_video:
     spatial [B,12,336,336,3] → CLIP penultimate (CLS dropped) → [B*12,576,C]
@@ -13,14 +13,16 @@ half of grounded_video_llm_tpu/models/vlm.py).
   splice_multimodal: the single IMAGE_TOKEN_INDEX slot is replaced by the
     video tokens as one static-shape gather; text-only rows append the video
     tokens at the end with attention 0.
+  forward_loss: encode (frozen encoders under no_grad) → splice → LLM →
+    sequence-chunked cross entropy.
 
-Not ported yet: the llama3/vicuna image_newline fusion and the training
-forward.
+Not ported yet: the llama3/vicuna image_newline fusion.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -30,6 +32,16 @@ from ..ops.preprocess import (INTERNVIDEO_MEAN, INTERNVIDEO_STD,
 from ..text.templates import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from . import clip_vit, internvideo2, llm as llm_mod, projectors
 from .param_utils import normal
+
+
+class Batch(NamedTuple):
+    """Training batch of tensors on one device."""
+    input_ids: torch.Tensor        # [B, S] int, one IMAGE_TOKEN_INDEX per row
+    labels: torch.Tensor           # [B, S] int, IGNORE_INDEX masked
+    attn_mask: torch.Tensor        # [B, S] int
+    spatial_pixels: torch.Tensor   # [B, num_segs, 336, 336, 3]
+    temporal_pixels: torch.Tensor  # [B, num_frames, 224, 224, 3]
+    is_text: torch.Tensor          # [B] bool, text-only sample
 
 
 def init_params(cfg: VLMConfig, *, generator: torch.Generator, device,
@@ -99,8 +111,14 @@ def _maybe_normalize(pixels: torch.Tensor, mean, std,
 
 
 def encode_video(params, cfg: VLMConfig, spatial_pixels: torch.Tensor,
-                 temporal_pixels: torch.Tensor) -> torch.Tensor:
-    """→ video features [B, num_video_tokens, H_llm]."""
+                 temporal_pixels: torch.Tensor,
+                 freeze_encoders: bool = True) -> torch.Tensor:
+    """→ video features [B, num_video_tokens, H_llm].
+
+    freeze_encoders: both encoders run under torch.no_grad(), the JAX
+    package's stop_gradient at their outputs; both are frozen in every
+    training stage, so their backward is never needed. The fusion,
+    sub_GN / glb_GN and the projectors stay in the graph."""
     if cfg.llm_name != "phi3.5":
         raise NotImplementedError(
             f"encode_video: {cfg.llm_name} fusion is not ported yet")
@@ -113,8 +131,10 @@ def encode_video(params, cfg: VLMConfig, spatial_pixels: torch.Tensor,
     fps = cfg.num_frames_per_seg
 
     # ---- spatial stream
+    frozen = torch.no_grad() if freeze_encoders else contextlib.nullcontext()
     sp = spatial_pixels.reshape(B * S_segs, *spatial_pixels.shape[2:])
-    image_feats = clip_vit.features(params["clip"], cfg.clip, sp)
+    with frozen:
+        image_feats = clip_vit.features(params["clip"], cfg.clip, sp)
     x = merge_2x2_phi3(image_feats)                       # [B*12,12,12,4C]
     x = add_newline_phi3(x, params["extras"]["sub_GN"])   # [B*12,156,4C]
     x = x.reshape(B, S_segs, *x.shape[1:])
@@ -122,7 +142,8 @@ def encode_video(params, cfg: VLMConfig, spatial_pixels: torch.Tensor,
 
     # ---- temporal stream
     tp = temporal_pixels.reshape(B * S_segs, fps, *temporal_pixels.shape[2:])
-    seg = internvideo2.features(params["video_encoder"], cfg.video, tp)
+    with frozen:
+        seg = internvideo2.features(params["video_encoder"], cfg.video, tp)
     seg = seg[:, 1:, :]                                   # drop CLS
     seg = seg.reshape(B * S_segs, fps, cfg.video.patches_per_frame, -1)
     seg = _pool_grid(seg, 16, 4)                          # [B*12,fps,16,C]
@@ -197,6 +218,31 @@ def splice_multimodal(input_ids: torch.Tensor,          # [B, S]
     labels_out = torch.where(in_video, IGNORE_INDEX,
                              torch.gather(labels, 1, t))
     return embeds, labels_out, mask_out
+
+
+# ---------------------------------------------------------------------------
+# Training forward
+# ---------------------------------------------------------------------------
+
+
+def forward_loss(params, cfg: VLMConfig, batch: Batch, remat: bool = False,
+                 freeze_encoders: bool = True, lora_dropout: float = 0.0,
+                 dropout_seed: Optional[int] = None,
+                 remat_group: int = 1) -> torch.Tensor:
+    """Full multimodal forward → scalar fp32 cross-entropy loss.
+    lora_dropout with dropout_seed: training-only dropout on the LoRA
+    branch (peft lora_dropout)."""
+    video_features = encode_video(params, cfg, batch.spatial_pixels,
+                                  batch.temporal_pixels,
+                                  freeze_encoders=freeze_encoders)
+    embeds, labels, mask = splice_multimodal(
+        batch.input_ids, batch.labels, batch.attn_mask, video_features,
+        params["llm"]["embed"], batch.is_text)
+    hidden = llm_mod.forward_hidden(params["llm"], cfg.llm, embeds, mask,
+                                    remat=remat, remat_group=remat_group,
+                                    lora_dropout=lora_dropout,
+                                    dropout_seed=dropout_seed)
+    return llm_mod.causal_lm_loss_from_hidden(params["llm"], hidden, labels)
 
 
 def embed_tokens(params, token_ids: torch.Tensor) -> torch.Tensor:

@@ -1,10 +1,11 @@
 """Host half of frame preprocessing (port of
 grounded_video_llm_tpu/ops/preprocess.py): shorter-edge PIL-exact bicubic
-resize and center crop, staying uint8. Normalization runs on the device
-(models/vlm.py:_maybe_normalize). The resize itself is the port's copy of
-the JAX package's framework-free ops/pil_resize.py.
+resize and center crop. The serving path stays uint8 and normalizes on the
+device (models/vlm.py:_maybe_normalize); the training datasets normalize on
+the host (``dual_stream_preprocess_host``, fp32). The resize itself is the
+port's copy of the JAX package's framework-free ops/pil_resize.py.
 
-Output layout is channel-last [T, S, S, 3] uint8.
+Output layout is channel-last [T, S, S, 3].
 """
 
 from __future__ import annotations
@@ -54,4 +55,35 @@ def dual_stream_resize_host(frames: np.ndarray, num_segs: int,
     temporal = resize_frames_host_u8(frames, temporal_size)
     idx = spatial_indices(num_frames, num_segs)
     spatial = resize_frames_host_u8(frames[idx], spatial_size)
+    return temporal, spatial
+
+
+def preprocess_frames_host(frames: np.ndarray, size: int,
+                           mean: Tuple[float, float, float],
+                           std: Tuple[float, float, float],
+                           dtype=np.float32) -> np.ndarray:
+    """uint8 [T, H, W, 3] → resize and crop as resize_frames_host_u8 →
+    /255 → (x - mean) / std in dtype: the reference's ToPILImage → Resize
+    (BICUBIC) → CenterCrop → ToTensor → Normalize."""
+    u8 = resize_frames_host_u8(frames, size)
+    mean_arr = np.asarray(mean, dtype=np.float32)
+    std_arr = np.asarray(std, dtype=np.float32)
+    out = (u8.astype(np.float32) / 255.0 - mean_arr) / std_arr
+    return out.astype(dtype, copy=False)
+
+
+def dual_stream_preprocess_host(frames: np.ndarray, num_segs: int,
+                                temporal_size: int = 224,
+                                spatial_size: int = 336, dtype=np.float32
+                                ) -> Tuple[np.ndarray, np.ndarray]:
+    """frames uint8 [F, H, W, 3] → (temporal [F, 224, 224, 3] all frames,
+    InternVideo2 normalization; spatial [num_segs, 336, 336, 3]
+    mid-segment frames, CLIP normalization), both in dtype."""
+    num_frames = frames.shape[0]
+    temporal = preprocess_frames_host(frames, temporal_size,
+                                      INTERNVIDEO_MEAN, INTERNVIDEO_STD, dtype)
+    idx = spatial_indices(num_frames, num_segs)
+    spatial = preprocess_frames_host(frames[idx], spatial_size,
+                                     OPENAI_DATASET_MEAN, OPENAI_DATASET_STD,
+                                     dtype)
     return temporal, spatial

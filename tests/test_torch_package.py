@@ -37,6 +37,10 @@ def test_port_never_imports_jax():
     assert "grounded_video_llm_tpu_torch.ops.flash_attention" in mods
     assert "grounded_video_llm_tpu_torch.serve.engine" in mods
     assert "grounded_video_llm_tpu_torch.video.native.decoder" in mods
+    for m in ("train.strategy", "train.step", "train.optimizer", "train.lora",
+              "train.vocab", "data.collate", "data.datasets", "data.loader",
+              "obs.logger", "obs.trackers", "cli.train"):
+        assert f"grounded_video_llm_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -80,7 +84,7 @@ def test_kernel_module_imports_without_nvcc():
             "flash_attention, int8_matmul, decode_attention_int8, "
             "cache_write\n"
             "ks = cuda_build.REGISTRY\n"
-            "assert len(ks) == 5, [k.symbol for k in ks]\n"
+            "assert len(ks) == 6, [k.symbol for k in ks]\n"
             "assert all(k._fn is None and k.launches == 0 for k in ks)\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO, PATH="/nonexistent")
@@ -89,7 +93,8 @@ def test_kernel_module_imports_without_nvcc():
     assert proc.returncode == 0, proc.stderr
     kernels = cuda_build.REGISTRY
     assert {k.symbol for k in kernels} == {
-        "gvllm_flash_fwd", "gvllm_int8_gemv", "gvllm_int8_matmul",
+        "gvllm_flash_fwd", "gvllm_flash_bwd", "gvllm_int8_gemv",
+        "gvllm_int8_matmul",
         "gvllm_decode_attention_int8", "gvllm_scatter_write"}
     if (shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc")
             or any(k.library_path().exists() for k in kernels)):
@@ -161,6 +166,66 @@ def test_cpu_tensors_run_the_plain_version_without_counting():
     ref_o, ref_lse = fa.flash_fwd_reference(q, k, v, None, 0.25, True)
     assert torch.equal(o, ref_o) and torch.equal(lse, ref_lse)
     assert fa.FLASH_FWD.launches == before
+
+
+def _bwd_args(**kw):
+    q, k, v = _qkv(**kw)
+    B, S, H, _ = q.shape
+    return [q, k, v, None, torch.zeros_like(q), torch.zeros(B, H, S),
+            torch.zeros_like(q), None]
+
+
+@pytest.mark.parametrize("case", [
+    "fp32_do", "do_shape", "strided_o", "lse_fp16", "lse_shape",
+    "head_dim_80", "bias_shape", "window_zero", "empty", "fp32_k"])
+def test_flash_bwd_launch_checks_refuse_unsupported_inputs(case):
+    a = _bwd_args()
+    if case == "fp32_do":
+        a[6] = a[6].float()
+    elif case == "do_shape":
+        a[6] = torch.zeros(1, 7, 2, 64, dtype=torch.bfloat16)
+    elif case == "strided_o":
+        a[4] = torch.zeros(1, 8, 4, 64, dtype=torch.bfloat16)[:, :, ::2]
+    elif case == "lse_fp16":
+        a[5] = a[5].half()
+    elif case == "lse_shape":
+        a[5] = torch.zeros(1, 8, 2)
+    elif case == "head_dim_80":
+        a = _bwd_args(D=80)
+    elif case == "bias_shape":
+        a[3] = torch.zeros(1, 7)
+    elif case == "window_zero":
+        a[7] = 0
+    elif case == "empty":
+        a = _bwd_args(S=0)
+    elif case == "fp32_k":
+        a[1] = a[1].float()
+    with pytest.raises((TypeError, ValueError)):
+        fa._check_bwd_args(*a)
+
+
+def test_flash_bwd_launch_checks_accept_the_paths_shapes():
+    for D, H, Hkv in ((96, 32, 32), (88, 16, 16), (128, 32, 8), (64, 4, 4)):
+        a = _bwd_args(H=H, Hkv=Hkv, D=D)
+        a[3], a[7] = torch.zeros(1, 8), 262144
+        fa._check_bwd_args(*a)
+
+
+def test_flash_bwd_devices_and_cpu_plain_version():
+    """No kernel for a device other than CUDA; CPU tensors run the plain
+    version and count nothing."""
+    q, k, v = (torch.randn(1, 8, 2, 16) for _ in range(3))
+    o, lse = fa.flash_fwd(q, k, v, None, 0.25, True)
+    do = torch.randn_like(q)
+    meta = [t.to("meta") for t in (q, k, v, o, lse, do)]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fa.flash_bwd(meta[0], meta[1], meta[2], None, meta[3], meta[4],
+                     meta[5], 0.25, True)
+    before = fa.FLASH_BWD.launches
+    got = fa.flash_bwd(q, k, v, None, o, lse, do, 0.25, True)
+    want = fa.flash_bwd_reference(q, k, v, None, o, lse, do, 0.25, True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert fa.FLASH_BWD.launches == before
 
 
 def _gemv_args(M=2, D=64, O=128):

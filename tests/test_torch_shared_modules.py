@@ -1,8 +1,11 @@
 """The port's own copies of the JAX package's framework-free modules (core
 config, text codec, templates and tokenizer, frame sampling, the PIL-exact
-resize) against their originals: same inputs, equal outputs."""
+resize, the data loader, the logger and metric trackers, the dataset mixes
+with their host preprocessing) against their originals: same inputs, equal
+outputs."""
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -107,3 +110,102 @@ def test_pil_resize_numpy_copy(hw, out):
     np.testing.assert_array_equal(a, b)
     assert (tresize.resized_shape_torchvision(*hw, 224)
             == jresize.resized_shape_torchvision(*hw, 224))
+
+
+def test_loader_copy():
+    """ShardedSampler and DataLoader: the same plans, the same batches in
+    the same order, the same mid-epoch resume."""
+    from grounded_video_llm_tpu.data import loader as jload
+    from grounded_video_llm_tpu_torch.data import loader as tload
+
+    for kw in (dict(shuffle=True, seed=7, num_shards=2, shard_id=1),
+               dict(shuffle=False, seed=0)):
+        for epoch in (0, 3):
+            np.testing.assert_array_equal(
+                tload.ShardedSampler(50, 4, **kw).epoch_indices(epoch),
+                jload.ShardedSampler(50, 4, **kw).epoch_indices(epoch))
+    data = list(range(23))
+    runs = []
+    for mod in (tload, jload):
+        ld = mod.DataLoader(data, collate_fn=lambda xs: tuple(xs),
+                            batch_size=3, seed=5)
+        it = ld.epoch_iterator()
+        first = [next(it), next(it)]
+        state = ld.state_dict()
+        resumed = mod.DataLoader(data, collate_fn=lambda xs: tuple(xs),
+                                 batch_size=3, seed=5)
+        resumed.load_state_dict(state)
+        runs.append((first, state, list(resumed.epoch_iterator()),
+                     ld.batches_per_epoch()))
+    assert runs[0] == runs[1]
+
+
+def test_logger_copy(capsys):
+    from grounded_video_llm_tpu.obs import logger as jlog
+    from grounded_video_llm_tpu_torch.obs import logger as tlog
+
+    assert (tlog.LOG_FORMAT, tlog.DATE_FORMAT, tlog._CTX_PREFIXES) == \
+        (jlog.LOG_FORMAT, jlog.DATE_FORMAT, jlog._CTX_PREFIXES)
+    outs = []
+    for mod, name in ((tlog, "port_copy_test"), (jlog, "jax_copy_test")):
+        ow = mod.initialize_overwatch(name, rank=0, world_size=1)
+        assert ow.is_rank_zero() and ow.world_size() == 1
+        ow.info("hello", ctx_level=2)
+        outs.append(capsys.readouterr().out.split(" :: ")[-1])
+        assert mod.Overwatch(name + "_r1", 1, 2).logger.logger.level == 40
+    assert outs[0] == outs[1] == "   ->> hello\n"
+    assert tlog.initialize_overwatch("port_default").rank() == 0
+
+
+def test_trackers_copy(tmp_path):
+    from grounded_video_llm_tpu.obs import trackers as jtr
+    from grounded_video_llm_tpu_torch.obs import trackers as ttr
+
+    logs = []
+    for mod in (ttr, jtr):
+        d = tmp_path / mod.__name__.split(".")[0]
+        m = mod.Metrics("run", str(d), {"stage": "grounded"}, window=2)
+        status = []
+        for loss in (3.0, 2.0, 1.0):
+            m.commit(loss)
+            status.append(m.push(lr=1e-4, extra={"grad_norm": loss / 2})
+                          .split(" | ")[:3])
+        rows = [json.loads(r) for r in (d / "run.jsonl").read_text()
+                .splitlines()]
+        for r in rows[1:]:
+            r.pop("step_time_s")
+        logs.append((status, rows, m.global_step))
+    assert logs[0] == logs[1]
+
+
+def test_datasets_and_host_preprocess_copy(tmp_path):
+    """MixGrounded / MixPretrain over a small written video: the same
+    rendered prompts (grounding mark, quantized timestamps) and the same
+    fp32 pixels from both packages' host preprocessing."""
+    cv2 = pytest.importorskip("cv2")
+    from grounded_video_llm_tpu.data import datasets as jds
+    from grounded_video_llm_tpu_torch.data import datasets as tds
+
+    path = tmp_path / "clip.mp4"
+    w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 10,
+                        (80, 60))
+    rng = np.random.default_rng(0)
+    for _ in range(40):
+        w.write(rng.integers(0, 256, (60, 80, 3), dtype=np.uint8))
+    w.release()
+    anno = tmp_path / "anno.json"
+    anno.write_text(json.dumps([{
+        "question_id": "q0", "video_id": "v0", "video_file": path.name,
+        "conversation": [
+            {"from": "human", "value": "<image>\nWhen does it happen?"},
+            {"from": "gpt", "value": "From <1.0> to <2.5>."}]}]))
+    for name in ("MixGrounded", "MixPretrain"):
+        items = [getattr(mod, name)(anno_path=str(anno),
+                                    video_path=str(tmp_path), num_frames=8,
+                                    num_segs=2, sample="middle")[0]
+                 for mod in (tds, jds)]
+        assert items[0]["text_inputs"] == items[1]["text_inputs"]
+        assert items[0]["durations"] == items[1]["durations"]
+        for key in ("temporal_pixel_values", "spatial_pixel_values"):
+            assert items[0][key].dtype == np.float32
+            np.testing.assert_array_equal(items[0][key], items[1][key])

@@ -28,12 +28,28 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    32,366; decode_attention_int8 (K4: B 1 and 6, 32 heads of 96, 3,840
    slots, ragged masks; a GQA case with 8 kv heads of 128) and
    scatter_write (K5: ragged slots, untouched bytes, same storage);
+   verify_attention_int8 (K8: path D's [6, 5, 32, 96] queries over 3,840
+   slots, then S = 1, S = 8, GQA 4 with D = 128, an empty cache mask and a
+   per-query window); scatter_write_multi (K9: 5 slots per row from ragged
+   bases, one at the array edge and one running past it, untouched bytes,
+   same storage); the fused W8A8 InternVideo2 GEMMs (K10:
+   fused_norm_quant_gemm for qkv with qk_norm and fc1 with GELU,
+   fused_quant_gemm_ls_residual for proj and fc2, at path D's 147,528
+   rows (six videos in one encode) and at 300, each beside the unfused
+   W8A8 chain);
 4. small references, a depth-cut full-width model on the card (kernels)
    against the same weights on the host (plain versions): bf16 (card) vs
    fp32 (host), then int8 and int8_full with the int8 cache (same int8
    weights on both sides): video features, prefill logits, one decode
-   step's logits; then one grounded training microbatch with LoRA
-   attached (B != 0): the loss and every trainable leaf's gradient;
+   step's logits; speculative verify (LLM 2 layers, int8_full, int8 cache):
+   verify_step + commit_verify on the card with K8 and K9 held to their
+   plain versions on the inputs verify_step gave them in every layer (K8
+   within its bar, the written caches and committed slots bit-equal),
+   logits against the host and against 5 sequential decode steps (their
+   committed caches printed); a two-block
+   fused W8A8 InternVideo2 trunk card vs host; then one grounded training
+   microbatch with LoRA attached (B != 0): the loss and every trainable
+   leaf's gradient;
 5. the main path, full-width Phi-3.5 (vlm_config("phi3.5",
    stage="inference"), seeded random weights) on one seeded synthetic
    96-frame video resized once: a bf16 request, then the int8 modes through
@@ -41,7 +57,12 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
      A  quantize="int8_full", int8 KV cache, B = 6 prompts (each of the three
         modes twice, different text, ragged left padding);
      B  quantize="int8", int8 KV cache, B = 1;
-     C  quantize="int8", bf16 KV cache, B = 1.
+     C  quantize="int8", bf16 KV cache, B = 1;
+     D  path A's batch with GVLLM_FUSED_IV2=1 (set only around it) and
+        spec_draft_len=4, greedy: the fused W8A8 IV2 blocks (K10), then
+        verify passes (K8, K9, K3, K6); then an oracle-table leg and a
+        sampled leg through generate_tokens_spec_from_features on its
+        features.
    Each path runs with every launch count set to 0 just before it; its
    counts are read just after and held against the counts the config
    implies. Phase times, peak device memory, and a shape/finiteness check of
@@ -66,14 +87,17 @@ with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 
 SEED = 0
 MAX_NEW_TOKENS = 32
+SPEC_DRAFT_LEN = 4      # path D: drafts per verify pass
 BOUND_O = 2e-2      # max |o_kernel - o_plain|: bf16 P and bf16 output
 BOUND_O_REL = 5e-3  # ||do|| / ||o_plain||; measured 1.9e-3 to 2.4e-3
 BOUND_LSE = 1e-3    # max |lse_kernel - lse_plain|: fp32 row statistics
@@ -112,6 +136,10 @@ SOURCES = {
     "int8_matmul": f"{PKG}/csrc/int8_matmul.cu",
     "decode_attention_int8": f"{PKG}/csrc/decode_attention_int8.cu",
     "scatter_write": f"{PKG}/csrc/cache_write.cu",
+    "verify_attention_int8": f"{PKG}/csrc/verify_attention_int8.cu",
+    "scatter_write_multi": f"{PKG}/csrc/cache_write.cu",
+    "fused_norm_quant_gemm": f"{PKG}/csrc/fused_block.cu",
+    "fused_quant_gemm_ls_residual": f"{PKG}/csrc/fused_block.cu",
 }
 REPLACES = {
     "flash_fwd": "grounded_video_llm_tpu/ops/flash_attention.py:53 "
@@ -132,6 +160,22 @@ REPLACES = {
                              "(decode_attention_int8); _kernel at :74",
     "scatter_write": "grounded_video_llm_tpu/ops/cache_write.py:60 "
                      "(scatter_write_kv) + :194 (scatter_write_scale)",
+    "verify_attention_int8": "grounded_video_llm_tpu/ops/"
+                             "decode_attention_int8.py:357 "
+                             "(verify_attention_int8) + :418 "
+                             "(verify_attention_int8_layer); _kernel_multi "
+                             "at :230",
+    "scatter_write_multi": "grounded_video_llm_tpu/ops/cache_write.py:122 "
+                           "(scatter_write_kv_multi) + :159 "
+                           "(scatter_write_scale_multi); _write_multi_kernel"
+                           " at :81",
+    "fused_norm_quant_gemm": "grounded_video_llm_tpu/ops/fused_block.py:159 "
+                             "(fused_norm_quant_gemm, pallas_call; "
+                             "_nqg_kernel at :91)",
+    "fused_quant_gemm_ls_residual": "grounded_video_llm_tpu/ops/"
+                                    "fused_block.py:225 "
+                                    "(fused_quant_gemm_ls_residual, "
+                                    "pallas_call; _qglr_kernel at :182)",
 }
 MODES = (
     ("grounding", "Give you a textual query: 'The female host wearing purple "
@@ -752,8 +796,10 @@ def ragged_valid(torch, B, L, seed):
     return torch.from_numpy(valid).cuda()
 
 
-def check_attention(torch, da, name, B, H, Hkv, D, L, *, layers=1,
-                    timed=False, seed=0):
+def check_attention(torch, da, name, B, H, Hkv, D, L, *, S=None, layers=1,
+                    timed=False, seed=0, empty=False, window=False):
+    """K4 (S None: one query per row, a [B, L] mask) or K8 (S queries per
+    row, per-query masks, verify_mask) against its plain version."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
 
@@ -765,20 +811,32 @@ def check_attention(torch, da, name, B, H, Hkv, D, L, *, layers=1,
 
     k8, ks = cache()
     v8, vs = cache()
-    q = torch.randn(B, 1, H, D, generator=g, device="cuda").to(torch.bfloat16)
-    kn, vn = (torch.randn(B, 1, Hkv, D, generator=g, device="cuda").to(
+    n_q = 1 if S is None else S
+    q = torch.randn(B, n_q, H, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    kn, vn = (torch.randn(B, n_q, Hkv, D, generator=g, device="cuda").to(
         torch.bfloat16) for _ in range(2))
-    valid = ragged_valid(torch, B, L, seed)
+    if S is None:
+        mask = ragged_valid(torch, B, L, seed)
+        kernel_fn, plain_fn = (da.decode_attention_int8,
+                               da.decode_attention_int8_reference)
+        counter, what = da.DECODE_ATTENTION_INT8, "decode_attention_int8"
+    else:
+        mask = verify_mask(torch, B, S, L, seed, empty=empty, window=window)
+        kernel_fn, plain_fn = (da.verify_attention_int8,
+                               da.verify_attention_int8_reference)
+        counter, what = da.VERIFY_ATTENTION_INT8, "verify_attention_int8"
     scale = D ** -0.5
 
     def kernel(i=0):
-        return da.decode_attention_int8(q, k8[i], ks[i], v8[i], vs[i], valid,
-                                        kn, vn, scale=scale)
+        return kernel_fn(q, k8[i], ks[i], v8[i], vs[i], mask, kn, vn,
+                         scale=scale)
 
     def plain(i=0):
-        return da.decode_attention_int8_reference(
-            q, k8[i], ks[i], v8[i], vs[i], valid, kn, vn, scale=scale)
+        return plain_fn(q, k8[i], ks[i], v8[i], vs[i], mask, kn, vn,
+                        scale=scale)
 
+    before = counter.launches
     o, o_ref = kernel(), plain()
     torch.cuda.synchronize()
     do = o.float() - o_ref.float()
@@ -788,11 +846,16 @@ def check_attention(torch, da, name, B, H, Hkv, D, L, *, layers=1,
     row = float((torch.linalg.vector_norm(do, dim=-1)
                  / torch.linalg.vector_norm(o_ref.float(), dim=-1)).max())
     ok = (rel <= BOUND_ATTN_REL and row <= BOUND_ATTN_ROW
-          and bool(torch.isfinite(o).all()))
-    line = (f"[kernel] decode_attention_int8 {name:<8} B={B} H={H} Hkv={Hkv} "
-            f"D={D} L={L} valid_slots={int(valid.sum())} "
-            f"max|do|={err:.3e} rel|do|={rel:.3e} (<= {BOUND_ATTN_REL}) "
-            f"max per-row rel|do|={row:.3e} (<= {BOUND_ATTN_ROW:.3e})")
+          and bool(torch.isfinite(o).all())
+          and counter.launches == before + 1)
+    masks = mask.view(B, n_q, L)
+    # the slots this data needs: those any query of the row can see
+    n_need = int(masks.any(dim=1).sum())
+    pairs = int(masks.sum()) + B * n_q * (n_q + 1) // 2    # (query, key)
+    line = (f"[kernel] {what} {name:<10} B={B} S={n_q} H={H} Hkv={Hkv} "
+            f"D={D} L={L} slots_read={n_need} max|do|={err:.3e} "
+            f"rel|do|={rel:.3e} (<= {BOUND_ATTN_REL}) max per (row, head, "
+            f"query) rel|do|={row:.3e} (<= {BOUND_ATTN_ROW:.3e})")
     out = {"err": err}
     if timed:
         out["call_ms"] = cuda_ms(
@@ -801,20 +864,19 @@ def check_attention(torch, da, name, B, H, Hkv, D, L, *, layers=1,
             torch, lambda: [kernel(i) for i in range(layers)]) / layers
         out["plain_ms"] = graph_ms(
             torch, lambda: [plain(i) for i in range(layers)], 5) / layers
-        # the slots this data needs (valid ones), their scales, the mask,
-        # q / k_new / v_new read and the output written
-        n_valid = int(valid.sum())
-        out["bytes"] = (Hkv * n_valid * (2 * D + 8) + B * L
-                        + 2 * (2 * B * H * D + 2 * B * Hkv * D))
-        out["ops"] = 4 * H * D * n_valid
+        # the needed slots and their scales, the mask, q / k_new / v_new
+        # read and the output written
+        out["bytes"] = (Hkv * n_need * (2 * D + 8) + B * n_q * L
+                        + 2 * (2 * B * n_q * H * D + 2 * B * n_q * Hkv * D))
+        out["ops"] = 4 * D * H * pairs
         bms, by = bound_ms(out["bytes"], out["ops"], BF16_OPS)
         line += (f" kernel_ms={out['ms']:.4f} (with the host's launch: "
                  f"{out['call_ms']:.4f}) plain_ms={out['plain_ms']:.4f}"
                  f" bound_ms={bms:.4f} ({by}) over {layers} layers")
     log(line + f" {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"decode_attention_int8 {name}: kernel "
-                             "disagrees with the plain version")
+        raise AssertionError(f"{what} {name}: kernel disagrees with the "
+                             "plain version")
     del k8, ks, v8, vs
     torch.cuda.empty_cache()
     return out
@@ -842,75 +904,274 @@ def attention_phase(torch, da, cfg, max_len):
 
 
 # ---------------------------------------------------------------------------
-# K5 scatter_write
+# K5 scatter_write and K9 scatter_write_multi
 # ---------------------------------------------------------------------------
 
 
-def write_phase(torch, cw, cfg, max_len):
+def write_phase(torch, cw, cfg, max_len, S=None):
+    """K5 (S None: one slot per row at ragged slots, the last at the array
+    edge) or K9 (S slots per row from ragged bases, two rows across a
+    128-slot boundary, one at the array edge and one whose last slots fall
+    past max_len and write nothing) on path A's / D's four buffers: bit-equal
+    to the plain version, the same storage, every other byte untouched."""
     L = cfg.llm
-    k5 = Family("scatter_write")
+    multi = S is not None
+    n_s = S if multi else 1
+    fam = Family("scatter_write_multi" if multi else "scatter_write")
+    counter = cw.SCATTER_WRITE_MULTI if multi else cw.SCATTER_WRITE
     B, Hkv, D, n = 6, L.num_kv_heads, L.head_dim, L.num_layers
     g = torch.Generator(device="cuda")
-    g.manual_seed(40)
+    g.manual_seed(80 if multi else 40)
 
     def values(*shape):
         return torch.randint(-127, 128, shape, generator=g, device="cuda",
                              dtype=torch.int8)
 
-    caches = [values(n, B, Hkv, max_len, D),
-              torch.rand(n, B, Hkv, max_len, generator=g, device="cuda"),
-              values(n, B, Hkv, max_len, D),
-              torch.rand(n, B, Hkv, max_len, generator=g, device="cuda")]
-    news = [values(n, B, Hkv, D), torch.rand(n, B, Hkv, generator=g,
-                                             device="cuda"),
-            values(n, B, Hkv, D), torch.rand(n, B, Hkv, generator=g,
-                                             device="cuda")]
-    idx = torch.tensor([0, 127, 128, max_len // 2, max_len - 2, max_len - 1],
-                       dtype=torch.int32, device="cuda")
+    def scales(*shape):
+        return torch.rand(*shape, generator=g, device="cuda")
+
+    caches = [values(n, B, Hkv, max_len, D), scales(n, B, Hkv, max_len),
+              values(n, B, Hkv, max_len, D), scales(n, B, Hkv, max_len)]
+    news = [values(n, B, n_s, Hkv, D), scales(n, B, n_s, Hkv),
+            values(n, B, n_s, Hkv, D), scales(n, B, n_s, Hkv)]
+    if multi:
+        bases = [0, 126, 127, max_len // 2, max_len - S, max_len - 2]
+        call, plain = cw.scatter_write_multi, cw.scatter_write_multi_reference
+        args = news
+    else:
+        bases = [0, 127, 128, max_len // 2, max_len - 2, max_len - 1]
+        call, plain = cw.scatter_write, cw.scatter_write_reference
+        args = [t[:, :, 0] for t in news]
+    base = torch.tensor(bases, dtype=torch.int32, device="cuda")
     before = [c.clone() for c in caches]
     ptrs = [c.data_ptr() for c in caches]
-    cw.scatter_write(caches, news, idx)
+    launched = counter.launches
+    call(caches, args, base)
     expect = [c.clone() for c in before]
-    cw.scatter_write_reference(expect, news, idx.cpu())
+    plain(expect, args, base.cpu())
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(caches, expect))
     kept = [c.data_ptr() for c in caches] == ptrs
-    # bytes other than the written slots: untouched, bitwise
     keep = torch.ones(B, max_len, dtype=torch.bool, device="cuda")
-    keep[torch.arange(B, device="cuda"), idx.long()] = False
+    for b, b0 in enumerate(bases):
+        keep[b, b0:min(b0 + n_s, max_len)] = False
     untouched = all(
         torch.equal(c.transpose(1, 2)[:, :, keep].view(torch.uint8),
-                    b.transpose(1, 2)[:, :, keep].view(torch.uint8))
-        for c, b in zip(caches, before))
-    ok = same and kept and untouched
-    ar = torch.arange(B, device="cuda")
+                    o.transpose(1, 2)[:, :, keep].view(torch.uint8))
+        for c, o in zip(caches, before))
+    ok = same and kept and untouched and counter.launches == launched + 1
+    # timing on the path's kind of slots: every one in range
+    base_t = base.clamp_max(max_len - n_s)
+    rows = torch.arange(B, device="cuda")[:, None].expand(B, n_s)
+    cols = base_t.long()[:, None] + torch.arange(n_s, device="cuda")[None, :]
 
     def library():
         for c, new in zip(caches, news):
-            c[:, ar, :, idx.long()] = new.transpose(0, 1)
+            c[:, rows, :, cols] = new.movedim(0, 2)
 
-    call_ms = cuda_ms(torch, lambda: cw.scatter_write(caches, news, idx), 50)
-    ms = graph_ms(torch, lambda: cw.scatter_write(caches, news, idx), 50)
+    call_ms = cuda_ms(torch, lambda: call(caches, args, base_t), 50)
+    ms = graph_ms(torch, lambda: call(caches, args, base_t), 50)
     # the plain version reads the slots on the host: not capturable, so its
     # time includes the host's part
-    plain_ms = cuda_ms(torch, lambda: cw.scatter_write_reference(
-        caches, news, idx), 10)
+    plain_ms = cuda_ms(torch, lambda: plain(caches, args, base_t), 5)
     lib_ms = graph_ms(torch, library, 50)
     nbytes = 2 * sum(t.numel() * t.element_size() for t in news)
-    k5.add(1, ms, plain_ms, nbytes, 0.0, "bf16", lib_ms)
-    bms, by = k5.bound()
-    log(f"[kernel] scatter_write 4 buffers [{n},{B},{Hkv},{max_len},{D}] "
-        f"slots={idx.tolist()} equal_to_plain={same} same_storage={kept} "
+    fam.add(1, ms, plain_ms, nbytes, 0.0, "bf16", lib_ms)
+    bms, by = fam.bound()
+    log(f"[kernel] {fam.name} 4 buffers [{n},{B},{Hkv},{max_len},{D}] "
+        f"S={n_s} slots={bases} equal_to_plain={same} same_storage={kept} "
         f"untouched_bytes_equal={untouched} kernel_ms={ms:.4f} (with the "
-        f"host's launch: {call_ms:.4f}) "
-        f"plain_ms={plain_ms:.4f} index_put_ms={lib_ms:.4f} (4 calls) "
-        f"bound_ms={bms:.5f} ({by}) {'OK' if ok else 'FAIL'}")
+        f"host's launch: {call_ms:.4f}) plain_ms={plain_ms:.4f} "
+        f"index_put_ms={lib_ms:.4f} (4 calls) bound_ms={bms:.5f} ({by}) "
+        f"{'OK' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("scatter_write: kernel disagrees with the plain "
+        raise AssertionError(f"{fam.name}: kernel disagrees with the plain "
                              "version or touched other bytes")
     del caches, news, before, expect
     torch.cuda.empty_cache()
-    return k5
+    return fam
+
+
+# ---------------------------------------------------------------------------
+# K8 verify_attention_int8
+# ---------------------------------------------------------------------------
+
+
+def verify_mask(torch, B, S, L, seed, *, empty=False, window=False):
+    """[B, S, L] bool per-query masks: every query of a row sees the row's
+    ragged committed slots (ragged_valid); empty: row 0 sees no cache slot
+    (only its new tokens); window: query i loses the first 200 + 13 i
+    slots, as a sliding window moving with the candidate's position."""
+    mask = ragged_valid(torch, B, L, seed)[:, None, :].repeat(1, S, 1)
+    if empty:
+        mask[0] = False
+    if window:
+        for i in range(S):
+            mask[:, i, :200 + 13 * i] = False
+    return mask.contiguous()
+
+
+def verify_phase(torch, da, cfg, max_len, S_v):
+    """K8 at path D's shape (timed over 32 layers' buffers) and the cases:
+    S = 1, S = 8, GQA 4 with D = 128, an empty cache mask, a window. The
+    family's numbers are per verify pass (32 launches)."""
+    L = cfg.llm
+    k8 = Family("verify_attention_int8")
+    r = check_attention(torch, da, "path_D", 6, L.num_heads, L.num_kv_heads,
+                        L.head_dim, max_len, S=S_v, layers=L.num_layers,
+                        timed=True, seed=70)
+    k8.add(L.num_layers, r["ms"], r["plain_ms"], r["bytes"], r["ops"])
+    k8.max_err = r["err"]
+    for i, (name, kw) in enumerate((
+            ("s1", dict(B=6, S=1, H=32, Hkv=32, D=96, L=max_len)),
+            ("s8", dict(B=2, S=8, H=32, Hkv=32, D=96, L=1000)),
+            ("gqa4_d128", dict(B=2, S=8, H=32, Hkv=8, D=128, L=1000)),
+            ("empty", dict(B=2, S=S_v, H=32, Hkv=32, D=96, L=640,
+                           empty=True)),
+            ("window", dict(B=2, S=S_v, H=32, Hkv=32, D=96, L=640,
+                            window=True)))):
+        r = check_attention(torch, da, name, seed=71 + i, **kw)
+        k8.max_err = max(k8.max_err, r["err"])
+    bms, by = k8.bound()
+    log(f"[kernel] verify_attention_int8 per verify pass of path D "
+        f"({L.num_layers} launches, B=6, S={S_v}): kernel {k8.ms:.3f} ms, "
+        f"plain {k8.plain_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    return k8
+
+
+# ---------------------------------------------------------------------------
+# K10 fused W8A8 InternVideo2-block GEMMs
+# ---------------------------------------------------------------------------
+
+
+def fused_phase(torch, fb, cfg, videos):
+    """The four GEMMs of a W8A8 InternVideo2 block at path D's rows (its
+    videos encoded in one call: videos x 12 segments x 2,049 tokens)
+    against their plain versions, and at 300 rows (a ragged row tile) with
+    the "none" epilogue too. Beside each: the unfused W8A8 chain the port
+    runs with the switch off (rms_norm → dynamic_int8_matmul on
+    torch._int_mm → epilogue). Family numbers are per encode of path D:
+    39 blocks."""
+    import torch.nn.functional as F
+
+    from grounded_video_llm_tpu_torch.ops.int8_matmul import (
+        Int8Weight, dynamic_int8_matmul, quantize_weights_int8)
+    from grounded_video_llm_tpu_torch.ops.normalization import (layer_scale,
+                                                                rms_norm)
+
+    v = cfg.video
+    D, I, eps = v.embed_dim, v.mlp_hidden, v.rms_eps
+    nb = v.num_blocks_used
+    g = torch.Generator(device="cuda")
+    g.manual_seed(90)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=g, device="cuda") * scale
+                + shift).to(torch.bfloat16)
+
+    def weight(d_in, d_out):
+        return Int8Weight(*quantize_weights_int8(
+            torch.randn(d_in, d_out, generator=g, device="cuda") * 0.02))
+
+    w = {"qkv": weight(D, 3 * D), "fc1": weight(D, I), "proj": weight(D, D),
+         "fc2": weight(I, D)}
+    nw, qn = randn(D, scale=0.1, shift=1.0), randn(2, D, scale=0.1, shift=1.0)
+    b_fc1, b_d = randn(I, scale=0.1), randn(D, scale=0.1)
+    ls = randn(D, scale=0.1)
+    nqg, qglr = Family("fused_norm_quant_gemm"), \
+        Family("fused_quant_gemm_ls_residual")
+    unfused_total = {nqg.name: 0.0, qglr.name: 0.0}
+    rows = videos * cfg.num_segs * v.seq_len
+    for M in (300, rows):
+        timed = M > 300
+        x, h = randn(M, D), randn(M, I, scale=0.5)
+
+        def unfused_qkv():
+            q, k, vv = dynamic_int8_matmul(rms_norm(x, nw, eps), w["qkv"].q,
+                                           w["qkv"].scale).split(D, dim=-1)
+            return rms_norm(q, qn[0], eps), rms_norm(k, qn[1], eps), vv
+
+        cases = [
+            ("qkv qk_norm", nqg, D, 3 * D,
+             lambda: fb.fused_norm_quant_gemm(x, nw, w["qkv"], eps=eps,
+                                              epilogue="qk_norm",
+                                              qk_norm_w=qn),
+             lambda: fb.fused_norm_quant_gemm_reference(
+                 x, nw, w["qkv"], eps=eps, epilogue="qk_norm", qk_norm_w=qn),
+             unfused_qkv),
+            ("fc1 gelu+bias", nqg, D, I,
+             lambda: fb.fused_norm_quant_gemm(x, nw, w["fc1"], eps=eps,
+                                              epilogue="gelu", bias=b_fc1),
+             lambda: fb.fused_norm_quant_gemm_reference(
+                 x, nw, w["fc1"], eps=eps, epilogue="gelu", bias=b_fc1),
+             lambda: F.gelu(dynamic_int8_matmul(
+                 rms_norm(x, nw, eps), w["fc1"].q, w["fc1"].scale) + b_fc1,
+                 approximate="none")),
+            ("proj ls+residual", qglr, D, D,
+             lambda: fb.fused_quant_gemm_ls_residual(x, w["proj"], b_d, ls,
+                                                     x),
+             lambda: fb.fused_quant_gemm_ls_residual_reference(
+                 x, w["proj"], b_d, ls, x),
+             lambda: x + layer_scale(dynamic_int8_matmul(
+                 x, w["proj"].q, w["proj"].scale) + b_d, ls)),
+            ("fc2 ls+residual", qglr, I, D,
+             lambda: fb.fused_quant_gemm_ls_residual(h, w["fc2"], b_d, ls, x),
+             lambda: fb.fused_quant_gemm_ls_residual_reference(
+                 h, w["fc2"], b_d, ls, x),
+             lambda: x + layer_scale(dynamic_int8_matmul(
+                 h, w["fc2"].q, w["fc2"].scale) + b_d, ls)),
+        ]
+        if not timed:
+            cases.append((
+                "proj none", nqg, D, D,
+                lambda: fb.fused_norm_quant_gemm(x, nw, w["proj"], eps=eps),
+                lambda: fb.fused_norm_quant_gemm_reference(x, nw, w["proj"],
+                                                           eps=eps), None))
+        for name, fam, d_in, d_out, kernel, plain, unfused in cases:
+            counter = (fb.FUSED_NORM_QUANT_GEMM if fam is nqg
+                       else fb.FUSED_QUANT_GEMM_LS_RESIDUAL)
+            before = counter.launches
+            y, y_ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = gemv_error(torch, y, y_ref)
+            ok = (err <= BOUND_GEMV and y.dtype == torch.bfloat16
+                  and bool(torch.isfinite(y).all())
+                  and counter.launches == before + 1)
+            d_abs = float((y.float() - y_ref.float()).abs().max())
+            fam.max_err = max(fam.max_err, d_abs)
+            line = (f"[kernel] {fam.name} {name:<16} M={M} D={d_in} "
+                    f"O={d_out} max|dy|={d_abs:.3e} max|dy|/max|y|={err:.3e}"
+                    f" (<= {BOUND_GEMV:.3e})")
+            if timed:
+                ms = cuda_ms(torch, kernel, 10)
+                plain_ms = cuda_ms(torch, plain, 2)
+                unfused_ms = cuda_ms(torch, unfused, 10)
+                nbytes = (2 * M * d_in + d_in * d_out + 8 * d_out
+                          + 2 * M * d_out * (2 if fam is qglr else 1))
+                ops = 2.0 * M * d_in * d_out
+                bms, by = bound_ms(nbytes, ops, INT8_OPS)
+                fam.add(nb, ms, plain_ms, nbytes, ops, "int8")
+                unfused_total[fam.name] += nb * unfused_ms
+                line += (f" kernel_ms={ms:.4f} ({ops / ms / 1e9:.0f} TOP/s)"
+                         f" plain_ms={plain_ms:.4f} unfused_chain_ms="
+                         f"{unfused_ms:.4f} bound_ms={bms:.4f} ({by})")
+            log(line + f" {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{fam.name} {name} M={M}: kernel "
+                                     "disagrees with the plain version")
+        del x, h
+        torch.cuda.empty_cache()
+    for fam in (nqg, qglr):
+        bms, by = fam.bound()
+        log(f"[kernel] {fam.name} per encode of path D ({videos} videos, "
+            f"{nb} blocks x 2 GEMMs at M={rows}): kernel {fam.ms:.1f} ms, "
+            f"plain {fam.plain_ms:.1f} ms, unfused W8A8 chain "
+            f"{unfused_total[fam.name]:.1f} "
+            f"ms, bound {bms:.1f} ms ({by})")
+    del w
+    torch.cuda.empty_cache()
+    return nqg, qglr
+
 
 
 # ---------------------------------------------------------------------------
@@ -1003,6 +1264,235 @@ def small_reference(torch, cfg_full, seed, quantize):
     if not ok:
         raise AssertionError("card path disagrees with the host reference")
     del p_gpu, p_cpu, eng, outs
+    torch.cuda.empty_cache()
+
+
+def small_reference_verify(torch, cfg_full, seed, S_v):
+    """Speculative verify on a depth-cut full-width LLM (2 layers) with
+    int8_full weights and the int8 cache: verify_step then a full
+    commit_verify from one prefilled cache.
+
+    On the card, K8 and K9 are held to their plain versions on the inputs
+    verify_step gave them: each layer's K8 output within K8's bar, the
+    caches after the K9 write bit-equal to the plain write on copies of the
+    caches before it, and every layer's committed slots bit-equal to the
+    int8 quantization of that layer's in-pass k/v. Card against host (plain
+    versions, bf16 on the CPU) and against S_v sequential decode_steps on
+    the card: logits within the int8_full bar, valid masks and lengths
+    equal. Printed as readings: those two routes' committed k/v, and the
+    card's with K8's and K9's plain versions swapped in. Past layer 0 they
+    differ by several int8 steps: W8A8 activations turn a one-ulp change of
+    a layer's attention into other int8 activations and so into other k/v
+    in the next layer, and the sequential steps read the candidates back as
+    int8 where the verify pass attends to their bf16 k/v."""
+    from grounded_video_llm_tpu_torch.core.config import replace
+    from grounded_video_llm_tpu_torch.models import llm
+    from grounded_video_llm_tpu_torch.ops import cache_write as cw
+    from grounded_video_llm_tpu_torch.ops import decode_attention_int8 as da
+    from grounded_video_llm_tpu_torch.serve.quantize import \
+        quantize_llm_for_serving
+
+    cfg = replace(cfg_full.llm, num_layers=2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    lp = quantize_llm_for_serving(
+        llm.init_params(cfg, generator=g, device="cuda", dtype=torch.bfloat16),
+        w8a8=True)
+    B, S, max_len = 2, 600, 768
+    rng = np.random.default_rng(seed)
+    ids = torch.from_numpy(rng.integers(3, cfg.vocab_size, (B, S)))
+    toks = torch.from_numpy(rng.integers(3, cfg.vocab_size, (B, S_v)))
+    mask = torch.ones(B, S, dtype=torch.long)
+    mask[1, :37] = 0                                   # left padding
+    new = slice(S, S + S_v)
+
+    def clone(c):
+        return c._replace(k=c.k.clone(), k_scale=c.k_scale.clone(),
+                          v=c.v.clone(), v_scale=c.v_scale.clone(),
+                          length=c.length.clone())
+
+    def verify(p, cache, valid, pos0):
+        """verify_step + full commit → (logits, cache, valid)."""
+        dev = valid.device
+        positions = pos0[:, None] + torch.arange(S_v, device=dev)[None]
+        logits, cache = llm.verify_step(
+            p, cfg, llm.embed_lookup(p["embed"], toks.to(dev)), cache,
+            valid, positions)
+        cache, valid = llm.commit_verify(
+            cache, valid, torch.full((B,), S_v, device=dev), S_v)
+        return logits, cache, valid
+
+    # the kernels' inputs as verify_step gives them, cloned at the call
+    attn_calls, write_calls = [], []
+
+    def attn(*a, **kw):
+        a = [t.clone() for t in a]
+        o = da.verify_attention_int8(*a, **kw)
+        attn_calls.append((a, kw, o))
+        return o
+
+    def write(caches, news, base):
+        write_calls.append(([c.clone() for c in caches], news, base))
+        cw.scatter_write_multi(caches, news, base)
+
+    out = {}
+    for dev, p in (("cpu", to_host(lp)), ("cuda", lp)):
+        with torch.inference_mode():
+            m = mask.to(dev)
+            cache = llm.QuantKVCache.create(cfg, B, max_len, device=dev)
+            _, cache = llm.prefill(p, cfg, llm.embed_lookup(
+                p["embed"], ids.to(dev)), m, cache)
+            valid = torch.zeros(B, max_len, dtype=torch.bool, device=dev)
+            valid[:, :S] = m.bool()
+            pos0 = m.sum(dim=-1).to(torch.int32)
+            snap = clone(cache)
+            if dev == "cpu":
+                out[dev] = verify(p, cache, valid, pos0)
+                continue
+            counts = (da.VERIFY_ATTENTION_INT8.launches,
+                      cw.SCATTER_WRITE_MULTI.launches)
+            with mock.patch.multiple(llm, verify_attention_int8=attn,
+                                     scatter_write_multi=write):
+                out[dev] = verify(p, cache, valid, pos0)
+            launched = [da.VERIFY_ATTENTION_INT8.launches - counts[0],
+                        cw.SCATTER_WRITE_MULTI.launches - counts[1]]
+            with mock.patch.multiple(
+                    llm,
+                    verify_attention_int8=da.verify_attention_int8_reference,
+                    scatter_write_multi=cw.scatter_write_multi_reference):
+                out["plain"] = verify(p, clone(snap), valid, pos0)
+    card = out["cuda"][1]
+
+    with torch.inference_mode():
+        # K8, layer by layer, on its own inputs
+        k8 = []
+        for a, kw, o in attn_calls:
+            o_ref = da.verify_attention_int8_reference(*a, **kw).float()
+            norm = torch.linalg.vector_norm
+            do = o.float() - o_ref
+            k8.append((float(norm(do) / norm(o_ref)),
+                       float((norm(do, dim=-1) / norm(o_ref, dim=-1)).max())))
+        # K9 on its own inputs; the committed slots are each layer's
+        # in-pass k/v
+        before, news, base = write_calls[0]
+        cw.scatter_write_multi_reference(before, news, base)
+        k9_equal = all(bool(torch.equal(x, y)) for x, y in zip(
+            before, (card.k, card.k_scale, card.v, card.v_scale)))
+        quant_equal = True
+        for l, (a, _, _) in enumerate(attn_calls):
+            for buf, sc, x in ((card.k, card.k_scale, a[6]),
+                               (card.v, card.v_scale, a[7])):
+                xq, xs = da.quantize_kv(x)           # [B, S_v, Hkv, *]
+                quant_equal &= (bool(torch.equal(buf[l, :, :, new],
+                                                 xq.transpose(1, 2)))
+                                and bool(torch.equal(sc[l, :, :, new],
+                                                     xs.transpose(1, 2))))
+
+    def compare(a, b):
+        """Committed caches: (masks and lengths equal, int8 max |d| of the
+        new slots per layer)."""
+        (_, ca, va), (_, cb, vb) = a, b
+        same = (bool(torch.equal(va.cpu(), vb.cpu()))
+                and bool(torch.equal(ca.length.cpu(), cb.length.cpu())))
+        steps = [max(int((x[l, :, :, new].cpu().int()
+                          - y[l, :, :, new].cpu().int()).abs().max())
+                     for x, y in ((ca.k, cb.k), (ca.v, cb.v)))
+                 for l in range(cfg.num_layers)]
+        return same, steps
+
+    seq, cache2, valid2 = [], snap, valid
+    with torch.inference_mode():
+        for i in range(S_v):
+            lg, cache2, valid2 = llm.decode_step(
+                lp, cfg, llm.embed_lookup(lp["embed"], toks[:, i].cuda())
+                [:, None], cache2, valid2, pos0 + i)
+            seq.append(lg)
+    logits = out["cuda"][0]
+    err_host = rel_err(torch, logits, out["cpu"][0])
+    same_host, steps_host = compare(out["cuda"], out["cpu"])
+    err_seq = rel_err(torch, logits, torch.stack(seq, dim=1))
+    same_seq, steps_seq = compare(out["cuda"], (None, cache2, valid2))
+    err_plain = rel_err(torch, logits, out["plain"][0])
+    _, steps_plain = compare(out["cuda"], out["plain"])
+    k8_ok = all(r <= BOUND_ATTN_REL and w <= BOUND_ATTN_ROW for r, w in k8)
+    ok = (k8_ok and len(k8) == cfg.num_layers and k9_equal and quant_equal
+          and launched == [cfg.num_layers, 1]
+          and err_host <= BOUND_SMALL_W8A8 and same_host
+          and err_seq <= BOUND_SMALL_W8A8 and same_seq)
+    log(f"[small-ref] verify: depth-cut full width (LLM 2 layers, int8_full,"
+        f" int8 cache, B={B}, prompt {S} with a left-padded row, S={S_v} "
+        f"candidates, full commit; K8, K9 launches {launched}): K8 on each "
+        f"layer's inputs vs its plain version rel L2 / max per (row, query, "
+        f"head) " + ", ".join(f"{r:.2e} / {w:.2e}" for r, w in k8)
+        + f" (<= {BOUND_ATTN_REL} / {BOUND_ATTN_ROW:.3e}); caches after K9 "
+        f"bit-equal to the plain write {k9_equal}; committed slots bit-equal"
+        f" to each layer's quantized in-pass k/v {quant_equal}; card vs "
+        f"host: logits rel L2 {err_host:.3e} (<= {BOUND_SMALL_W8A8}), valid "
+        f"mask and lengths equal {same_host}; card vs {S_v} sequential "
+        f"decode_steps: logits rel L2 {err_seq:.3e} (<= {BOUND_SMALL_W8A8}),"
+        f" valid mask and lengths equal {same_seq}; readings, new slots' int8"
+        f" max |d| per layer: vs host {steps_host}, vs sequential "
+        f"{steps_seq}, vs the card with K8/K9's plain versions {steps_plain}"
+        f" (logits rel L2 {err_plain:.3e}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("verify_step disagrees with its kernels' plain "
+                             "versions, the host or sequential decode steps")
+    del lp, out, card, cache2, snap, attn_calls, write_calls
+    torch.cuda.empty_cache()
+
+
+def fused_iv2():
+    """GVLLM_FUSED_IV2=1 inside the block, restored after it."""
+    return mock.patch.dict(os.environ, {"GVLLM_FUSED_IV2": "1"})
+
+
+def small_reference_fused_iv2(torch, cfg_full, seed, temporal):
+    """A two-block full-width InternVideo2 trunk with W8A8 weights through
+    the fused blocks (K10) on the card against the same int8 weights on the
+    host (plain versions), one segment of the path's frames. LayerScale is
+    set to 1: at its init of 1e-5 the blocks' outputs would vanish beside
+    the residual and the comparison would see little but the patch
+    embedding."""
+    from grounded_video_llm_tpu_torch.core.config import replace
+    from grounded_video_llm_tpu_torch.models import internvideo2 as iv2
+    from grounded_video_llm_tpu_torch.models.vlm import _maybe_normalize
+    from grounded_video_llm_tpu_torch.ops import fused_block as fb
+    from grounded_video_llm_tpu_torch.ops.preprocess import (INTERNVIDEO_MEAN,
+                                                             INTERNVIDEO_STD)
+    from grounded_video_llm_tpu_torch.serve.quantize import \
+        quantize_video_encoder_for_serving
+
+    cfg = replace(cfg_full.video, depth=2, num_blocks_used=2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    p = quantize_video_encoder_for_serving(iv2.init_params(
+        cfg, generator=g, device="cuda", dtype=torch.bfloat16))
+    for name in ("ls1", "ls2"):
+        p["blocks"][name].fill_(1.0)
+    frames = torch.from_numpy(temporal[None, :cfg.num_frames]).cuda()
+    pixels = _maybe_normalize(frames, INTERNVIDEO_MEAN, INTERNVIDEO_STD,
+                              torch.bfloat16)
+    counters = (fb.FUSED_NORM_QUANT_GEMM, fb.FUSED_QUANT_GEMM_LS_RESIDUAL)
+    with torch.inference_mode():
+        unfused = iv2.features(p, cfg, pixels)
+        before = [k.launches for k in counters]
+        with fused_iv2():
+            card = iv2.features(p, cfg, pixels)
+            launched = [k.launches - b for k, b in zip(counters, before)]
+            host = iv2.features(to_host(p), cfg, pixels.cpu())
+    err = rel_err(torch, card, host)
+    vs_unfused = rel_err(torch, card, unfused)
+    ok = (err <= BOUND_SMALL_W8A8 and launched == [4, 4]
+          and bool(torch.isfinite(card).all()))
+    log(f"[small-ref] fused IV2: 2 full-width W8A8 blocks, 1 segment "
+        f"{tuple(card.shape)}, card K10 vs host plain versions rel L2 "
+        f"{err:.3e} (<= {BOUND_SMALL_W8A8}), K10 launches {launched} (want "
+        f"[4, 4]); card fused vs card unfused W8A8 rel L2 {vs_unfused:.3e} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the fused InternVideo2 trunk disagrees with "
+                             "the host reference")
+    del p, card, host, unfused
     torch.cuda.empty_cache()
 
 
@@ -1167,9 +1657,6 @@ def small_reference_train(torch, cfg_full, seed):
 # ---------------------------------------------------------------------------
 # Main path
 # ---------------------------------------------------------------------------
-# ---------------------------------------------------------------------------
-# Main path
-# ---------------------------------------------------------------------------
 
 
 def run_path(torch, kernels, name, fn, expect_fn):
@@ -1183,16 +1670,89 @@ def run_path(torch, kernels, name, fn, expect_fn):
     got = {n: k.launches for n, k in kernels.items()}
     want = expect_fn(t)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    steps = max(t["decode_steps"], 1)
+    key = "decode_steps" if "decode_steps" in t else "verify_passes"
+    steps = max(t[key], 1)
     log(f"[path] {name}: prompt_tokens={t['prompt_len']} "
-        f"new_tokens={t['new_tokens']} decode_steps={t['decode_steps']} "
+        f"new_tokens={t['new_tokens']} {key}={t[key]} "
         f"encode_ms={t['encode'] * 1e3:.1f} prefill_ms={t['prefill'] * 1e3:.1f}"
-        f" decode_ms={t['decode'] * 1e3:.1f} decode_ms_per_step="
+        f" decode_ms={t['decode'] * 1e3:.1f} decode_ms_per_"
+        f"{'step' if key == 'decode_steps' else 'pass'}="
         f"{t['decode'] * 1e3 / steps:.2f} peak_device_memory={peak:.2f} GiB")
     log(f"[path] {name}: launches {got} expected {want}")
     if got != want:
         raise AssertionError(f"{name}: launch counts {got}, expected {want}")
     return got
+
+
+def spec_path(torch, cfg, engine, batch, prompts, t_a, tokens_a, temporal,
+              spatial):
+    """After path D: its encode next to path A's, its passes and accepted
+    drafts per pass; then two legs through
+    generate_tokens_spec_from_features on the path's features, outside the
+    counted run: an oracle table (prompt + path A's greedy tokens) and a
+    sampled leg at temperature 0.7 whose tokens must lie in the
+    vocabulary. Greedy
+    streams depend on where the passes fall under the int8 cache (and path
+    D's fused encoder gives other features than path A's), so agreement and
+    acceptance are reported, not asserted."""
+    from grounded_video_llm_tpu_torch.models import vlm
+    from grounded_video_llm_tpu_torch.serve.speculative import \
+        generate_tokens_spec_from_features
+    from grounded_video_llm_tpu_torch.text.tokenizer import \
+        pad_batch_generate
+
+    t = engine.last_timings
+    B, P = len(batch), t["verify_passes"]
+    tokens_d, lengths_d = engine.last_tokens
+    log(f"[path] D vs A: encode {t['encode']:.3f} s (fused W8A8 IV2) vs "
+        f"{t_a['encode']:.3f} s (unfused W8A8) for the same {B} videos; "
+        f"prefill {t['prefill']:.3f} s; {P} verify passes, "
+        f"{t['decode'] * 1e3 / max(P, 1):.2f} ms per pass; accepted drafts "
+        f"per pass {float(lengths_d.float().mean()) / max(P, 1) - 1:.3f}; "
+        f"tokens equal to path A's "
+        f"{float((tokens_d == tokens_a).float().mean()):.3f}")
+    tok = engine.tokenizer
+    seqs = [engine.tokenize_prompt(p) for p in prompts(batch, engine)]
+    ids, am = (torch.from_numpy(np.asarray(a)).long().cuda() for a in
+               pad_batch_generate(seqs, tok.pad_token_id, cfg.max_txt_len))
+
+    def dev(a):
+        return torch.from_numpy(np.broadcast_to(a[None], (B, *a.shape))
+                                .copy()).cuda()
+
+    with fused_iv2(), torch.inference_mode():
+        feats = vlm.encode_video(engine.params, cfg, dev(spatial),
+                                 dev(temporal))
+    want = (B, cfg.num_video_tokens, cfg.llm.hidden_size)
+    if tuple(feats.shape) != want or not bool(torch.isfinite(feats).all()):
+        raise AssertionError(f"path D's fused features {tuple(feats.shape)} "
+                             f"(want {want}) are malformed or not finite")
+    kw = dict(max_new_tokens=MAX_NEW_TOKENS, draft_len=SPEC_DRAFT_LEN,
+              eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id,
+              with_stats=True)
+    table = torch.cat([ids, tokens_a.cuda()], dim=1)
+    out, lens, p_o = generate_tokens_spec_from_features(
+        engine.params, cfg, ids, am, feats, None, draft_table=table,
+        do_sample=False, **kw)
+    agree = float((out.cpu() == tokens_a).float().mean())
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    out_s, lens_s, p_s = generate_tokens_spec_from_features(
+        engine.params, cfg, ids, am, feats, g, do_sample=True,
+        temperature=0.7, **kw)
+    V = cfg.llm.padded_vocab_size
+    in_range = bool(((out_s >= 0) & (out_s < V)).all())
+    log(f"[path] D features {tuple(feats.shape)} finite; oracle leg (draft "
+        f"table = prompt + path A's greedy tokens): {p_o} passes, accepted drafts per pass "
+        f"{float(lens.float().mean()) / p_o - 1:.3f}, tokens equal to path "
+        f"A's {agree:.3f}; sampled leg (temperature 0.7): {p_s} passes, "
+        f"accepted drafts per pass {float(lens_s.float().mean()) / p_s - 1:.3f}"
+        f", tokens in [0, {V}): {in_range}")
+    if not in_range or tuple(out_s.shape) != (B, MAX_NEW_TOKENS):
+        raise AssertionError("the sampled speculative leg emitted tokens "
+                             "outside the vocabulary")
+    del feats
+    torch.cuda.empty_cache()
 
 
 def train_path(torch, kernels, params, tok, temporal, spatial):
@@ -1359,6 +1919,7 @@ def main() -> int:
     from grounded_video_llm_tpu_torch.ops import cuda_build
     from grounded_video_llm_tpu_torch.ops import decode_attention_int8 as da
     from grounded_video_llm_tpu_torch.ops import flash_attention as fa
+    from grounded_video_llm_tpu_torch.ops import fused_block as fb
     from grounded_video_llm_tpu_torch.ops import int8_matmul as mm
     from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
 
@@ -1381,7 +1942,12 @@ def main() -> int:
                "int8_gemv": mm.INT8_GEMV,
                "int8_matmul": mm.INT8_MATMUL,
                "decode_attention_int8": da.DECODE_ATTENTION_INT8,
-               "scatter_write": cw.SCATTER_WRITE}
+               "scatter_write": cw.SCATTER_WRITE,
+               "verify_attention_int8": da.VERIFY_ATTENTION_INT8,
+               "scatter_write_multi": cw.SCATTER_WRITE_MULTI,
+               "fused_norm_quant_gemm": fb.FUSED_NORM_QUANT_GEMM,
+               "fused_quant_gemm_ls_residual":
+                   fb.FUSED_QUANT_GEMM_LS_RESIDUAL}
     t0 = time.perf_counter()
     seconds = cuda_build.build_all(list(kernels.values()))
     for k in kernels.values():
@@ -1412,6 +1978,9 @@ def main() -> int:
     S_pre = (len(bf16.tokenize_prompt(bf16.build_prompt(
         MODES[0][1], MODES[0][0], duration))) - 1 + cfg.num_video_tokens)
     max_len = -(-(S_pre + MAX_NEW_TOKENS) // 128) * 128
+    # path D keeps a draft margin of S_v slots (serve/speculative.py)
+    S_v = SPEC_DRAFT_LEN + 1
+    max_len_spec = -(-(S_pre + MAX_NEW_TOKENS + S_v) // 128) * 128
 
     # ---- 3. kernels vs plain versions at the path's shapes
     flash, per_req = flash_phase(torch, fa, cfg, S_pre)
@@ -1423,19 +1992,26 @@ def main() -> int:
     k3, k6 = gemv_phase(torch, mm, cfg)
     k4 = attention_phase(torch, da, cfg, max_len)
     k5 = write_phase(torch, cw, cfg, max_len)
-    families = {f.name: f for f in (flash, k7, k3, k6, k4, k5)}
+    k8 = verify_phase(torch, da, cfg, max_len_spec, S_v)
+    k9 = write_phase(torch, cw, cfg, max_len_spec, S_v)
+    batch6 = [x for pair in zip(MODES, MODES_2) for x in pair]
+    k10 = fused_phase(torch, fb, cfg, len(batch6))
+    families = {f.name: f for f in (flash, k7, k3, k6, k4, k5, k8, k9, *k10)}
 
-    # ---- 4. small references
-    for quantize in (None, "int8", "int8_full"):
-        small_reference(torch, cfg, SEED, quantize)
-    small_reference_train(torch, cfg, SEED)
-
-    # ---- 5. main path
     frames = synthetic_video(SEED, cfg.num_frames)
     t0 = time.perf_counter()
     temporal, spatial = bf16.preprocess_frames(frames)
     log(f"[path] host resize of the 96 frames, once: "
         f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+
+    # ---- 4. small references
+    for quantize in (None, "int8", "int8_full"):
+        small_reference(torch, cfg, SEED, quantize)
+    small_reference_verify(torch, cfg, SEED, S_v)
+    small_reference_fused_iv2(torch, cfg, SEED, temporal)
+    small_reference_train(torch, cfg, SEED)
+
+    # ---- 5. main path
     nl = cfg.llm.num_layers
     zero = {n: 0 for n in kernels}
     launches = dict(zero)
@@ -1472,10 +2048,33 @@ def main() -> int:
 
     full = InferenceEngine(params, cfg, tok, gen_int8, seed=SEED,
                            quantize="int8_full")
-    batch6 = [x for pair in zip(MODES, MODES_2) for x in pair]
     got = run_path(torch, kernels, "A int8_full int8-cache B=6", generate(
         full, batch6, gen_int8), expect(per_req, 4 * nl, True, 1))
     launches = {k: launches[k] + got[k] for k in launches}
+    t_a, tokens_a = dict(full.last_timings), full.last_tokens[0]
+
+    # path D: mode A's batch with both serving opt-ins of the JAX package,
+    # the fused W8A8 IV2 blocks (switch set only around it) and greedy
+    # speculative decoding
+    gen_spec = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+                              quantize_cache=True,
+                              spec_draft_len=SPEC_DRAFT_LEN)
+    nb = cfg.video.num_blocks_used
+
+    def expect_spec(t):
+        P = t["verify_passes"]
+        return dict(zero, flash_fwd=per_req, fused_norm_quant_gemm=2 * nb,
+                    fused_quant_gemm_ls_residual=2 * nb,
+                    int8_gemv=4 * nl * P, int8_matmul=1 + P,
+                    verify_attention_int8=nl * P, scatter_write_multi=P)
+
+    with fused_iv2():
+        got = run_path(torch, kernels, "D int8_full int8-cache fused-IV2 "
+                       f"spec{SPEC_DRAFT_LEN} B=6",
+                       generate(full, batch6, gen_spec), expect_spec)
+    launches = {k: launches[k] + got[k] for k in launches}
+    spec_path(torch, cfg, full, batch6, prompts, t_a, tokens_a, temporal,
+              spatial)
     # outputs of mode A's model: right shapes, finite
     with torch.inference_mode():
         feats = vlm.encode_video(

@@ -13,9 +13,17 @@ Parameters are the JAX tree as a dict of tensors, stacked per block:
            norm2_w, fc1, fc2, ls2}; after
           serve/quantize.quantize_video_encoder_for_serving qkv_kernel and
           the proj/fc1/fc2 kernels are W8A8 Int8Weights
+
+``GVLLM_FUSED_IV2=1`` (read where the JAX package reads it, so one setting
+opts in both packages) sends a W8A8 block through the fused GEMMs of
+ops/fused_block (K10): norm + quantization + qkv + QK-RMSNorm, proj and
+fc2 with fp32 LayerScale and the residual, fc1 with the exact GELU. With
+the switch off nothing changes.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -23,7 +31,9 @@ import torch.nn.functional as F
 
 from ..core.config import InternVideo2Config
 from ..ops.attention import mha
-from ..ops.int8_matmul import matmul_any
+from ..ops.fused_block import (fused_norm_quant_gemm,
+                               fused_quant_gemm_ls_residual)
+from ..ops.int8_matmul import Int8Weight, matmul_any
 from ..ops.normalization import layer_scale, rms_norm
 from .param_utils import layer_slice, truncated_normal
 
@@ -139,7 +149,53 @@ def init_params(cfg: InternVideo2Config, *, generator: torch.Generator,
 # ---------------------------------------------------------------------------
 
 
+def _block_fused_int8(x, bp, cfg: InternVideo2Config):
+    """The W8A8 block through K10: four fused GEMMs. Same quantization
+    semantics as the unfused W8A8 block (per-row dynamic activations,
+    per-output-channel weights), except that the normed activations are
+    quantized in fp32 where the unfused block rounds them to bf16 first."""
+    B, S, D = x.shape
+    H = cfg.num_heads
+    Dh = cfg.head_dim
+    qn = torch.stack([bp["q_norm_w"], bp["k_norm_w"]])
+    qkv = fused_norm_quant_gemm(
+        x, bp["norm1_w"], bp["qkv_kernel"], eps=cfg.rms_eps,
+        epilogue="qk_norm" if cfg.qk_normalization else "none", qk_norm_w=qn)
+    q, k, v = (t.reshape(B, S, H, Dh) for t in qkv.split(D, dim=-1))
+    attn = mha(q, k, v, causal=False,
+               bounded_softmax=cfg.qk_normalization).reshape(B, S, D)
+    x = fused_quant_gemm_ls_residual(attn, bp["proj"]["kernel"],
+                                     bp["proj"]["bias"], bp["ls1"], x)
+    h = fused_norm_quant_gemm(x, bp["norm2_w"], bp["fc1"]["kernel"],
+                              eps=cfg.rms_eps, epilogue="gelu",
+                              bias=bp["fc1"]["bias"])
+    return fused_quant_gemm_ls_residual(h, bp["fc2"]["kernel"],
+                                        bp["fc2"]["bias"], bp["ls2"], x)
+
+
+def _fused_int8_ok(bp, cfg: InternVideo2Config) -> bool:
+    """Opt-in (GVLLM_FUSED_IV2=1), as in the JAX package, which keeps it off
+    because the fused block measured slower there on the TPU (PERF.md has
+    the H100's numbers); for int8 weights at widths the kernels tile. On
+    the CPU other widths take the unfused block, as in the JAX package; on
+    any other device they raise, since there the switch means K10."""
+    w = bp.get("qkv_kernel")
+    if (os.environ.get("GVLLM_FUSED_IV2", "0") != "1"
+            or not isinstance(w, Int8Weight)):
+        return False
+    if cfg.embed_dim % 128 == 0 and cfg.mlp_hidden % 512 == 0:
+        return True
+    if w.q.device.type != "cpu":
+        raise ValueError(
+            f"GVLLM_FUSED_IV2=1: the fused W8A8 block needs embed_dim % 128 "
+            f"== 0 and mlp_hidden % 512 == 0, got {cfg.embed_dim} and "
+            f"{cfg.mlp_hidden}")
+    return False
+
+
 def _block(x, bp, cfg: InternVideo2Config):
+    if _fused_int8_ok(bp, cfg):
+        return _block_fused_int8(x, bp, cfg)
     B, S, D = x.shape
     H = cfg.num_heads
     Dh = cfg.head_dim

@@ -14,12 +14,18 @@ GEMM switch run ops/int8_matmul.int8_matmul, weight-only, except in a decode
 step on the int8 cache, where a weight under the w8a8 marker runs its w8a8
 branch (JAX's K3); there the attention runs K4 and the cache write K5.
 
+Speculative verification (``verify_step``) scores S candidate tokens in one
+pass over the int8 cache: the attention runs K8, the candidates' k/v ride
+as bf16 in-pass slots and are written once afterwards by K9; neither the
+cache length nor the valid mask moves until ``commit_verify`` advances them
+by each row's accepted count.
+
 Training runs ``forward_hidden`` without a cache: LoRA adapters on the four
 fused projections (``layers/lora``, train/lora.py) with inverted dropout on
 their input, per-layer or grouped activation checkpointing, and the
 sequence-chunked cross entropy ``causal_lm_loss_from_hidden``. Serving and
 training share one ``_layer_full``. Not ported yet: prefix-KV, cascade
-decode, speculative verify and continuous batching.
+decode (with ``verify_step_shared``) and continuous batching.
 """
 
 from __future__ import annotations
@@ -33,8 +39,9 @@ from torch.utils.checkpoint import checkpoint
 from ..core.config import LLMConfig
 from ..core.dtypes import matmul_f32
 from ..ops.attention import decode_attention, mha
-from ..ops.cache_write import scatter_write
-from ..ops.decode_attention_int8 import decode_attention_int8, quantize_kv
+from ..ops.cache_write import scatter_write, scatter_write_multi
+from ..ops.decode_attention_int8 import (decode_attention_int8, quantize_kv,
+                                         verify_attention_int8)
 from ..ops.int8_matmul import (INT8_GEMM_MIN_ROWS, Int8Embedding, Int8Weight,
                                dynamic_int8_matmul, int8_matmul)
 from ..ops.normalization import rms_norm
@@ -501,3 +508,76 @@ def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
     x = rms_norm(x, params["final_norm_w"], cfg.rms_eps)
     logits = logits_from_hidden(params, x)[:, 0]
     return logits, new_cache, valid_mask
+
+
+def verify_step(params, cfg: LLMConfig, token_embeds: torch.Tensor, cache,
+                valid_mask: torch.Tensor, positions: torch.Tensor):
+    """Speculative verify: score S candidate tokens (the last committed
+    token and S - 1 drafts) in one pass over the int8 cache → (logits
+    [B, S, V] fp32, cache). logits[:, i] is the next-token distribution
+    after candidate i, what S sequential decode_steps would give up to the
+    in-pass candidates' k/v staying bf16.
+
+    token_embeds [B, S, D]; valid_mask [B, max_len] committed slots;
+    positions [B, S]. All S candidates' k/v are written at slots
+    base..base+S-1, base = min(length, max_len - S), in place; length and
+    valid_mask do not move (commit_verify does that). Requires a
+    QuantKVCache; S <= 128."""
+    if not isinstance(cache, QuantKVCache):
+        raise NotImplementedError(
+            "verify_step requires a QuantKVCache (int8 serving path)")
+    B, S = token_embeds.shape[:2]
+    max_len = cache.max_len
+    cos, sin = llm_rope_tables(cfg, positions, seq_len_hint=max_len)
+    base = cache.length.clamp_max(max_len - S)
+    valid = valid_mask.bool()
+    if cfg.sliding_window is not None:
+        # per candidate position, by token position (the valid-slot rank)
+        kpos = torch.cumsum(valid.int(), dim=-1) - 1
+        window_keep = (positions[:, :, None] - kpos[:, None, :]
+                       < cfg.sliding_window)
+        attn_valid = valid[:, None, :] & window_keep
+    else:
+        attn_valid = valid[:, None, :].expand(B, S, max_len)
+    attn_valid = attn_valid.contiguous()
+
+    lay = params["layers"]
+    x = token_embeds
+    new_ks, new_vs = [], []
+    for i in range(lay["input_norm_w"].shape[0]):
+        lp = layer_slice(lay, i)
+        h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg, w8a8_decode=True)
+        q, k = apply_rope(q, k, cos, sin)
+        attn = verify_attention_int8(
+            q, cache.k[i], cache.k_scale[i], cache.v[i], cache.v_scale[i],
+            attn_valid, k, v, scale=cfg.head_dim ** -0.5)
+        x = x + _matmul_maybe_int8(attn.reshape(B, S, cfg.q_dim),
+                                   lp["o_kernel"], True)
+        h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
+        x = x + _mlp(h, lp, cfg, w8a8_decode=True)
+        new_ks.append(k)
+        new_vs.append(v)
+
+    # quantize the candidates' k/v per (layer, row, slot, kv head), then one
+    # K9 launch writes values and scales at base..base+S-1 of each row
+    kq, ks = quantize_kv(torch.stack(new_ks))            # [L,B,S,Hkv,Dh]
+    vq, vs = quantize_kv(torch.stack(new_vs))
+    scatter_write_multi([cache.k, cache.k_scale, cache.v, cache.v_scale],
+                        [kq, ks, vq, vs], base)
+    x = rms_norm(x, params["final_norm_w"], cfg.rms_eps)
+    return logits_from_hidden(params, x), cache
+
+
+def commit_verify(cache, valid_mask: torch.Tensor, n_accept: torch.Tensor,
+                  draft_len: int):
+    """Commit the first n_accept[b] of the draft_len candidate slots that
+    verify_step wrote → (cache with length advanced, valid_mask with those
+    slots set). Rejected slots stay invalid and are rewritten by the next
+    verify_step."""
+    max_len = cache.max_len
+    base = cache.length.clamp_max(max_len - draft_len)
+    slots = torch.arange(max_len, device=valid_mask.device)[None, :]
+    newly = (slots >= base[:, None]) & (slots < (base + n_accept)[:, None])
+    return (cache._replace(length=cache.length + n_accept.to(torch.int32)),
+            valid_mask.bool() | newly)

@@ -1,6 +1,8 @@
-"""Decode attention over the int8 KV cache: K4 (``decode_attention_int8``,
-csrc/decode_attention_int8.cu) and its plain PyTorch version (port of
-grounded_video_llm_tpu/ops/decode_attention_int8.py, ``_kernel``).
+"""Attention over the int8 KV cache: K4 (``decode_attention_int8``,
+csrc/decode_attention_int8.cu) and K8 (``verify_attention_int8``,
+csrc/verify_attention_int8.cu), each with its plain PyTorch version (port
+of grounded_video_llm_tpu/ops/decode_attention_int8.py, ``_kernel`` and
+``_kernel_multi``).
 
 Cache layout (``models/llm.QuantKVCache``): values [L, B, Hkv, max_len, D]
 int8 with fp32 scales [L, B, Hkv, max_len], one scale per (slot, kv head).
@@ -15,6 +17,15 @@ bf16 against the int8 keys, times the key scale and the softmax scale, the
 fp32 minimum where the slot is not valid; the current token rides as an
 extra bf16 slot whose score uses q unrounded; after the softmax over all
 slots, p times the value scale is rounded to bf16 before the value sum.
+
+K8, the speculative verify, takes S new tokens' queries [B, S, H, D], a
+per-query mask [B, S, L] and the S tokens' own bf16 k/v [B, S, Hkv, D]:
+query i sees the cache through its mask row and new token j where j <= i.
+It keeps ``_kernel_multi``'s roundings, which are not K4's: q is rounded to
+bf16 for the new-token scores too, the new k/v are rounded to bf16, the
+joint softmax is normalised before the value sums, and both p * v_scale and
+the new tokens' p are rounded to bf16. So at S = 1 it is close to K4, not
+bit-equal to it. The output is in q's dtype.
 """
 
 from __future__ import annotations
@@ -72,6 +83,30 @@ DECODE_ATTENTION_INT8 = CudaKernel(
     + [ctypes.c_void_p])
 
 
+def _check_tensors(kernel, q, k_q, k_s, v_q, v_s, k_new, v_new, S):
+    """dtype, shape, contiguity and alignment of K4's and K8's inputs, the
+    cache [B, Hkv, L, D] giving the shapes and S the number of queries."""
+    B, Hkv, L, D = k_q.shape
+    H = q.shape[2]
+    for name, t, shape, dtype in (
+            ("q", q, (B, S, H, D), torch.bfloat16),
+            ("k_q", k_q, (B, Hkv, L, D), torch.int8),
+            ("v_q", v_q, (B, Hkv, L, D), torch.int8),
+            ("k_s", k_s, (B, Hkv, L), torch.float32),
+            ("v_s", v_s, (B, Hkv, L), torch.float32),
+            ("k_new", k_new, (B, S, Hkv, D), torch.bfloat16),
+            ("v_new", v_new, (B, S, Hkv, D), torch.bfloat16)):
+        if t.dtype != dtype:
+            raise TypeError(f"{kernel} kernel takes {dtype} {name}, got "
+                            f"{t.dtype}")
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{kernel}: {name} is {tuple(t.shape)}, "
+                             f"expected {shape}")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{kernel} kernel takes a contiguous, 16-byte "
+                             f"aligned {name}")
+
+
 def _check_launch_args(q, k_q, k_s, v_q, v_s, valid_mask, k_new, v_new):
     tensors = (q, k_q, k_s, v_q, v_s, valid_mask, k_new, v_new)
     if any(t.device != q.device for t in tensors):
@@ -85,23 +120,8 @@ def _check_launch_args(q, k_q, k_s, v_q, v_s, valid_mask, k_new, v_new):
         raise ValueError(f"decode_attention_int8: cache {tuple(k_q.shape)} "
                          f"does not match q {tuple(q.shape)}")
     Hkv, L = k_q.shape[1], k_q.shape[2]
-    for name, t, shape, dtype in (
-            ("q", q, (B, 1, H, D), torch.bfloat16),
-            ("k_q", k_q, (B, Hkv, L, D), torch.int8),
-            ("v_q", v_q, (B, Hkv, L, D), torch.int8),
-            ("k_s", k_s, (B, Hkv, L), torch.float32),
-            ("v_s", v_s, (B, Hkv, L), torch.float32),
-            ("k_new", k_new, (B, 1, Hkv, D), torch.bfloat16),
-            ("v_new", v_new, (B, 1, Hkv, D), torch.bfloat16)):
-        if t.dtype != dtype:
-            raise TypeError(f"decode_attention_int8 kernel takes {dtype} "
-                            f"{name}, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"decode_attention_int8: {name} is "
-                             f"{tuple(t.shape)}, expected {shape}")
-        if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"decode_attention_int8 kernel takes a "
-                             f"contiguous, 16-byte aligned {name}")
+    _check_tensors("decode_attention_int8", q, k_q, k_s, v_q, v_s, k_new,
+                   v_new, S=1)
     if (valid_mask.dtype not in (torch.bool, torch.uint8)
             or tuple(valid_mask.shape) != (B, L)):
         raise ValueError("decode_attention_int8 kernel takes a bool or uint8 "
@@ -144,4 +164,112 @@ def decode_attention_int8(q, k_q, k_s, v_q, v_s, valid_mask, k_new, v_new,
         v_new.data_ptr(), out.data_ptr(), B, H, Hkv, L, D, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     DECODE_ATTENTION_INT8.launches += 1
+    return out
+
+
+def verify_attention_int8_reference(q, k_q, k_s, v_q, v_s, mask, k_new,
+                                    v_new, *, scale: float) -> torch.Tensor:
+    """Plain version of K8. q [B, S, H, D]; k_q/v_q [B, Hkv, L, D] int8;
+    k_s/v_s [B, Hkv, L] fp32; mask [B, S, L]; k_new/v_new [B, S, Hkv, D]
+    → [B, S, H, D] in q's dtype."""
+    B, S, H, D = q.shape
+    Hkv = k_q.shape[1]
+    G = H // Hkv
+    bf16 = torch.bfloat16
+    qb = q.to(bf16).float().reshape(B, S, Hkv, G, D).permute(0, 2, 3, 1, 4)
+    s = torch.einsum("bhgid,bhld->bhgil", qb, k_q.float())
+    s = s * (k_s * scale)[:, :, None, None, :]
+    s = torch.where(mask[:, None, None].bool(), s, NEG_INF)
+    kn = k_new.to(bf16).float().permute(0, 2, 1, 3)          # [B,Hkv,S,D]
+    vn = v_new.to(bf16).float().permute(0, 2, 1, 3)
+    sn = torch.einsum("bhgid,bhjd->bhgij", qb, kn) * scale
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    sn = torch.where(causal, sn, NEG_INF)
+    m = torch.maximum(s.amax(dim=-1), sn.amax(dim=-1))[..., None]
+    p = torch.exp(s - m)
+    pn = torch.exp(sn - m)
+    denom = p.sum(dim=-1, keepdim=True) + pn.sum(dim=-1, keepdim=True)
+    pv = (p / denom * v_s[:, :, None, None, :]).to(bf16).float()
+    pn = (pn / denom).to(bf16).float()
+    out = (torch.einsum("bhgil,bhld->bhgid", pv, v_q.float())
+           + torch.einsum("bhgij,bhjd->bhgid", pn, vn))
+    return out.permute(0, 3, 1, 2, 4).reshape(B, S, H, D).to(q.dtype)
+
+
+# gvllm_verify_attention_int8(q, k8, ks, v8, vs, mask, k_new, v_new, out,
+#                             B, S, H, Hkv, L, D, scale, stream)
+VERIFY_ATTENTION_INT8 = CudaKernel(
+    "verify_attention_int8.cu", "gvllm_verify_attention_int8",
+    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
+    + [ctypes.c_void_p])
+
+_VERIFY_THREADS, _VERIFY_QC = 256, 8
+
+
+def verify_smem_bytes(G: int, S: int, L: int, D: int) -> int:
+    """Shared memory of one K8 block: scores, q, new-token scores and the
+    value pass's partial sums (csrc/verify_attention_int8.cu)."""
+    lanes = _VERIFY_THREADS // (D // 4)
+    Q = G * S
+    scores = -(-Q * L // 4) * 4          # rounded up: q stays 16-byte aligned
+    return 4 * (scores + Q * D + Q * S + lanes * _VERIFY_QC * D)
+
+
+def _check_verify_args(q, k_q, k_s, v_q, v_s, mask, k_new, v_new):
+    tensors = (q, k_q, k_s, v_q, v_s, mask, k_new, v_new)
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("verify_attention_int8: all inputs must share a "
+                         "device")
+    if q.dim() != 4 or q.shape[1] < 1:
+        raise ValueError(f"verify_attention_int8 takes q [B, S, H, D], got "
+                         f"{tuple(q.shape)}")
+    B, S, H, D = q.shape
+    if k_q.dim() != 4 or k_q.shape[0] != B or k_q.shape[3] != D:
+        raise ValueError(f"verify_attention_int8: cache {tuple(k_q.shape)} "
+                         f"does not match q {tuple(q.shape)}")
+    Hkv, L = k_q.shape[1], k_q.shape[2]
+    _check_tensors("verify_attention_int8", q, k_q, k_s, v_q, v_s, k_new,
+                   v_new, S=S)
+    if (mask.dtype not in (torch.bool, torch.uint8)
+            or tuple(mask.shape) != (B, S, L) or not mask.is_contiguous()):
+        raise ValueError("verify_attention_int8 kernel takes a contiguous "
+                         f"bool or uint8 [B, S, L] mask, got {mask.dtype} "
+                         f"{tuple(mask.shape)}")
+    if H % Hkv:
+        raise ValueError(f"verify_attention_int8: {H} query heads over {Hkv} "
+                         "kv heads")
+    if D % 32 or D > 128:
+        raise ValueError(f"verify_attention_int8 kernel takes D in (32, 64, "
+                         f"96, 128), got {D}")
+    need = verify_smem_bytes(H // Hkv, S, L, D)
+    if need > 227 * 1024:
+        raise ValueError(f"verify_attention_int8 kernel keeps G*S*L = "
+                         f"{H // Hkv * S * L} scores in shared memory "
+                         f"({need} bytes); too many")
+
+
+def verify_attention_int8(q, k_q, k_s, v_q, v_s, mask, k_new, v_new, *,
+                          scale: float) -> torch.Tensor:
+    """K8: [B, S, H, D] attention of S new tokens over one layer of the int8
+    cache plus their own k/v, causally. CPU tensors run the plain version;
+    CUDA tensors launch the kernel (counted in
+    VERIFY_ATTENTION_INT8.launches) or raise."""
+    if q.device.type == "cpu":
+        return verify_attention_int8_reference(
+            q, k_q, k_s, v_q, v_s, mask, k_new, v_new, scale=scale)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"verify_attention_int8: no kernel for device "
+                           f"{q.device}")
+    q, k_new, v_new = q.contiguous(), k_new.contiguous(), v_new.contiguous()
+    mask = mask.contiguous()
+    _check_verify_args(q, k_q, k_s, v_q, v_s, mask, k_new, v_new)
+    B, S, H, D = q.shape
+    Hkv, L = k_q.shape[1], k_q.shape[2]
+    out = torch.empty_like(q)
+    VERIFY_ATTENTION_INT8(
+        q.data_ptr(), k_q.data_ptr(), k_s.data_ptr(), v_q.data_ptr(),
+        v_s.data_ptr(), mask.data_ptr(), k_new.data_ptr(), v_new.data_ptr(),
+        out.data_ptr(), B, S, H, Hkv, L, D, float(scale),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    VERIFY_ATTENTION_INT8.launches += 1
     return out

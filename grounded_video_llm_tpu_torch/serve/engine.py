@@ -12,15 +12,19 @@ on the device → temporal-token parsing.
 ``quantize``: None (bf16 serving), "int8" (int8 LLM weights, weight-only
 everywhere) or "int8_full" (W8A8 prefill GEMMs and int8-cache decode
 projections, plus W8A8 encoders). ``GenerateConfig.quantize_cache`` selects
-the int8 KV cache.
+the int8 KV cache. ``GenerateConfig.spec_draft_len > 0`` runs speculative
+decoding (serve/speculative.py: n-gram drafts, one verify pass per step,
+always on the int8 KV cache).
 
 ``run_frames`` takes already decoded frames (uint8 [F, H, W, 3]) and runs
 everything after the decoder. After each request ``last_timings`` holds its
 phase times in seconds (preprocess, encode, prefill, decode), the prompt
-length in tokens and the number of tokens generated.
+length in tokens and the number of tokens generated, with
+``decode_steps`` or, under speculative decoding, ``verify_passes``;
+``last_tokens`` holds the request's token ids and lengths (host tensors).
 
 Not ported yet: static activation scales (``static_scales``), beam search,
-speculative decoding, the feature and prefix caches and batched streaming.
+the feature and prefix caches and batched streaming.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from .generate import decode_texts, generate_tokens
 from .quantize import (is_quantized, quantize_clip_for_serving,
                        quantize_llm_for_serving,
                        quantize_video_encoder_for_serving)
+from .speculative import generate_tokens_spec
 
 
 @dataclasses.dataclass
@@ -93,6 +98,7 @@ class InferenceEngine:
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.last_timings: dict = {}
+        self.last_tokens = None
 
     # -- input construction -------------------------------------------------
 
@@ -136,10 +142,6 @@ class InferenceEngine:
         if g.num_beams > 1:
             raise NotImplementedError(
                 "num_beams > 1: beam search is not ported yet")
-        if g.spec_draft_len > 0:
-            raise NotImplementedError(
-                "spec_draft_len > 0: speculative decoding is not ported yet "
-                "(it needs the int8 verify-attention kernel)")
         B = len(prompts)
         if temporal.ndim == 4:
             temporal = np.broadcast_to(temporal[None], (B, *temporal.shape))
@@ -153,15 +155,23 @@ class InferenceEngine:
             return torch.from_numpy(np.array(a)).to(self.device)
 
         self.last_timings = timings = {}
-        tokens, lengths = generate_tokens(
-            self.params, self.cfg, dev(input_ids).long(),
-            dev(attn_mask).long(), dev(spatial), dev(temporal),
-            self.generator, max_new_tokens=g.max_new_tokens,
-            temperature=g.temperature, top_p=g.top_p, do_sample=g.do_sample,
-            eos_token_id=self.tokenizer.eos_token_id,
-            pad_token_id=self.tokenizer.pad_token_id,
-            quantize_cache=g.quantize_cache, timings=timings)
+        args = (self.params, self.cfg, dev(input_ids).long(),
+                dev(attn_mask).long(), dev(spatial), dev(temporal),
+                self.generator)
+        kw = dict(max_new_tokens=g.max_new_tokens, temperature=g.temperature,
+                  top_p=g.top_p, do_sample=g.do_sample,
+                  eos_token_id=self.tokenizer.eos_token_id,
+                  pad_token_id=self.tokenizer.pad_token_id, timings=timings)
+        if g.spec_draft_len > 0:
+            # greedy emits the model's own argmax whatever the drafts;
+            # sampling uses the delta-draft rejection rule
+            tokens, lengths = generate_tokens_spec(
+                *args, draft_len=g.spec_draft_len, **kw)
+        else:
+            tokens, lengths = generate_tokens(
+                *args, quantize_cache=g.quantize_cache, **kw)
         timings["new_tokens"] = int(lengths.max())
+        self.last_tokens = (tokens.cpu(), lengths.cpu())
         timings["prompt_len"] = int(input_ids.shape[1])
         return decode_texts(self.tokenizer, tokens, lengths,
                             self.tokenizer.eos_token_id)

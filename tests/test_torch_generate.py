@@ -166,9 +166,10 @@ def test_engine_text_and_parse_match_jax(model):
                                          ("spec_draft_len", 4),
                                          ("quantize_cache", True)])
 def test_engine_refuses_unported_modes(model, field, value):
-    """Beam search and speculative decoding are refused when a request
-    asks for them. The int8 cache is ported; what int8 serving still lacks,
-    static activation scales, is refused when the engine is made."""
+    """Beam search is refused when a request asks for it. The int8 cache and
+    speculative decoding are ported (a speculative request runs its verify
+    passes); what int8 serving still lacks, static activation scales, is
+    refused when the engine is made."""
     cfg, _, _, tp, tok = model
     gen = GenerateConfig(max_new_tokens=2, **{field: value})
     for quantize in ("int8", "int8_full"):
@@ -177,5 +178,9 @@ def test_engine_refuses_unported_modes(model, field, value):
     if field == "quantize_cache":
         return
     eng = TEngine(tp, cfg, tok, gen)
+    if field == "spec_draft_len":
+        eng.run_frames(_frames(5, cfg.num_frames), 5.0, "hi", mode="qa")
+        assert eng.last_timings["verify_passes"] >= 1
+        return
     with pytest.raises(NotImplementedError):
         eng.run_frames(_frames(5, cfg.num_frames), 5.0, "hi", mode="qa")

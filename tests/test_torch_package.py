@@ -19,6 +19,7 @@ from grounded_video_llm_tpu_torch.ops import cache_write as cw
 from grounded_video_llm_tpu_torch.ops import cuda_build
 from grounded_video_llm_tpu_torch.ops import decode_attention_int8 as da
 from grounded_video_llm_tpu_torch.ops import flash_attention as fa
+from grounded_video_llm_tpu_torch.ops import fused_block as fb
 from grounded_video_llm_tpu_torch.ops import int8_matmul as mm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -36,6 +37,9 @@ def test_port_never_imports_jax():
     mods = _port_modules()
     assert "grounded_video_llm_tpu_torch.ops.flash_attention" in mods
     assert "grounded_video_llm_tpu_torch.serve.engine" in mods
+    assert "grounded_video_llm_tpu_torch.serve.speculative" in mods
+    assert "grounded_video_llm_tpu_torch.ops.fused_block" in mods
+    assert "grounded_video_llm_tpu_torch.cli.inference" in mods
     assert "grounded_video_llm_tpu_torch.video.native.decoder" in mods
     for m in ("train.strategy", "train.step", "train.optimizer", "train.lora",
               "train.vocab", "data.collate", "data.datasets", "data.loader",
@@ -82,9 +86,9 @@ def test_kernel_module_imports_without_nvcc():
     falling back, for every registered kernel."""
     code = ("from grounded_video_llm_tpu_torch.ops import cuda_build, "
             "flash_attention, int8_matmul, decode_attention_int8, "
-            "cache_write\n"
+            "cache_write, fused_block\n"
             "ks = cuda_build.REGISTRY\n"
-            "assert len(ks) == 6, [k.symbol for k in ks]\n"
+            "assert len(ks) == 10, [k.symbol for k in ks]\n"
             "assert all(k._fn is None and k.launches == 0 for k in ks)\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO, PATH="/nonexistent")
@@ -95,7 +99,9 @@ def test_kernel_module_imports_without_nvcc():
     assert {k.symbol for k in kernels} == {
         "gvllm_flash_fwd", "gvllm_flash_bwd", "gvllm_int8_gemv",
         "gvllm_int8_matmul",
-        "gvllm_decode_attention_int8", "gvllm_scatter_write"}
+        "gvllm_decode_attention_int8", "gvllm_scatter_write",
+        "gvllm_scatter_write_multi", "gvllm_verify_attention_int8",
+        "gvllm_fused_norm_quant_gemm", "gvllm_fused_quant_gemm_ls_residual"}
     if (shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc")
             or any(k.library_path().exists() for k in kernels)):
         pytest.skip("nvcc or a built library present: the no-nvcc build "
@@ -385,3 +391,214 @@ def test_int8_cpu_tensors_run_the_plain_versions_without_counting():
     caches, news, idx = _write_args()
     cw.scatter_write(caches, news, idx)
     assert [k.launches for k in counters] == before
+
+
+def _verify_args(B=2, S=3, H=4, Hkv=2, D=64, L=16):
+    return [torch.zeros(B, S, H, D, dtype=torch.bfloat16),
+            torch.zeros(B, Hkv, L, D, dtype=torch.int8), torch.ones(B, Hkv, L),
+            torch.zeros(B, Hkv, L, D, dtype=torch.int8), torch.ones(B, Hkv, L),
+            torch.ones(B, S, L, dtype=torch.bool),
+            torch.zeros(B, S, Hkv, D, dtype=torch.bfloat16),
+            torch.zeros(B, S, Hkv, D, dtype=torch.bfloat16)]
+
+
+@pytest.mark.parametrize("case", [
+    "fp32_q", "head_dim_80", "head_dim_160", "gqa_3", "int32_mask",
+    "mask_one_row", "fp16_scales", "strided_cache", "new_shape",
+    "too_many_scores"])
+def test_verify_attention_checks_refuse_unsupported_inputs(case):
+    a = _verify_args()
+    if case == "fp32_q":
+        a[0] = a[0].float()
+    elif case == "head_dim_80":
+        a = _verify_args(D=80)
+    elif case == "head_dim_160":
+        a = _verify_args(D=160)
+    elif case == "gqa_3":
+        a = _verify_args(H=6, Hkv=4)
+    elif case == "int32_mask":
+        a[5] = a[5].int()
+    elif case == "mask_one_row":
+        a[5] = torch.ones(2, 16, dtype=torch.bool)
+    elif case == "fp16_scales":
+        a[2] = a[2].half()
+    elif case == "strided_cache":
+        a[1] = torch.zeros(2, 2, 32, 64, dtype=torch.int8)[:, :, ::2]
+    elif case == "new_shape":
+        a[6] = torch.zeros(2, 2, 2, 64, dtype=torch.bfloat16)
+    elif case == "too_many_scores":
+        a = [t.to("meta") for t in _verify_args(S=8, H=32, Hkv=8, D=128,
+                                                L=3000)]
+    with pytest.raises((TypeError, ValueError)):
+        da._check_verify_args(*a)
+
+
+def test_verify_attention_checks_accept_the_paths_shapes():
+    for kw in (dict(B=6, S=5, H=32, Hkv=32, D=96, L=3840),
+               dict(B=6, S=1, H=32, Hkv=32, D=96, L=3840),
+               dict(B=2, S=8, H=32, Hkv=32, D=96, L=1000),
+               dict(B=2, S=8, H=32, Hkv=8, D=128, L=1000)):
+        da._check_verify_args(*[t.to("meta") for t in _verify_args(**kw)])
+
+
+def _multi_args(L=2, B=3, Hkv=2, S=4, max_len=8, D=16):
+    caches = [torch.zeros(L, B, Hkv, max_len, D, dtype=torch.int8),
+              torch.ones(L, B, Hkv, max_len)]
+    news = [torch.zeros(L, B, S, Hkv, D, dtype=torch.int8),
+            torch.ones(L, B, S, Hkv)]
+    return caches, news, torch.zeros(B, dtype=torch.int32)
+
+
+@pytest.mark.parametrize("case", [
+    "no_pairs", "five_pairs", "unpaired", "dtype", "slots_129", "new_shape",
+    "new_without_slots", "odd_bytes", "base_int64", "base_shape"])
+def test_scatter_write_multi_checks_refuse_unsupported_inputs(case):
+    caches, news, base = _multi_args()
+    if case == "no_pairs":
+        caches, news = [], []
+    elif case == "five_pairs":
+        caches, news = (caches * 3)[:5], (news * 3)[:5]
+    elif case == "unpaired":
+        news = news[:1]
+    elif case == "dtype":
+        news[0] = news[0].to(torch.int16)
+    elif case == "slots_129":
+        caches, news, base = _multi_args(S=129, max_len=256)
+    elif case == "new_shape":
+        news[0] = torch.zeros(2, 3, 4, 2, 15, dtype=torch.int8)
+    elif case == "new_without_slots":
+        news[0] = torch.zeros(2, 3, 2, 16, dtype=torch.int8)
+    elif case == "odd_bytes":
+        caches, news, base = _multi_args(D=6)
+    elif case == "base_int64":
+        base = base.long()
+    elif case == "base_shape":
+        base = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises((TypeError, ValueError)):
+        cw._check_multi_args(caches, news, base)
+
+
+def _fused_args(M=8, D=128, O=384):
+    return (torch.zeros(M, D, dtype=torch.bfloat16),
+            mm.Int8Weight(torch.zeros(D, O, dtype=torch.int8), torch.ones(O)))
+
+
+@pytest.mark.parametrize("case", [
+    "fp32_x", "dense_weight", "fp16_scale", "d_not_64", "o_not_128",
+    "d_mismatch", "stacked_weight", "bias_shape", "residual_dtype", "empty"])
+def test_fused_block_checks_refuse_unsupported_inputs(case):
+    x, w = _fused_args()
+    vectors, residual = [("bias", None, 384)], None
+    if case == "fp32_x":
+        x = x.float()
+    elif case == "dense_weight":
+        w = torch.zeros(128, 384)
+    elif case == "fp16_scale":
+        w = w._replace(scale=w.scale.half())
+    elif case == "d_not_64":
+        x, w = _fused_args(D=96)
+    elif case == "o_not_128":
+        x, w = _fused_args(O=320)
+    elif case == "d_mismatch":
+        x = torch.zeros(8, 64, dtype=torch.bfloat16)
+    elif case == "stacked_weight":
+        w = mm.Int8Weight(torch.zeros(2, 128, 384, dtype=torch.int8),
+                          torch.ones(2, 384))
+    elif case == "bias_shape":
+        vectors = [("bias", torch.zeros(383), 384)]
+    elif case == "residual_dtype":
+        residual = torch.zeros(8, 384)
+    elif case == "empty":
+        x = torch.zeros(0, 128, dtype=torch.bfloat16)
+    with pytest.raises((TypeError, ValueError)):
+        fb._check_launch_args("fused", x, w, vectors, residual)
+
+
+def test_fused_block_checks_accept_the_paths_shapes():
+    M = 6 * 12 * 2049
+    for D, O in ((1408, 4224), (1408, 6144), (1408, 1408), (6144, 1408)):
+        x = torch.empty(M, D, dtype=torch.bfloat16, device="meta")
+        w = mm.Int8Weight(torch.empty(D, O, dtype=torch.int8, device="meta"),
+                          torch.empty(O, device="meta"))
+        fb._check_launch_args("fused", x, w,
+                              [("bias", torch.empty(O, device="meta"), O)],
+                              torch.empty(M, O, dtype=torch.bfloat16,
+                                          device="meta"))
+
+
+def test_new_wrappers_refuse_devices_without_a_kernel():
+    a = [t.to("meta") for t in _verify_args()]
+    with pytest.raises(RuntimeError, match="no kernel"):
+        da.verify_attention_int8(*a, scale=0.125)
+    caches, news, base = _multi_args()
+    with pytest.raises(RuntimeError, match="no kernel"):
+        cw.scatter_write_multi([c.to("meta") for c in caches],
+                               [n.to("meta") for n in news], base.to("meta"))
+    x, w = _fused_args()
+    x, w = x.to("meta"), mm.Int8Weight(w.q.to("meta"), w.scale.to("meta"))
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fb.fused_norm_quant_gemm(x, torch.ones(128, device="meta"), w,
+                                 eps=1e-6)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fb.fused_quant_gemm_ls_residual(
+            x, mm.Int8Weight(w.q[:, :128], w.scale[:128]), None,
+            torch.ones(128, device="meta"), x)
+
+
+def test_new_cpu_tensors_run_the_plain_versions_without_counting():
+    counters = [da.VERIFY_ATTENTION_INT8, cw.SCATTER_WRITE_MULTI,
+                fb.FUSED_NORM_QUANT_GEMM, fb.FUSED_QUANT_GEMM_LS_RESIDUAL]
+    before = [k.launches for k in counters]
+    a = _verify_args()
+    assert torch.equal(da.verify_attention_int8(*a, scale=0.125),
+                       da.verify_attention_int8_reference(*a, scale=0.125))
+    caches, news, base = _multi_args()
+    cw.scatter_write_multi(caches, news, base)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(8, 128, generator=g).to(torch.bfloat16)
+    w = mm.Int8Weight(torch.randint(-127, 128, (128, 384), generator=g,
+                                    dtype=torch.int8), torch.rand(384) * 1e-2)
+    nw, qn = torch.ones(128), torch.ones(2, 128)
+    assert torch.equal(
+        fb.fused_norm_quant_gemm(x, nw, w, eps=1e-6, epilogue="qk_norm",
+                                 qk_norm_w=qn),
+        fb.fused_norm_quant_gemm_reference(x, nw, w, eps=1e-6,
+                                           epilogue="qk_norm", qk_norm_w=qn))
+    w2 = mm.Int8Weight(w.q[:, :128].contiguous(), w.scale[:128])
+    assert torch.equal(
+        fb.fused_quant_gemm_ls_residual(x, w2, None, nw, x),
+        fb.fused_quant_gemm_ls_residual_reference(x, w2, None, nw, x))
+    assert [k.launches for k in counters] == before
+    with pytest.raises(ValueError):
+        fb.fused_norm_quant_gemm(x, nw, w, eps=1e-6, epilogue="relu")
+    with pytest.raises(ValueError):
+        fb.fused_norm_quant_gemm(x, nw, w2, eps=1e-6, epilogue="qk_norm",
+                                 qk_norm_w=qn)
+
+
+@pytest.mark.parametrize("embed_dim,mlp_ratio,fused", [(96, 4.0, None),
+                                                       (128, 4.0, True),
+                                                       (128, 3.0, None)])
+def test_fused_iv2_switch_off_the_cpu_runs_k10_or_raises(monkeypatch,
+                                                         embed_dim,
+                                                         mlp_ratio, fused):
+    """GVLLM_FUSED_IV2=1 with int8 blocks on a device other than the CPU:
+    widths the kernels tile take the fused block, others raise (None) in
+    place of falling back to the unfused chain; the switch off, never."""
+    from grounded_video_llm_tpu_torch.core.config import InternVideo2Config
+    from grounded_video_llm_tpu_torch.models import internvideo2 as iv2
+
+    cfg = InternVideo2Config(embed_dim=embed_dim, depth=1, num_heads=2,
+                             mlp_ratio=mlp_ratio, image_size=28,
+                             patch_size=14, num_frames=2, num_blocks_used=1)
+    bp = {"qkv_kernel": mm.Int8Weight(
+        torch.empty(embed_dim, 3 * embed_dim, dtype=torch.int8,
+                    device="meta"), torch.empty(3 * embed_dim, device="meta"))}
+    monkeypatch.setenv("GVLLM_FUSED_IV2", "1")
+    if fused is None:
+        with pytest.raises(ValueError, match="GVLLM_FUSED_IV2"):
+            iv2._fused_int8_ok(bp, cfg)
+    else:
+        assert iv2._fused_int8_ok(bp, cfg)
+    monkeypatch.setenv("GVLLM_FUSED_IV2", "0")
+    assert not iv2._fused_int8_ok(bp, cfg)

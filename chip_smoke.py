@@ -8,7 +8,7 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
 
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the build: every kernel source in csrc/, one nvcc each, all at once;
-   ptxas registers and spills per kernel;
+   ptxas registers and spills per kernel instantiation (mangled name);
 3. each kernel against its plain PyTorch version at the serving path's
    shapes, with its error against a bound and CUDA-event medians of the
    kernel, the plain version and, where one PyTorch call computes the same
@@ -36,7 +36,13 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    fused_norm_quant_gemm for qkv with qk_norm and fc1 with GELU,
    fused_quant_gemm_ls_residual for proj and fc2, at path D's 147,528
    rows (six videos in one encode) and at 300, each beside the unfused
-   W8A8 chain);
+   W8A8 chain); the microbenchmarks' kernels: int8_gemm and
+   int8_gemm_dynamic (M3, M3d: 8192x1408x6144, its transpose and a ragged
+   M = 300; M3 bit-equal, beside torch._int_mm plus the rescale),
+   i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections, beside K3's
+   w8a8 int8_gemv and _int_mm) and flash_variant (M2: full, offset, noexp,
+   sumdot at [12, 16, 2049, 88], dh128, and every mode on a ragged case,
+   beside SDPA);
 4. small references, a depth-cut full-width model on the card (kernels)
    against the same weights on the host (plain versions): bf16 (card) vs
    fp32 (host), then int8 and int8_full with the int8 cache (same int8
@@ -47,7 +53,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    within its bar, the written caches and committed slots bit-equal),
    logits against the host and against 5 sequential decode steps (their
    committed caches printed); a two-block
-   fused W8A8 InternVideo2 trunk card vs host; then one grounded training
+   fused W8A8 InternVideo2 trunk card vs host; a two-block W8A8 trunk with
+   static activation scales calibrated on the card, card vs host;
+   serve/quant_ab (bf16 vs int8_full with static scales) on the depth-cut
+   model, its metrics as readings; then one grounded training
    microbatch with LoRA attached (B != 0): the loss and every trainable
    leaf's gradient;
 5. the main path, full-width Phi-3.5 (vlm_config("phi3.5",
@@ -62,7 +71,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
         spec_draft_len=4, greedy: the fused W8A8 IV2 blocks (K10), then
         verify passes (K8, K9, K3, K6); then an oracle-table leg and a
         sampled leg through generate_tokens_spec_from_features on its
-        features.
+        features;
+     E  path A's batch with static_scales=True: one calibration on the
+        first request's pixels (39 more K1 launches), x_scale on fc2 and
+        proj of every block, otherwise path A's launch counts, no K10.
    Each path runs with every launch count set to 0 just before it; its
    counts are read just after and held against the counts the config
    implies. Phase times, peak device memory, and a shape/finiteness check of
@@ -77,7 +89,11 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    second move every trainable leaf, no frozen leaf may change by a bit,
    and the launch counts must be the config's (per microbatch flash_fwd
    23 + 39 + 32 + 32 for the remat recompute, flash_bwd 32); a phase split
-   of one more microbatch and the model-FLOP share.
+   of one more microbatch and the model-FLOP share;
+7. the microbenchmarks, the path of M1, M2, M3 and M3d: each module of
+   grounded_video_llm_tpu_torch/microbench (int8_gemm, decode,
+   encoder_attn, static_scales with one round) once at its TPU script's
+   shapes, counted like a path; their lines are printed.
 
 The last three lines are the card, one JSON object describing the kernels,
 and {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -88,6 +104,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -140,6 +157,10 @@ SOURCES = {
     "scatter_write_multi": f"{PKG}/csrc/cache_write.cu",
     "fused_norm_quant_gemm": f"{PKG}/csrc/fused_block.cu",
     "fused_quant_gemm_ls_residual": f"{PKG}/csrc/fused_block.cu",
+    "i8i8_gemv": f"{PKG}/csrc/int8_gemm.cu",
+    "flash_variant": f"{PKG}/csrc/flash_fwd.cu",
+    "int8_gemm": f"{PKG}/csrc/int8_gemm.cu",
+    "int8_gemm_dynamic": f"{PKG}/csrc/int8_gemm.cu",
 }
 REPLACES = {
     "flash_fwd": "grounded_video_llm_tpu/ops/flash_attention.py:53 "
@@ -176,6 +197,14 @@ REPLACES = {
                                     "fused_block.py:225 "
                                     "(fused_quant_gemm_ls_residual, "
                                     "pallas_call; _qglr_kernel at :182)",
+    "i8i8_gemv": "scripts/microbench_decode.py:85 (i8i8_matmul, pallas_call;"
+                 " _i8i8_kernel at :64)",
+    "flash_variant": "scripts/microbench_encoder_attn.py:174 (flash_variant,"
+                     " pallas_call; _kernel at :47)",
+    "int8_gemm": "scripts/microbench_int8_gemm.py:128 (pallas_call in "
+                 "pallas_i8; _pl_kernel at :120)",
+    "int8_gemm_dynamic": "scripts/microbench_int8_gemm.py:165 (pallas_call "
+                         "in pallas_dyn; _pl_dyn_kernel at :154)",
 }
 MODES = (
     ("grounding", "Give you a textual query: 'The female host wearing purple "
@@ -248,6 +277,16 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     ms = cuda_ms(torch, graph.replay, reps)
     del graph
     return ms
+
+
+def short_entry(mangled: str) -> str:
+    """A kernel's mangled name without its anonymous namespace and its
+    parameter list: "16flash_fwd_kernelILi88ELb0ELi1EEE" (D 88, not causal,
+    mode 1)."""
+    ns = re.match(r"_ZN(\d+)_GLOBAL__N", mangled)
+    if ns:
+        mangled = mangled[len("_ZN") + len(ns.group(1)) + int(ns.group(1)):]
+    return re.sub(r"(E+)v?[PN0-9].*$", r"\1", mangled)
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -1175,6 +1214,251 @@ def fused_phase(torch, fb, cfg, videos):
 
 
 # ---------------------------------------------------------------------------
+# M3, M3d: the microbenchmarks' int8 GEMMs; M1: the tensor-core int8 GEMV
+# ---------------------------------------------------------------------------
+
+
+def int8_gemm_phase(torch, ig):
+    """M3 (int8_gemm) and M3d (int8_gemm_dynamic) against their plain
+    versions at microbench/int8_gemm's shapes, fc1 8192x1408x6144 and the
+    fc2 transpose, and at a ragged M = 300. M3 must be bit-equal; M3d within
+    max |dy| / max |y| <= 2**-7 (its row scales and products are the plain
+    version's, so it is expected bit-equal). Beside each: the library route
+    (torch._int_mm plus the rescale, for M3d after quantize_rows) and the
+    bound. Family numbers are one pass of microbench/int8_gemm: the two big
+    shapes."""
+    from grounded_video_llm_tpu_torch.ops.int8_matmul import quantize_rows
+
+    m3, m3d = Family("int8_gemm"), Family("int8_gemm_dynamic")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(60)
+    for M, K, N in ((8192, 1408, 6144), (8192, 6144, 1408), (300, 1408, 6144)):
+        timed = M > 300
+        x = (torch.randn(M, K, generator=g, device="cuda") * 0.1).bfloat16()
+        x8 = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
+                           dtype=torch.int8)
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand(N, generator=g, device="cuda") * 1e-3 + 1e-4
+
+        def lib_static():
+            return (torch._int_mm(x8, w).float() * s).to(torch.bfloat16)
+
+        def lib_dynamic():
+            q, xs = quantize_rows(x)
+            return (torch._int_mm(q, w).float() * xs * s).to(torch.bfloat16)
+
+        for fam, counter, kernel, plain, lib, nbytes in (
+                (m3, ig.INT8_GEMM, lambda: ig.int8_gemm(x8, w, s),
+                 lambda: ig.int8_gemm_reference(x8, w, s), lib_static,
+                 M * K + K * N + 4 * N + 2 * M * N),
+                (m3d, ig.INT8_GEMM_DYNAMIC,
+                 lambda: ig.int8_gemm_dynamic(x, w, s),
+                 lambda: ig.int8_gemm_dynamic_reference(x, w, s),
+                 lib_dynamic, 2 * M * K + K * N + 4 * N + 2 * M * N)):
+            before = counter.launches
+            y, y_ref = kernel(), plain()
+            torch.cuda.synchronize()
+            err = gemv_error(torch, y, y_ref)
+            equal = bool(torch.equal(y, y_ref))
+            ok = ((equal if fam is m3 else err <= BOUND_GEMV)
+                  and y.dtype == torch.bfloat16
+                  and bool(torch.isfinite(y).all())
+                  and counter.launches == before + 1)
+            d_abs = float((y.float() - y_ref.float()).abs().max())
+            fam.max_err = max(fam.max_err, d_abs)
+            line = (f"[kernel] {fam.name:<17} M={M} K={K} N={N} bit-equal="
+                    f"{equal} max|dy|={d_abs:.3e} max|dy|/max|y|={err:.3e} "
+                    f"(<= {'0' if fam is m3 else f'{BOUND_GEMV:.3e}'})")
+            if timed:
+                ops = 2.0 * M * K * N
+                ms = cuda_ms(torch, kernel, 20)
+                plain_ms = cuda_ms(torch, plain, 3)
+                lib_ms = cuda_ms(torch, lib, 20)
+                bms, by = bound_ms(nbytes, ops, INT8_OPS)
+                fam.add(1, ms, plain_ms, nbytes, ops, "int8", lib_ms)
+                line += (f" kernel_ms={ms:.4f} ({ops / ms / 1e9:.0f} TOP/s) "
+                         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
+                         f"(_int_mm + rescale"
+                         f"{' after quantize_rows' if fam is m3d else ''}) "
+                         f"bound_ms={bms:.4f} ({by})")
+            log(line + f" {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"{fam.name} M={M} K={K} N={N}: kernel "
+                                     "disagrees with the plain version")
+        del x, x8, w, s
+        torch.cuda.empty_cache()
+    for fam in (m3, m3d):
+        bms, by = fam.bound()
+        log(f"[kernel] {fam.name} per microbench/int8_gemm pass (fc1 and its "
+            f"transpose): kernel {fam.ms:.3f} ms, plain {fam.plain_ms:.3f} "
+            f"ms, library {fam.library_ms:.3f} ms, bound {bms:.3f} ms ({by})")
+    return m3, m3d
+
+
+def i8i8_phase(torch, ig, mm, cfg):
+    """M1 (i8i8_matmul) against its plain version at M = 1, 6 and 16 on the
+    three Phi-3.5 projections of microbench/decode (qkv, gate_up, down),
+    max |dy| / max |y| <= 2**-7. At M = 6 it is timed by CUDA-graph replay
+    over enough weight copies to pass the L2 (streamed from device memory,
+    as in a decode step), beside K3's w8a8 int8_gemv and torch._int_mm on
+    the same copies (17 rows: _int_mm takes more than 16). Family numbers
+    are one pass of microbench/decode's M1 lines: the three projections at
+    M = 6."""
+    L = cfg.llm
+    D, I = L.hidden_size, L.intermediate_size
+    fam = Family("i8i8_gemv")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(70)
+    for pname, (d, o) in (("qkv", (D, L.q_dim + 2 * L.kv_dim)),
+                          ("gate_up", (D, 2 * I)), ("down", (I, D))):
+        C = max(2, -(-150 * 2 ** 20 // (d * o)))
+        w = torch.randint(-127, 128, (C, d, o), generator=g, device="cuda",
+                          dtype=torch.int8)
+        s = torch.rand(C, o, generator=g, device="cuda") * 1e-3 + 1e-4
+        for M in (1, 6, 16):
+            x = torch.randn(M, d, generator=g, device="cuda").bfloat16()
+            before = ig.I8I8_GEMV.launches
+            y = ig.i8i8_matmul(x, w[0], s[0])
+            y_ref = ig.i8i8_matmul_reference(x, w[0], s[0])
+            torch.cuda.synchronize()
+            err = gemv_error(torch, y, y_ref)
+            d_abs = float((y.float() - y_ref.float()).abs().max())
+            ok = (err <= BOUND_GEMV and y.dtype == torch.bfloat16
+                  and bool(torch.isfinite(y).all())
+                  and ig.I8I8_GEMV.launches == before + 1)
+            fam.max_err = max(fam.max_err, d_abs)
+            line = (f"[kernel] i8i8_gemv {pname:<7} M={M} D={d} O={o} "
+                    f"bit-equal={bool(torch.equal(y, y_ref))} max|dy|="
+                    f"{d_abs:.3e} max|dy|/max|y|={err:.3e} "
+                    f"(<= {BOUND_GEMV:.3e})")
+            if M == 6:
+                def run(fn):
+                    return lambda: [fn(i) for i in range(C)]
+
+                x17 = torch.zeros(17, d, dtype=torch.int8, device="cuda")
+                ms = graph_ms(torch, run(lambda i: ig.i8i8_matmul(
+                    x, w[i], s[i]))) / C
+                plain_ms = graph_ms(torch, run(
+                    lambda i: ig.i8i8_matmul_reference(x, w[i], s[i])),
+                    5) / C
+                k3_ms = graph_ms(torch, run(lambda i: mm.int8_matmul(
+                    x, w[i], s[i], w8a8=True))) / C
+                lib_ms = graph_ms(torch, run(
+                    lambda i: torch._int_mm(x17, w[i]))) / C
+                nbytes = d * o + 4 * o + 2 * M * d + 2 * M * o
+                ops = 2.0 * M * d * o
+                bms, by = bound_ms(nbytes, ops, INT8_OPS)
+                fam.add(1, ms, plain_ms, nbytes, ops, "int8", lib_ms)
+                line += (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                         f"k3_w8a8_int8_gemv_ms={k3_ms:.4f} int_mm_ms="
+                         f"{lib_ms:.4f} bound_ms={bms:.4f} ({by}) over {C} "
+                         "weight copies")
+            log(line + f" {'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"i8i8_gemv {pname} M={M}: kernel "
+                                     "disagrees with the plain version")
+        del w, s
+        torch.cuda.empty_cache()
+    bms, by = fam.bound()
+    log(f"[kernel] i8i8_gemv per microbench/decode pass (3 projections at "
+        f"M=6): kernel {fam.ms:.4f} ms, plain {fam.plain_ms:.4f} ms, _int_mm "
+        f"{fam.library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+    return fam
+
+
+# ---------------------------------------------------------------------------
+# M2: the encoder-attention variants
+# ---------------------------------------------------------------------------
+
+
+def check_variant(torch, fa, mode, B, H, S, D, *, seed, timed):
+    """flash_variant vs its plain version → dict of numbers. The inputs
+    are microbench/encoder_attn's (normal × 0.1, bf16). For "noexp" the
+    output is a ratio of sums that can cancel: rows are held to the bars
+    only where |sum(s)| >= 1e-2 * sum(|s|)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    q, k, v = ((torch.randn(B, H, S, D, generator=g, device="cuda") * 0.1)
+               .bfloat16() for _ in range(3))
+    before = fa.FLASH_VARIANT.launches
+    o = fa.flash_variant(q, k, v, mode)
+    ref = fa.flash_variant_reference(q, k, v, mode).float()
+    torch.cuda.synchronize()
+    launched = fa.FLASH_VARIANT.launches - before
+    keep_share = 1.0
+    got = o.float()
+    if mode == "noexp":
+        sc = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+        keep = sc.sum(-1).abs() >= 1e-2 * sc.abs().sum(-1)
+        del sc
+        keep_share = float(keep.float().mean())
+        got, ref = got[keep], ref[keep]
+    d_o = float((got - ref).abs().max())
+    r_o = float(torch.linalg.vector_norm(got - ref)
+                / torch.linalg.vector_norm(ref))
+    ok = (d_o <= BOUND_O and r_o <= BOUND_O_REL and launched == 1
+          and bool(torch.isfinite(got).all()) and keep_share > 0.5)
+    out = {"max_abs_err": d_o, "rel": r_o, "ok": ok, "keep": keep_share}
+    line = (f"[kernel] flash_variant {mode:<6} q=k=v={[B, H, S, D]} "
+            f"max|do|={d_o:.3e} (<= {BOUND_O}) rel|do|={r_o:.3e} "
+            f"(<= {BOUND_O_REL})"
+            + (f" rows held {keep_share:.3f}" if mode == "noexp" else ""))
+    if timed:
+        out["ms"] = cuda_ms(torch, lambda: fa.flash_variant(q, k, v, mode), 20)
+        out["plain_ms"] = cuda_ms(
+            torch, lambda: fa.flash_variant_reference(q, k, v, mode), 3)
+        out["library_ms"] = None
+        if mode in ("full", "nomax", "dh128"):
+            out["library_ms"] = cuda_ms(
+                torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+                    q, k, v), 20)
+        out["bytes"] = 4 * 2 * B * H * S * D
+        out["flops"] = 4.0 * B * H * S * S * D
+        bms, by = bound_ms(out["bytes"], out["flops"], BF16_OPS)
+        lib = (f"{out['library_ms']:.4f}" if out["library_ms"] is not None
+               else "none")
+        line += (f" kernel_ms={out['ms']:.4f} "
+                 f"({out['flops'] / out['ms'] / 1e9:.1f} TFLOP/s) plain_ms="
+                 f"{out['plain_ms']:.4f} sdpa_ms={lib} bound_ms={bms:.4f} "
+                 f"({by})")
+    log(line + f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"flash_variant {mode} {[B, H, S, D]}: kernel "
+                             "disagrees with the plain version")
+    del q, k, v, o, ref, got
+    torch.cuda.empty_cache()
+    return out
+
+
+def flash_variant_phase(torch, fa, cfg):
+    """M2's four kernel modes at microbench/encoder_attn's shape [12, 16,
+    2049, 88] (offset as "nomax"; the script's exp2, unroll2, pipe compute
+    the same function with the same kernel), dh128 at D = 128, and every
+    mode on a small ragged case [2, 3, 130, 88]. The kernels line's M2
+    numbers are the offset mode's at the main shape: the softmax the
+    InternVideo2 trunk runs, with SDPA computing the same function."""
+    v = cfg.video
+    fam = Family("flash_variant")
+    main = (12, v.num_heads, v.seq_len, v.head_dim)
+    for i, mode in enumerate(("full", "nomax", "noexp", "sumdot")):
+        r = check_variant(torch, fa, mode, *main, seed=80 + i, timed=True)
+        fam.max_err = max(fam.max_err, r["max_abs_err"])
+        if mode == "nomax":
+            fam.add(1, r["ms"], r["plain_ms"], r["bytes"], r["flops"],
+                    "bf16", r["library_ms"])
+    r = check_variant(torch, fa, "dh128", 12, v.num_heads, v.seq_len, 128,
+                      seed=85, timed=True)
+    fam.max_err = max(fam.max_err, r["max_abs_err"])
+    for i, mode in enumerate(sorted(fa.VARIANT_MODES)):
+        r = check_variant(torch, fa, mode, 2, 3, 130,
+                          128 if mode == "dh128" else 88, seed=90 + i,
+                          timed=False)
+        fam.max_err = max(fam.max_err, r["max_abs_err"])
+    return fam
+
+
+# ---------------------------------------------------------------------------
 # Small references
 # ---------------------------------------------------------------------------
 
@@ -1496,6 +1780,104 @@ def small_reference_fused_iv2(torch, cfg_full, seed, temporal):
     torch.cuda.empty_cache()
 
 
+def small_reference_static_iv2(torch, cfg_full, seed, temporal):
+    """A two-block full-width InternVideo2 trunk with W8A8 weights and
+    static activation scales on all four legs, calibrated on the card
+    (features_absmax on one segment of the path's frames): card against
+    the same int8 weights and scales on the host (plain versions).
+    LayerScale is set to 1, as in the fused check."""
+    from grounded_video_llm_tpu_torch.core.config import replace
+    from grounded_video_llm_tpu_torch.models import internvideo2 as iv2
+    from grounded_video_llm_tpu_torch.models.vlm import _maybe_normalize
+    from grounded_video_llm_tpu_torch.ops.preprocess import (INTERNVIDEO_MEAN,
+                                                             INTERNVIDEO_STD)
+    from grounded_video_llm_tpu_torch.serve import calibrate
+    from grounded_video_llm_tpu_torch.serve.quantize import \
+        quantize_video_encoder_for_serving
+
+    cfg = replace(cfg_full.video, depth=2, num_blocks_used=2)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    p = quantize_video_encoder_for_serving(iv2.init_params(
+        cfg, generator=g, device="cuda", dtype=torch.bfloat16))
+    for name in ("ls1", "ls2"):
+        p["blocks"][name].fill_(1.0)
+    frames = torch.from_numpy(temporal[None, :cfg.num_frames]).cuda()
+    pixels = _maybe_normalize(frames, INTERNVIDEO_MEAN, INTERNVIDEO_STD,
+                              torch.bfloat16)
+    with torch.inference_mode():
+        dynamic, stats = iv2.features_absmax(p, cfg, pixels)
+        static = calibrate.apply_static_scales(
+            p, {k: t.cpu().numpy() for k, t in stats.items()},
+            legs=calibrate.LEGS)
+        card = iv2.features(static, cfg, pixels)
+        host = iv2.features(to_host(static), cfg, pixels.cpu())
+    err = rel_err(torch, card, host)
+    vs_dynamic = rel_err(torch, card, dynamic)
+    scales = [float(static["blocks"]["fc2"]["kernel"].x_scale[i])
+              for i in range(cfg.depth)]
+    ok = err <= BOUND_SMALL_W8A8 and bool(torch.isfinite(card).all())
+    log(f"[small-ref] static IV2: 2 full-width W8A8 blocks with static "
+        f"scales on qkv, proj, fc1, fc2 (calibrated on the card; fc2 "
+        f"x_scale {scales}), 1 segment {tuple(card.shape)}, card vs host "
+        f"plain versions rel L2 {err:.3e} (<= {BOUND_SMALL_W8A8}); card "
+        f"static vs card dynamic W8A8 rel L2 {vs_dynamic:.3e} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the static-scale InternVideo2 trunk disagrees "
+                             "with the host reference")
+    del p, static, card, host, dynamic
+    torch.cuda.empty_cache()
+
+
+def small_reference_quant_ab(torch, cfg_full, seed):
+    """serve/quant_ab on the depth-cut full-width model of small_reference
+    (CLIP 2 of 3 layers, IV2 2 blocks, LLM 2 layers, 1 segment): bf16
+    against int8_full with static scales calibrated on the same frames,
+    two prompts, 8 greedy tokens, on the card. With random weights the
+    metrics are readings; no verdict is asserted."""
+    from grounded_video_llm_tpu_torch.cli.model_loading import (
+        build_params, build_tokenizer)
+    from grounded_video_llm_tpu_torch.core.config import replace
+    from grounded_video_llm_tpu_torch.serve import calibrate, quant_ab
+    from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
+    from grounded_video_llm_tpu_torch.text.tokenizer import \
+        pad_batch_generate
+
+    n_frames = cfg_full.video.num_frames
+    cfg = replace(cfg_full, num_frames=n_frames, num_segs=1,
+                  clip=replace(cfg_full.clip, num_layers=3),
+                  video=replace(cfg_full.video, depth=2, num_blocks_used=2),
+                  llm=replace(cfg_full.llm, num_layers=2))
+    tok = build_tokenizer(cfg)
+    bf16 = build_params(cfg, "cuda", torch.bfloat16, seed)
+    eng = InferenceEngine(bf16, cfg, tok, quantize="int8_full")
+    temporal, spatial = eng.preprocess_frames(synthetic_video(seed + 2,
+                                                              n_frames))
+    quant = calibrate.calibrate_and_apply(eng.params, cfg, [temporal[None]])
+    seqs = [eng.tokenize_prompt(eng.build_prompt(p, m, 30.0))
+            for m, p in MODES[:2]]
+    ids, mask = pad_batch_generate(seqs, tok.pad_token_id, cfg.max_txt_len)
+    B = len(seqs)
+    sp = np.broadcast_to(spatial[None], (B, *spatial.shape))
+    tp = np.broadcast_to(temporal[None], (B, *temporal.shape))
+    m = quant_ab.run_quant_ab(bf16, quant, cfg, ids, mask, sp, tp,
+                              max_new_tokens=8,
+                              eos_token_id=tok.eos_token_id,
+                              pad_token_id=tok.pad_token_id)
+    log(f"[small-ref] quant_ab (bf16 vs int8_full + static scales on fc2 "
+        f"and proj, depth-cut, B={B}, 8 greedy tokens), readings: "
+        f"mean KL {m['mean_kl_nats']:.3e} nats, top-1 agreement "
+        f"{m['top1_agreement']:.3f}, greedy exact {m['greedy_exact_rate']:.3f}"
+        f", greedy prefix agreement {m['greedy_prefix_agreement']:.3f}; the "
+        f"committed bar {m['thresholds']} says pass={m['pass']} (random "
+        "weights: no verdict)")
+    if not np.isfinite(m["mean_kl_nats"]):
+        raise AssertionError("quant_ab: non-finite KL")
+    del bf16, eng, quant
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # Training: samples, the model-FLOP formula, the small reference
 # ---------------------------------------------------------------------------
@@ -1755,6 +2137,106 @@ def spec_path(torch, cfg, engine, batch, prompts, t_a, tokens_a, temporal,
     torch.cuda.empty_cache()
 
 
+def static_path(torch, kernels, params, cfg, tok, gen, batch, prompts,
+                temporal, spatial, t_a, expect_fn):
+    """Path E: path A's batch (int8_full, int8 cache, B = 6) through an
+    engine with static_scales=True. Counted like the other paths; its
+    counts must be path A's formula plus the one calibration pass's IV2
+    blocks (K1). Then: one calibration, x_scale on fc2 and proj of every
+    stacked block (the blocks run calibrated, the early-exit tail padded
+    with 1.0), none on qkv and fc1, and finite features of the right
+    shape."""
+    from grounded_video_llm_tpu_torch.models import vlm
+    from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
+
+    eng = InferenceEngine(params, cfg, tok, gen, seed=SEED,
+                          quantize="int8_full", static_scales=True)
+
+    def fn():
+        texts = eng.generate(prompts(batch, eng), temporal, spatial, gen)
+        for (m, _), text in zip(batch, texts):
+            r = eng._result(text, 96.0)
+            log(f"[path]   {m}: text={r.text!r} parsed={r.parsed!r} "
+                f"intervals={r.intervals}")
+        return eng.last_timings
+
+    got = run_path(torch, kernels, "E int8_full int8-cache static-scales B=6",
+                   fn, expect_fn)
+    t = eng.last_timings
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    v = cfg.video
+    blocks = eng.params["video_encoder"]["blocks"]
+    checks = []
+    for leg in ("fc2", "proj"):
+        xs = blocks[leg]["kernel"].x_scale
+        run = xs[:v.num_blocks_used]
+        checks.append(xs is not None and tuple(xs.shape) == (v.depth,)
+                      and bool(torch.isfinite(run).all())
+                      and bool((run > 0).all())
+                      and bool((xs[v.num_blocks_used:] == 1.0).all()))
+        log(f"[path] E {leg} x_scale: {v.num_blocks_used} calibrated "
+            f"[{float(run.min()):.4g}, {float(run.max()):.4g}], "
+            f"{v.depth - v.num_blocks_used} padded with 1.0")
+    none_elsewhere = (blocks["qkv_kernel"].x_scale is None
+                      and blocks["fc1"]["kernel"].x_scale is None)
+    with torch.inference_mode():
+        feats = vlm.encode_video(eng.params, cfg,
+                                 torch.from_numpy(spatial[None]).cuda(),
+                                 torch.from_numpy(temporal[None]).cuda())
+    want = (1, cfg.num_video_tokens, cfg.llm.hidden_size)
+    good = tuple(feats.shape) == want and bool(torch.isfinite(feats).all())
+    ok = eng.calibrations == 1 and all(checks) and none_elsewhere and good
+    log(f"[path] E vs A: encode {t['encode']:.3f} s (static scales on fc2 "
+        f"and proj) vs {t_a['encode']:.3f} s (dynamic) for the same 6 "
+        f"videos, after one calibration pass of {t['calibrate']:.3f} s over "
+        f"their {len(batch) * cfg.num_segs} clips; prefill {t['prefill']:.3f} s, "
+        f"decode {t['decode'] * 1e3 / max(t['decode_steps'], 1):.2f} ms per "
+        f"step; peak_device_memory={peak:.2f} GiB; calibrations "
+        f"{eng.calibrations}; x_scale on fc2 and proj only {none_elsewhere};"
+        f" features {tuple(feats.shape)} finite {good} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("path E: static scales not calibrated once on "
+                             "the legs expected, or features malformed")
+    del eng, feats
+    torch.cuda.empty_cache()
+    return got
+
+
+def microbench_path(torch, kernels):
+    """The port's four microbenchmarks, each module's main once at its
+    script's shapes (static_scales with reps = 1), counted as one path:
+    the launches of M1, M2, M3 and M3d must all be nonzero, and K10, K7, K5,
+    K8 and K9 must not run."""
+    from grounded_video_llm_tpu_torch.microbench import (decode, encoder_attn,
+                                                         int8_gemm,
+                                                         static_scales)
+
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for name, mod, argv in (("int8_gemm", int8_gemm, []),
+                            ("decode", decode, []),
+                            ("encoder_attn", encoder_attn, []),
+                            ("static_scales", static_scales, ["72", "1"])):
+        t1 = time.perf_counter()
+        log(f"[microbench] {name}:")
+        mod.main(argv)
+        log(f"[microbench] {name} took {time.perf_counter() - t1:.1f} s")
+    got = {n: k.launches for n, k in kernels.items()}
+    log(f"[microbench] launches {got} in {time.perf_counter() - t0:.1f} s")
+    need = ("i8i8_gemv", "flash_variant", "int8_gemm", "int8_gemm_dynamic",
+            "flash_fwd", "int8_gemv", "int8_matmul", "decode_attention_int8")
+    idle = ("flash_bwd", "scatter_write", "verify_attention_int8",
+            "scatter_write_multi", "fused_norm_quant_gemm",
+            "fused_quant_gemm_ls_residual")
+    if any(got[n] == 0 for n in need) or any(got[n] for n in idle):
+        raise AssertionError(f"microbench path launches {got}: want nonzero "
+                             f"{need}, zero {idle}")
+    return got
+
+
 def train_path(torch, kernels, params, tok, temporal, spatial):
     """The training path: vlm_config("phi3.5", stage="grounded") at full
     width on the given bf16 weights with LoRA r=128 attached (B != 0), the
@@ -1920,6 +2402,7 @@ def main() -> int:
     from grounded_video_llm_tpu_torch.ops import decode_attention_int8 as da
     from grounded_video_llm_tpu_torch.ops import flash_attention as fa
     from grounded_video_llm_tpu_torch.ops import fused_block as fb
+    from grounded_video_llm_tpu_torch.ops import int8_gemm as ig
     from grounded_video_llm_tpu_torch.ops import int8_matmul as mm
     from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
 
@@ -1947,7 +2430,10 @@ def main() -> int:
                "scatter_write_multi": cw.SCATTER_WRITE_MULTI,
                "fused_norm_quant_gemm": fb.FUSED_NORM_QUANT_GEMM,
                "fused_quant_gemm_ls_residual":
-                   fb.FUSED_QUANT_GEMM_LS_RESIDUAL}
+                   fb.FUSED_QUANT_GEMM_LS_RESIDUAL,
+               "i8i8_gemv": ig.I8I8_GEMV, "flash_variant": fa.FLASH_VARIANT,
+               "int8_gemm": ig.INT8_GEMM,
+               "int8_gemm_dynamic": ig.INT8_GEMM_DYNAMIC}
     t0 = time.perf_counter()
     seconds = cuda_build.build_all(list(kernels.values()))
     for k in kernels.values():
@@ -1957,9 +2443,13 @@ def main() -> int:
         + ", ".join(f"{n} {s:.1f} s" for n, s in seconds.items()))
     logs = {k.source.name: k.build_log for k in kernels.values()}
     for src, text in logs.items():
+        entry = "?"          # ptxas names each entry function before its lines
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[ptxas] {src}: {line.strip()}")
+            found = re.search(r"Compiling entry function '(\S+)'", line)
+            if found:
+                entry = short_entry(found.group(1))
+            elif "registers" in line or "spill" in line:
+                log(f"[ptxas] {src} {entry}: {line.strip()}")
 
     cfg = vlm_config("phi3.5", stage="inference")
     tok = build_tokenizer(cfg)
@@ -1996,7 +2486,11 @@ def main() -> int:
     k9 = write_phase(torch, cw, cfg, max_len_spec, S_v)
     batch6 = [x for pair in zip(MODES, MODES_2) for x in pair]
     k10 = fused_phase(torch, fb, cfg, len(batch6))
-    families = {f.name: f for f in (flash, k7, k3, k6, k4, k5, k8, k9, *k10)}
+    m3 = int8_gemm_phase(torch, ig)
+    m1 = i8i8_phase(torch, ig, mm, cfg)
+    m2 = flash_variant_phase(torch, fa, cfg)
+    families = {f.name: f for f in (flash, k7, k3, k6, k4, k5, k8, k9, *k10,
+                                    m1, m2, *m3)}
 
     frames = synthetic_video(SEED, cfg.num_frames)
     t0 = time.perf_counter()
@@ -2009,6 +2503,8 @@ def main() -> int:
         small_reference(torch, cfg, SEED, quantize)
     small_reference_verify(torch, cfg, SEED, S_v)
     small_reference_fused_iv2(torch, cfg, SEED, temporal)
+    small_reference_static_iv2(torch, cfg, SEED, temporal)
+    small_reference_quant_ab(torch, cfg, SEED)
     small_reference_train(torch, cfg, SEED)
 
     # ---- 5. main path
@@ -2103,6 +2599,13 @@ def main() -> int:
     del full, feats, logits, cache, embeds
     torch.cuda.empty_cache()
 
+    # path E: path A with calibrated static W8A8 scales (one calibration
+    # pass over the IV2 blocks at the first request: nb more K1 launches)
+    got = static_path(torch, kernels, params, cfg, tok, gen_int8, batch6,
+                      prompts, temporal, spatial, t_a,
+                      expect(per_req + nb, 4 * nl, True, 1))
+    launches = {k: launches[k] + got[k] for k in launches}
+
     weight_only = InferenceEngine(params, cfg, tok, gen_cfg, seed=SEED,
                                   quantize="int8")
     for name, g, x in (
@@ -2118,6 +2621,12 @@ def main() -> int:
 
     # ---- 6. the training path, on the same bf16 weights
     got, _ = train_path(torch, kernels, params, tok, temporal, spatial)
+    launches = {k: launches[k] + got[k] for k in launches}
+
+    # ---- 7. the microbenchmarks: the path of M1, M2, M3 and M3d
+    del params
+    torch.cuda.empty_cache()
+    got = microbench_path(torch, kernels)
     launches = {k: launches[k] + got[k] for k in launches}
     log(f"[main] launches over every path: {launches}")
     missing = [n for n, c in launches.items() if c == 0]

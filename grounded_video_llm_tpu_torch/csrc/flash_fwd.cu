@@ -44,6 +44,20 @@
 //    stays finite and exp2 of a masked score underflows to exactly 0.
 //  * Sliding window: keep = kpos <= qpos && qpos - kpos < window; the tile
 //    range also skips whole tiles below the window.
+//
+// A second entry, gvllm_flash_variant (M2), replaces
+// scripts/microbench_encoder_attn.py:174 (`flash_variant`, `_kernel` :47):
+// the InternVideo2 attention variants that script times. Non-causal,
+// maskless, q/k/v/o [B,H,S,D] (head-major), no lse. Its modes are template
+// modes of the same tile loop: "full" (online max, exact softmax), "offset"
+// (p = exp2(s * log2e - 30 * log2e); the script's nomax, exp2, unroll2, pipe
+// and dh128 compute this one function and differ only in TPU scheduling),
+// "noexp" (p = s, the bound with no transcendental; its row sums can be near
+// 0 or negative, so it has no dead-row rule) and "sumdot" (the offset
+// softmax whose denominator sums the bf16-rounded p, as the script's ones
+// column in the PV product does). P enters the PV product in bf16; the
+// denominator is fp32 (of fp32 p, or of bf16 p for sumdot). The script's
+// block_q sweep is a Mosaic tiling knob with no counterpart here.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -61,7 +75,21 @@ constexpr int THREADS = WARPS * 32;
 constexpr float NEG_INF = -FLT_MAX;  // masked score (JAX NEG_INF)
 constexpr float M_INIT = -1e30f;     // finite start of the running max
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr float BOUNDED_OFFSET = 40.0f;
+constexpr float BOUNDED_OFFSET = 40.0f;   // K1's bounded mode
+constexpr float VARIANT_OFFSET = 30.0f;   // M2's fixed offset
+
+// how a tile's scores become p and the row sums
+enum Mode {
+  kOnline = 0,  // running row max, rescaled accumulator (exact softmax)
+  kFixed = 1,   // fixed offset in place of the row max (bounded scores)
+  kNoExp = 2,   // p = s (M2 only)
+  kSumDot = 3,  // kFixed with the row sums over bf16-rounded p (M2 only)
+};
+
+// element strides of q (and o) and of k/v
+struct Strides {
+  int64_t q_row, q_head, q_batch, kv_row, kv_head, kv_batch;
+};
 
 template <int D>
 struct HeadDim {
@@ -116,12 +144,13 @@ __device__ __forceinline__ void load_tile(bf16* s, const bf16* g,
   }
 }
 
-template <int D, bool CAUSAL, bool BOUNDED>
+template <int D, bool CAUSAL, int MODE>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
                  bf16* __restrict__ o, float* __restrict__ lse, int Sq, int Sk,
-                 int H, int Hkv, float scale, int window, int q_offset) {
+                 int H, int Hkv, float scale, int window, int q_offset,
+                 float offset, Strides st) {
   constexpr int DP = HeadDim<D>::DP;
   constexpr int LD = HeadDim<D>::LD;
   constexpr int KSTEPS = DP / 16;  // k16 steps of Q K^T
@@ -142,11 +171,11 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int g = lane >> 2;  // fragment row group
   const int t4 = lane & 3;  // thread in group
 
-  const int64_t q_stride = (int64_t)H * D;
-  const int64_t kv_stride = (int64_t)Hkv * D;
-  const bf16* qg = q + ((int64_t)b * Sq + q0) * q_stride + (int64_t)h * D;
-  const bf16* kg = k + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
-  const bf16* vg = v + (int64_t)b * Sk * kv_stride + (int64_t)hk * D;
+  const int64_t q_stride = st.q_row;
+  const int64_t kv_stride = st.kv_row;
+  const bf16* qg = q + b * st.q_batch + h * st.q_head + q0 * q_stride;
+  const bf16* kg = k + b * st.kv_batch + hk * st.kv_head;
+  const bf16* vg = v + b * st.kv_batch + hk * st.kv_head;
   const float* bg = bias ? bias + (int64_t)b * Sk : nullptr;
 
   load_tile<D, BM>(sQ, qg, q_stride, Sq - q0);
@@ -187,8 +216,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int n = 0; n < NT_O; ++n) {
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
   }
-  float m_run[2] = {BOUNDED ? BOUNDED_OFFSET : M_INIT,
-                    BOUNDED ? BOUNDED_OFFSET : M_INIT};
+  float m_run[2] = {MODE == kOnline ? M_INIT : offset,
+                    MODE == kOnline ? M_INIT : offset};
   float l_part[2] = {0.f, 0.f};  // this thread's share of the row sums
 
   for (int t = t_begin; t < t_end; ++t) {
@@ -211,7 +240,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       }
     }
 
-    // scale, bias and masks; masked scores become NEG_INF
+    // scale, bias and masks; masked scores become NEG_INF (p = 0 after
+    // the exp), or 0 where p = s
 #pragma unroll
     for (int j = 0; j < NT_S; ++j) {
 #pragma unroll
@@ -225,12 +255,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         }
         float x = s[j][e] * scale;
         if (bg != nullptr && key < Sk) x += bg[key];
-        s[j][e] = keep ? x : NEG_INF;
+        s[j][e] = keep ? x : (MODE == kNoExp ? 0.f : NEG_INF);
       }
     }
 
     float alpha[2] = {1.f, 1.f};
-    if (!BOUNDED) {
+    if (MODE == kOnline) {
       float mx[2] = {m_run[0], m_run[1]};
 #pragma unroll
       for (int j = 0; j < NT_S; ++j) {
@@ -260,9 +290,12 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < NT_S; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(fmaf(s[j][e], LOG2E, -mb[e >> 1]));
+        const float p = MODE == kNoExp
+                            ? s[j][e]
+                            : exp2f(fmaf(s[j][e], LOG2E, -mb[e >> 1]));
         s[j][e] = p;
-        l_part[e >> 1] += p;
+        l_part[e >> 1] +=
+            MODE == kSumDot ? __bfloat162float(__float2bfloat16_rn(p)) : p;
       }
     }
 
@@ -284,16 +317,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 
   // finish the rows: o = acc / l, lse = m + log(l); dead rows o = 0, +inf
+  // (p = s has no dead rows: its sums may be negative)
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = l_part[r];
     l += __shfl_xor_sync(0xffffffffu, l, 1);
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int row = row0 + 8 * r;
-    const bool dead = !(l > 0.f);
+    const bool dead = MODE != kNoExp && !(l > 0.f);
     const float inv = dead ? 0.f : 1.f / l;
     if (row < Sq) {
-      bf16* orow = o + ((int64_t)b * Sq + row) * q_stride + (int64_t)h * D;
+      bf16* orow = o + b * st.q_batch + h * st.q_head + row * q_stride;
 #pragma unroll
       for (int n = 0; n < NT_O; ++n) {
         const int col = n * 8 + t4 * 2;
@@ -302,7 +336,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
               pack_bf16(acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
         }
       }
-      if (t4 == 0) {
+      if (lse != nullptr && t4 == 0) {
         lse[((int64_t)b * H + h) * Sq + row] =
             dead ? __int_as_float(0x7f800000) : m_run[r] + logf(l);
       }
@@ -310,38 +344,70 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D, bool CAUSAL, bool BOUNDED>
+template <int D, bool CAUSAL, int MODE>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v,
                    const float* bias, bf16* o, float* lse, int B, int Sq,
                    int Sk, int H, int Hkv, float scale, int window,
-                   int q_offset, cudaStream_t stream) {
+                   int q_offset, float offset, const Strides& st,
+                   cudaStream_t stream) {
   const int smem = (BM + 2 * BN) * HeadDim<D>::LD * (int)sizeof(bf16);
-  auto kern = flash_fwd_kernel<D, CAUSAL, BOUNDED>;
+  auto kern = flash_fwd_kernel<D, CAUSAL, MODE>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Sq + BM - 1) / BM, H, B);
   kern<<<grid, THREADS, smem, stream>>>(q, k, v, bias, o, lse, Sq, Sk, H, Hkv,
-                                        scale, window, q_offset);
+                                        scale, window, q_offset, offset, st);
   return cudaGetLastError();
 }
 
+// K1/K2: [B,S,H,D] q/o and [B,S,Hkv,D] k/v
 template <int D>
 cudaError_t dispatch(const bf16* q, const bf16* k, const bf16* v,
                      const float* bias, bf16* o, float* lse, int B, int Sq,
                      int Sk, int H, int Hkv, float scale, int causal,
                      int bounded, int window, int q_offset,
                      cudaStream_t stream) {
+  const Strides st{(int64_t)H * D, D, (int64_t)Sq * H * D,
+                   (int64_t)Hkv * D, D, (int64_t)Sk * Hkv * D};
   if (causal) {
-    return launch<D, true, false>(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv,
-                                  scale, window, q_offset, stream);
+    return launch<D, true, kOnline>(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv,
+                                    scale, window, q_offset, 0.f, st, stream);
   }
   if (bounded) {
-    return launch<D, false, true>(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv,
-                                  scale, 0, q_offset, stream);
+    return launch<D, false, kFixed>(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv,
+                                    scale, 0, q_offset, BOUNDED_OFFSET, st,
+                                    stream);
   }
-  return launch<D, false, false>(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv,
-                                 scale, 0, q_offset, stream);
+  return launch<D, false, kOnline>(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv,
+                                   scale, 0, q_offset, 0.f, st, stream);
+}
+
+// M2: [B,H,S,D] q, k, v and o, no bias, no lse
+template <int D>
+cudaError_t dispatch_variant(const bf16* q, const bf16* k, const bf16* v,
+                             bf16* o, int B, int S, int H, float scale,
+                             int mode, cudaStream_t stream) {
+  const Strides st{D, (int64_t)S * D, (int64_t)H * S * D,
+                   D, (int64_t)S * D, (int64_t)H * S * D};
+  switch (mode) {
+    case kOnline:
+      return launch<D, false, kOnline>(q, k, v, nullptr, o, nullptr, B, S, S,
+                                       H, H, scale, 0, 0, 0.f, st, stream);
+    case kFixed:
+      return launch<D, false, kFixed>(q, k, v, nullptr, o, nullptr, B, S, S,
+                                      H, H, scale, 0, 0, VARIANT_OFFSET, st,
+                                      stream);
+    case kNoExp:
+      return launch<D, false, kNoExp>(q, k, v, nullptr, o, nullptr, B, S, S,
+                                      H, H, scale, 0, 0, 0.f, st, stream);
+    case kSumDot:
+      return launch<D, false, kSumDot>(q, k, v, nullptr, o, nullptr, B, S, S,
+                                       H, H, scale, 0, 0, VARIANT_OFFSET, st,
+                                       stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -375,6 +441,32 @@ extern "C" int gvllm_flash_fwd(const void* q, const void* k, const void* v,
     case 128:
       return dispatch<128>(qp, kp, vp, bp, op, lp, B, Sq, Sk, H, Hkv, scale,
                            causal, bounded, window, q_offset, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// M2: q, k, v, o [B,H,S,D] bf16; mode 0 full, 1 offset, 2 noexp, 3 sumdot.
+// Returns a cudaError_t; an unsupported head dim or mode returns
+// cudaErrorInvalidValue without launching.
+extern "C" int gvllm_flash_variant(const void* q, const void* k,
+                                   const void* v, void* o, int B, int S,
+                                   int H, int D, float scale, int mode,
+                                   void* stream) {
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(o);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 64:
+      return dispatch_variant<64>(qp, kp, vp, op, B, S, H, scale, mode, st);
+    case 88:
+      return dispatch_variant<88>(qp, kp, vp, op, B, S, H, scale, mode, st);
+    case 96:
+      return dispatch_variant<96>(qp, kp, vp, op, B, S, H, scale, mode, st);
+    case 128:
+      return dispatch_variant<128>(qp, kp, vp, op, B, S, H, scale, mode, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -16,8 +16,10 @@ without the extra rows.
 A serving-int8 tree (the JAX ``serve/quantize.py``) maps exactly: each
 ``{"q", "scale"}`` pair becomes an ``Int8Weight`` (values and scales copied
 bit for bit, whatever ``dtype`` says), the ``"w8a8": None`` marker its
-``w8a8`` flag, and the LLM's embedding pair an ``Int8Embedding``. Any other
-entry of such a pair (a calibrated ``x_scale``) is refused.
+``w8a8`` flag, a calibrated ``x_scale`` (serve/calibrate.py: one fp32
+scale per layer of an encoder weight) its ``x_scale``, and the LLM's
+embedding pair an ``Int8Embedding``. Any other entry of such a pair, and an
+``x_scale`` on an LLM weight (its matmuls never read one), is refused.
 """
 
 from __future__ import annotations
@@ -55,10 +57,13 @@ def _set(tree: dict, path: Tuple[str, ...], value) -> None:
 
 def _int8_from_jax(path, pair: dict, shape, device):
     name = "/".join(path)
-    extra = sorted(set(pair) - {"q", "scale", "w8a8"})
+    extra = sorted(set(pair) - {"q", "scale", "w8a8", "x_scale"})
     if extra:
-        raise ValueError(f"params_from_jax: {name} has {extra}; static "
-                         "activation scales are not ported")
+        raise ValueError(f"params_from_jax: {name} has {extra}, which an "
+                         "int8 pair does not carry")
+    if "x_scale" in pair and path[0] == "llm":
+        raise ValueError(f"params_from_jax: {name} has an x_scale; static "
+                         "activation scales apply to the encoders only")
     if pair.get("w8a8", None) is not None:
         raise ValueError(f"params_from_jax: {name}/w8a8 must be the None "
                          "marker")
@@ -69,6 +74,14 @@ def _int8_from_jax(path, pair: dict, shape, device):
         raise ValueError(f"params_from_jax: {name} int8 pair is "
                          f"{q.dtype}{q.shape} / {s.dtype}{s.shape}, expected "
                          f"int8{shape} / float32{want_s}")
+    xt = None
+    if "x_scale" in pair:
+        xs = np.asarray(pair["x_scale"])
+        if xs.dtype != np.float32 or xs.shape != shape[:-2]:
+            raise ValueError(f"params_from_jax: {name}/x_scale is "
+                             f"{xs.dtype}{xs.shape}, expected "
+                             f"float32{shape[:-2]}")
+        xt = torch.from_numpy(xs.copy()).to(device)
     qt = torch.from_numpy(q.copy()).to(device)
     st = torch.from_numpy(s.copy()).to(device)
     if path == _EMBED:
@@ -76,7 +89,7 @@ def _int8_from_jax(path, pair: dict, shape, device):
             raise ValueError("params_from_jax: the embedding has no w8a8 "
                              "marker")
         return Int8Embedding(qt, st)
-    return Int8Weight(qt, st, "w8a8" in pair)
+    return Int8Weight(qt, st, "w8a8" in pair, xt)
 
 
 def _vocab_config(np_tree, cfg: VLMConfig) -> VLMConfig:

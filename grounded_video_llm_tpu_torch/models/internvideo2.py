@@ -18,7 +18,13 @@ Parameters are the JAX tree as a dict of tensors, stacked per block:
 opts in both packages) sends a W8A8 block through the fused GEMMs of
 ops/fused_block (K10): norm + quantization + qkv + QK-RMSNorm, proj and
 fc2 with fp32 LayerScale and the residual, fc1 with the exact GELU. With
-the switch off nothing changes.
+the switch off nothing changes. Weights with calibrated static activation
+scales (``Int8Weight.x_scale``, serve/calibrate.py) run W8A8 with those
+scales through ``matmul_any``; the fused block has no static scales, so the
+switch raises on them (the JAX fused route drops them silently).
+
+``features_absmax`` is the calibration pass: the same blocks, each asked
+for the per-channel absmax of its four GEMM inputs.
 """
 
 from __future__ import annotations
@@ -173,16 +179,37 @@ def _block_fused_int8(x, bp, cfg: InternVideo2Config):
                                         bp["fc2"]["bias"], bp["ls2"], x)
 
 
+_LEG_WEIGHTS = {"qkv": ("qkv_kernel",), "proj": ("proj", "kernel"),
+                "fc1": ("fc1", "kernel"), "fc2": ("fc2", "kernel")}
+
+
+def _leg_weight(bp, leg: str):
+    """The block's weight of a GEMM leg (None where the block has none)."""
+    w = bp
+    for k in _LEG_WEIGHTS[leg]:
+        w = w.get(k) if isinstance(w, dict) else None
+    return w
+
+
 def _fused_int8_ok(bp, cfg: InternVideo2Config) -> bool:
     """Opt-in (GVLLM_FUSED_IV2=1), as in the JAX package, which keeps it off
     because the fused block measured slower there on the TPU (PERF.md has
     the H100's numbers); for int8 weights at widths the kernels tile. On
     the CPU other widths take the unfused block, as in the JAX package; on
-    any other device they raise, since there the switch means K10."""
+    any other device they raise, since there the switch means K10. Weights
+    with static activation scales raise on every device: the fused GEMMs
+    quantize per row and would drop them."""
     w = bp.get("qkv_kernel")
     if (os.environ.get("GVLLM_FUSED_IV2", "0") != "1"
             or not isinstance(w, Int8Weight)):
         return False
+    static = [leg for leg in _LEG_WEIGHTS
+              if getattr(_leg_weight(bp, leg), "x_scale", None) is not None]
+    if static:
+        raise ValueError(
+            f"GVLLM_FUSED_IV2=1: the fused W8A8 block has no static "
+            f"activation scales, and {static} carry them; unset the switch "
+            "or serve without static_scales")
     if cfg.embed_dim % 128 == 0 and cfg.mlp_hidden % 512 == 0:
         return True
     if w.q.device.type != "cpu":
@@ -193,14 +220,27 @@ def _fused_int8_ok(bp, cfg: InternVideo2Config) -> bool:
     return False
 
 
-def _block(x, bp, cfg: InternVideo2Config):
-    if _fused_int8_ok(bp, cfg):
+def _absmax(t: torch.Tensor) -> torch.Tensor:
+    """Per-channel fp32 absmax over every leading axis."""
+    return t.float().abs().amax(dim=tuple(range(t.dim() - 1)))
+
+
+def _block(x, bp, cfg: InternVideo2Config, stats=None):
+    """One block. stats: a dict that receives, per GEMM leg ("qkv",
+    "proj", "fc1", "fc2"), the per-channel fp32 absmax of that GEMM's input
+    (the calibration pass); a stats request takes the unfused route."""
+    if stats is None and _fused_int8_ok(bp, cfg):
         return _block_fused_int8(x, bp, cfg)
     B, S, D = x.shape
     H = cfg.num_heads
     Dh = cfg.head_dim
 
-    h = rms_norm(x, bp["norm1_w"], cfg.rms_eps)
+    def record(leg, t):
+        if stats is not None:
+            stats[leg] = _absmax(t)
+        return t
+
+    h = record("qkv", rms_norm(x, bp["norm1_w"], cfg.rms_eps))
     q, k, v = matmul_any(h, bp["qkv_kernel"]).split(D, dim=-1)  # [B,S,D]
     if cfg.qk_normalization:
         # RMSNorm over the flattened head dim
@@ -210,14 +250,15 @@ def _block(x, bp, cfg: InternVideo2Config):
     k = k.reshape(B, S, H, Dh)
     v = v.reshape(B, S, H, Dh)
     # QK-RMSNorm bounds the scores, so the kernel keeps a fixed softmax offset
-    attn = mha(q, k, v, causal=False,
-               bounded_softmax=cfg.qk_normalization).reshape(B, S, D)
+    attn = record("proj", mha(q, k, v, causal=False,
+                              bounded_softmax=cfg.qk_normalization)
+                  .reshape(B, S, D))
     attn = matmul_any(attn, bp["proj"]["kernel"]) + bp["proj"]["bias"]
     x = x + layer_scale(attn, bp["ls1"])
 
-    h = rms_norm(x, bp["norm2_w"], cfg.rms_eps)
-    h = F.gelu(matmul_any(h, bp["fc1"]["kernel"]) + bp["fc1"]["bias"],
-               approximate="none")
+    h = record("fc1", rms_norm(x, bp["norm2_w"], cfg.rms_eps))
+    h = record("fc2", F.gelu(matmul_any(h, bp["fc1"]["kernel"])
+                             + bp["fc1"]["bias"], approximate="none"))
     h = matmul_any(h, bp["fc2"]["kernel"]) + bp["fc2"]["bias"]
     return x + layer_scale(h, bp["ls2"])
 
@@ -235,15 +276,35 @@ def patch_embed(params, cfg: InternVideo2Config,
     return patches.reshape(B, T * cfg.patches_per_frame, cfg.embed_dim)
 
 
-def features(params, cfg: InternVideo2Config,
-             pixels: torch.Tensor) -> torch.Tensor:
-    """The trunk with early exit after num_blocks_used blocks → [B, 1+T*L, D]
-    (CLS included; callers drop it)."""
+def _trunk(params, cfg: InternVideo2Config, pixels: torch.Tensor,
+           stats=None) -> torch.Tensor:
     x = patch_embed(params, cfg, pixels)
     B = x.shape[0]
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(x.dtype)
     for i in range(cfg.num_blocks_used):
-        x = _block(x, layer_slice(params["blocks"], i), cfg)
+        block_stats = None if stats is None else {}
+        x = _block(x, layer_slice(params["blocks"], i), cfg, block_stats)
+        if stats is not None:
+            stats.append(block_stats)
     return x
+
+
+def features(params, cfg: InternVideo2Config,
+             pixels: torch.Tensor) -> torch.Tensor:
+    """The trunk with early exit after num_blocks_used blocks → [B, 1+T*L, D]
+    (CLS included; callers drop it)."""
+    return _trunk(params, cfg, pixels)
+
+
+def features_absmax(params, cfg: InternVideo2Config, pixels: torch.Tensor):
+    """features() and, per block run, the per-channel fp32 absmax of each
+    GEMM input: (x, {"qkv"/"proj"/"fc1" [Lyr_used, D], "fc2" [Lyr_used,
+    mlp_hidden]}), the calibration pass of serve/calibrate.py. It runs
+    whatever weights the tree holds (bf16 or W8A8), so the maxima match the
+    numerics that will consume them."""
+    per_block = []
+    x = _trunk(params, cfg, pixels, per_block)
+    return x, {leg: torch.stack([s[leg] for s in per_block])
+               for leg in _LEG_WEIGHTS}

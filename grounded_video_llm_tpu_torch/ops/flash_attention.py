@@ -12,6 +12,13 @@ two. ``FlashAttention`` ties them together as an autograd Function (the JAX
 ``custom_vjp``); ``flash_mha`` goes through it only when a gradient is
 wanted, so inference runs exactly the forward.
 
+``flash_variant(q, k, v, mode)`` (M2, a second entry of csrc/flash_fwd.cu)
+is the encoder-attention variant family of scripts/microbench_encoder_attn.py
+on q/k/v [B, H, S, D]: "full" (exact softmax), the fixed-offset softmax of
+"nomax", "exp2", "unroll2", "pipe" and "dh128", "noexp" (p = s) and
+"sumdot" (the denominator from the bf16-rounded p); its plain version
+``flash_variant_reference`` follows the script's ``_kernel`` op for op.
+
 The kernel libraries are built at first use by ``ops/cuda_build.py``.
 """
 
@@ -34,6 +41,11 @@ _M_INIT = -1e30
 _LOG2E = 1.4426950408889634
 
 HEAD_DIMS = (64, 88, 96, 128)
+# M2: the script's fixed offset, and its modes → the kernel's softmax modes
+# (0 online max, 1 fixed offset, 2 p = s, 3 fixed offset with bf16 sums)
+VARIANT_OFFSET = 30.0
+VARIANT_MODES = {"full": 0, "nomax": 1, "exp2": 1, "unroll2": 1, "pipe": 1,
+                 "dh128": 1, "noexp": 2, "sumdot": 3}
 
 # gvllm_flash_fwd(q, k, v, bias, o, lse, B, Sq, Sk, H, Hkv, D, scale, causal,
 #                 bounded, window, q_offset, stream) -> cudaError_t
@@ -41,6 +53,13 @@ FLASH_FWD = CudaKernel(
     "flash_fwd.cu", "gvllm_flash_fwd",
     [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_float]
     + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+
+# gvllm_flash_variant(q, k, v, o, B, S, H, D, scale, mode, stream)
+#   -> cudaError_t
+FLASH_VARIANT = CudaKernel(
+    "flash_fwd.cu", "gvllm_flash_variant",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float]
+    + [ctypes.c_int] + [ctypes.c_void_p])
 
 # gvllm_flash_bwd(q, k, v, bias, lse, delta, do, dq, dk, dv, B, Sq, Sk, H,
 #                 Hkv, D, scale, causal, window, q_offset, stream)
@@ -177,6 +196,73 @@ def flash_fwd(q, k, v, bias, scale, causal, bounded=False, window=None,
               torch.cuda.current_stream(q.device).cuda_stream)
     FLASH_FWD.launches += 1
     return o, lse
+
+
+def _variant_mode(mode: str) -> int:
+    if mode not in VARIANT_MODES:
+        raise ValueError(f"flash_variant: mode {mode!r} is not one of "
+                         f"{sorted(VARIANT_MODES)}")
+    return VARIANT_MODES[mode]
+
+
+def flash_variant_reference(q, k, v, mode: str) -> torch.Tensor:
+    """Plain version of M2, the script's ``_kernel`` op for op in fp32:
+    q, k, v [B, H, S, D] → o [B, H, S, D] in q's dtype, scale D**-0.5."""
+    _variant_mode(mode)
+    scale = q.shape[-1] ** -0.5
+    raw = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = raw * scale
+    if mode == "full":
+        p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    elif mode == "nomax":
+        p = torch.exp(s - VARIANT_OFFSET)
+    elif mode == "noexp":
+        p = s
+    else:
+        p = torch.exp2(raw * (scale * _LOG2E) - VARIANT_OFFSET * _LOG2E)
+    pv = p.to(v.dtype).float()
+    denom = (pv if mode == "sumdot" else p).sum(dim=-1, keepdim=True)
+    o = torch.einsum("bhqk,bhkd->bhqd", pv, v.float())
+    return (o / denom).to(q.dtype)
+
+
+def flash_variant(q, k, v, mode: str) -> torch.Tensor:
+    """M2: q, k, v [B, H, S, D] → o [B, H, S, D] (non-causal, no mask).
+    CPU tensors run the plain version; CUDA tensors launch the kernel
+    (counted in FLASH_VARIANT.launches) or raise."""
+    kernel_mode = _variant_mode(mode)
+    if q.device.type == "cpu":
+        return flash_variant_reference(q, k, v, mode)
+    if q.device.type != "cuda":
+        raise RuntimeError(f"flash_variant: no kernel for device {q.device}")
+    _check_variant_args(q, k, v)
+    B, H, S, D = q.shape
+    o = torch.empty_like(q)
+    FLASH_VARIANT(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                  B, S, H, D, float(D ** -0.5), kernel_mode,
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    FLASH_VARIANT.launches += 1
+    return o
+
+
+def _check_variant_args(q, k, v):
+    if k.device != q.device or v.device != q.device:
+        raise ValueError("flash_variant: q, k and v must share a device")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.bfloat16:
+            raise TypeError(f"flash_variant kernel takes bf16 {name}, "
+                            f"got {t.dtype}")
+        if t.dim() != 4 or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"flash_variant kernel takes a contiguous, "
+                             f"16-byte aligned [B, H, S, D] {name}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"flash_variant: q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} and v {tuple(v.shape)} differ")
+    if q.shape[3] not in HEAD_DIMS:
+        raise ValueError(f"flash_variant kernel head dims are {HEAD_DIMS}, "
+                         f"got {q.shape[3]}")
+    if q.shape[2] == 0:
+        raise ValueError("flash_variant: empty sequence")
 
 
 def flash_bwd_reference(q, k, v, bias, o, lse, do, scale, causal,

@@ -4,10 +4,12 @@ package) with its plain PyTorch version (port of
 grounded_video_llm_tpu/ops/int8_matmul.py).
 
 An int8 weight is an ``Int8Weight``: int8 values [..., D, O], symmetric
-per-output-channel fp32 scales [..., O] (absmax / 127) and the ``w8a8``
-marker of the engine's "int8_full" mode. Stacked [L, D, O] weights are
-sliced per layer as views (``w_q[l]``), so the port has one entry point per
-kernel and no layer-indexed twin.
+per-output-channel fp32 scales [..., O] (absmax / 127), the ``w8a8``
+marker of the engine's "int8_full" mode and, for an encoder weight with
+calibrated static activation scales (serve/calibrate.py), ``x_scale``
+[...] (one fp32 scale per layer). Stacked [L, D, O] weights are sliced per
+layer as views (``w_q[l]``), so the port has one entry point per kernel and
+no layer-indexed twin.
 
 JAX's K3 (``int8_matmul_layer``) and K6 (``int8_matmul``) compute the same
 weight-only function; K3 adds a w8a8 branch. The port has one wrapper,
@@ -28,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,9 +50,11 @@ class Int8Weight(NamedTuple):
     q: torch.Tensor                     # int8 [..., D, O]
     scale: torch.Tensor                 # fp32 [..., O]
     w8a8: bool = False
+    x_scale: Optional[torch.Tensor] = None   # fp32 [...], static W8A8
 
     def layer(self, i: int) -> "Int8Weight":
-        return Int8Weight(self.q[i], self.scale[i], self.w8a8)
+        return Int8Weight(self.q[i], self.scale[i], self.w8a8,
+                          None if self.x_scale is None else self.x_scale[i])
 
 
 class Int8Embedding(NamedTuple):
@@ -61,9 +65,13 @@ class Int8Embedding(NamedTuple):
 
 def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [..., D] → (int8 [..., D], fp32 scales [..., 1]): symmetric absmax
-    per row, round half to even, clipped to ±127."""
+    per row, round half to even, clipped to ±127. absmax / 127 is a true
+    division on every device, as the kernels and the JAX package compute
+    it (PyTorch's CUDA division by a Python number multiplies by its
+    reciprocal, one ulp off for some rows)."""
     xf = x.float()
-    xs = (xf.abs().amax(dim=-1, keepdim=True) / 127.0).clamp_min(1e-8)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    xs = (amax / amax.new_full((), 127.0)).clamp_min(1e-8)
     return torch.round(xf / xs).clamp_(-127, 127).to(torch.int8), xs
 
 
@@ -98,6 +106,21 @@ def _exact_int8_dot(x8: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     return (x8.double() @ w_q.double()).float()
 
 
+def _int8_dot(x8: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
+    """int8 x8 [..., D] @ w_q [D, O], exact, → fp32 [..., O]: torch._int_mm
+    on CUDA, the float64 product on the CPU."""
+    lead = x8.shape[:-1]
+    x8 = x8.reshape(-1, x8.shape[-1])
+    if x8.device.type == "cuda":
+        rows = x8.shape[0]
+        if rows <= 16:          # _int_mm takes more than 16 rows
+            x8 = torch.cat([x8, x8.new_zeros(17 - rows, x8.shape[1])])
+        y = torch._int_mm(x8, w_q)[:rows].float()
+    else:
+        y = _exact_int8_dot(x8, w_q)
+    return y.reshape(*lead, w_q.shape[-1])
+
+
 def dynamic_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
                         w_scale: torch.Tensor) -> torch.Tensor:
     """W8A8 matmul: per-row dynamic activation int8, an exact int8 x int8
@@ -107,23 +130,30 @@ def dynamic_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
     JAX package leaves to XLA; on CUDA the dot is torch._int_mm, on the CPU
     the exact float64 product."""
     x8, xs = quantize_rows(x)
-    lead = x.shape[:-1]
-    x8 = x8.reshape(-1, x.shape[-1])
-    if x.device.type == "cuda":
-        rows = x8.shape[0]
-        if rows <= 16:          # _int_mm takes more than 16 rows
-            x8 = torch.cat([x8, x8.new_zeros(17 - rows, x8.shape[1])])
-        y = torch._int_mm(x8, w_q)[:rows].float()
-    else:
-        y = _exact_int8_dot(x8, w_q)
-    y = y.reshape(*lead, w_q.shape[-1])
-    return (y * xs * w_scale).to(x.dtype)
+    return (_int8_dot(x8, w_q) * xs * w_scale).to(x.dtype)
+
+
+def static_int8_matmul(x: torch.Tensor, w_q: torch.Tensor,
+                       w_scale: torch.Tensor,
+                       x_scale: torch.Tensor) -> torch.Tensor:
+    """W8A8 matmul with a calibrated static activation scale (a scalar, from
+    serve/calibrate.py) in place of the per-row absmax: x8 = clamp(rint(x /
+    max(x_scale, 1e-8)), ±127), an exact int8 dot, (dot * xs * w_scale) →
+    x's dtype. Inputs past the calibrated range saturate at ±127. The dot
+    goes where dynamic_int8_matmul's goes (torch._int_mm on CUDA)."""
+    xs = x_scale.float().clamp_min(1e-8)
+    x8 = torch.round(x.float() / xs).clamp_(-127, 127).to(torch.int8)
+    return (_int8_dot(x8, w_q) * xs * w_scale).to(x.dtype)
 
 
 def matmul_any(x: torch.Tensor, kernel) -> torch.Tensor:
     """x @ kernel for a dense weight or a W8A8 ``Int8Weight`` (the encoders'
-    serving quantization)."""
+    serving quantization); an ``x_scale`` selects the static-scale
+    matmul."""
     if isinstance(kernel, Int8Weight):
+        if kernel.x_scale is not None:
+            return static_int8_matmul(x, kernel.q, kernel.scale,
+                                      kernel.x_scale)
         return dynamic_int8_matmul(x, kernel.q, kernel.scale)
     return x @ kernel
 

@@ -11,7 +11,11 @@ on the device → temporal-token parsing.
 
 ``quantize``: None (bf16 serving), "int8" (int8 LLM weights, weight-only
 everywhere) or "int8_full" (W8A8 prefill GEMMs and int8-cache decode
-projections, plus W8A8 encoders). ``GenerateConfig.quantize_cache`` selects
+projections, plus W8A8 encoders). ``static_scales=True`` (with "int8_full"
+only; otherwise it raises, where the JAX engine ignores it) calibrates static
+activation scales for the InternVideo2 trunk's fc2 and proj legs
+(serve/calibrate.py) once, lazily, on all the clips of the first request's
+temporal pixels, before its encode. ``GenerateConfig.quantize_cache`` selects
 the int8 KV cache. ``GenerateConfig.spec_draft_len > 0`` runs speculative
 decoding (serve/speculative.py: n-gram drafts, one verify pass per step,
 always on the int8 KV cache).
@@ -20,11 +24,12 @@ always on the int8 KV cache).
 everything after the decoder. After each request ``last_timings`` holds its
 phase times in seconds (preprocess, encode, prefill, decode), the prompt
 length in tokens and the number of tokens generated, with
-``decode_steps`` or, under speculative decoding, ``verify_passes``;
+``decode_steps`` or, under speculative decoding, ``verify_passes``, and
+on the request that calibrated static scales ``calibrate``;
 ``last_tokens`` holds the request's token ids and lengths (host tensors).
 
-Not ported yet: static activation scales (``static_scales``), beam search,
-the feature and prefix caches and batched streaming.
+Not ported yet: beam search, the feature and prefix caches and batched
+streaming.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from .generate import decode_texts, generate_tokens
 from .quantize import (is_quantized, quantize_clip_for_serving,
                        quantize_llm_for_serving,
                        quantize_video_encoder_for_serving)
+from .calibrate import calibrate_and_apply
 from .speculative import generate_tokens_spec
 
 
@@ -67,10 +73,10 @@ class InferenceEngine:
         if quantize not in (None, "int8", "int8_full"):
             raise ValueError(f"quantize={quantize!r}: expected None, 'int8' "
                              "or 'int8_full'")
-        if static_scales:
-            raise NotImplementedError(
-                "static_scales=True: calibrated static activation scales "
-                "(serve/calibrate.py) are not ported yet")
+        if static_scales and quantize != "int8_full":
+            raise ValueError(
+                "static_scales=True calibrates the W8A8 encoders' activation "
+                f"scales and needs quantize='int8_full', got {quantize!r}")
         if "lora" in params["llm"]["layers"]:
             raise NotImplementedError(
                 "the LLM tree has LoRA adapters: merging them (merge_lora) "
@@ -86,6 +92,8 @@ class InferenceEngine:
                     params["video_encoder"])
                 params["clip"] = quantize_clip_for_serving(params["clip"])
         self.params = params
+        self._static_scales_pending = static_scales
+        self.calibrations = 0
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.gen_cfg = gen_cfg or GenerateConfig()
@@ -131,6 +139,17 @@ class InferenceEngine:
         temporal, spatial = self.preprocess_frames(vf.frames)
         return temporal, spatial, vf.duration
 
+    def _maybe_calibrate(self, temporal: np.ndarray) -> None:
+        """First-request static-scale calibration (``static_scales=True``):
+        record the trunk's activation maxima on these pixels and swap in
+        the encoder tree with static x_scales."""
+        if not self._static_scales_pending:
+            return
+        self._static_scales_pending = False
+        batch = temporal if temporal.ndim == 5 else temporal[None]
+        self.params = calibrate_and_apply(self.params, self.cfg, [batch])
+        self.calibrations += 1
+
     # -- generation ---------------------------------------------------------
 
     def generate(self, prompts: List[str], temporal: np.ndarray,
@@ -155,6 +174,10 @@ class InferenceEngine:
             return torch.from_numpy(np.array(a)).to(self.device)
 
         self.last_timings = timings = {}
+        if self._static_scales_pending:
+            t0 = time.perf_counter()
+            self._maybe_calibrate(temporal)    # ends on a device→host copy
+            timings["calibrate"] = time.perf_counter() - t0
         args = (self.params, self.cfg, dev(input_ids).long(),
                 dev(attn_mask).long(), dev(spatial), dev(temporal),
                 self.generator)

@@ -166,15 +166,16 @@ def test_engine_text_and_parse_match_jax(model):
                                          ("spec_draft_len", 4),
                                          ("quantize_cache", True)])
 def test_engine_refuses_unported_modes(model, field, value):
-    """Beam search is refused when a request asks for it. The int8 cache and
-    speculative decoding are ported (a speculative request runs its verify
-    passes); what int8 serving still lacks, static activation scales, is
-    refused when the engine is made."""
+    """Beam search is refused when a request asks for it. The int8 cache,
+    speculative decoding and static activation scales are ported (a
+    speculative request runs its verify passes); static scales without
+    int8_full's W8A8 encoders are refused when the engine is made."""
     cfg, _, _, tp, tok = model
     gen = GenerateConfig(max_new_tokens=2, **{field: value})
-    for quantize in ("int8", "int8_full"):
-        with pytest.raises(NotImplementedError):
-            TEngine(tp, cfg, tok, gen, quantize=quantize, static_scales=True)
+    with pytest.raises(ValueError, match="int8_full"):
+        TEngine(tp, cfg, tok, gen, quantize="int8", static_scales=True)
+    assert TEngine(tp, cfg, tok, gen, quantize="int8_full",
+                   static_scales=True).calibrations == 0
     if field == "quantize_cache":
         return
     eng = TEngine(tp, cfg, tok, gen)

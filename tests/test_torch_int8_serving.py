@@ -241,8 +241,11 @@ def test_engine_quantizes_and_refuses(model):
     assert isinstance(wo.params["clip"]["layers"]["fc1"]["kernel"],
                       torch.Tensor)
     assert isinstance(fp32["llm"]["embed"], torch.Tensor)   # not modified
-    with pytest.raises(NotImplementedError):
-        TEngine(fp32, cfg, tok, quantize="int8_full", static_scales=True)
+    static = TEngine(fp32, cfg, tok, quantize="int8_full",
+                     static_scales=True)       # calibrates at its 1st request
+    assert static.calibrations == 0
+    with pytest.raises(ValueError, match="int8_full"):
+        TEngine(fp32, cfg, tok, quantize="int8", static_scales=True)
     with pytest.raises(ValueError):
         TEngine(fp32, cfg, tok, quantize="int4")
     lora = dict(fp32)

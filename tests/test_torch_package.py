@@ -20,6 +20,7 @@ from grounded_video_llm_tpu_torch.ops import cuda_build
 from grounded_video_llm_tpu_torch.ops import decode_attention_int8 as da
 from grounded_video_llm_tpu_torch.ops import flash_attention as fa
 from grounded_video_llm_tpu_torch.ops import fused_block as fb
+from grounded_video_llm_tpu_torch.ops import int8_gemm as ig
 from grounded_video_llm_tpu_torch.ops import int8_matmul as mm
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -43,7 +44,10 @@ def test_port_never_imports_jax():
     assert "grounded_video_llm_tpu_torch.video.native.decoder" in mods
     for m in ("train.strategy", "train.step", "train.optimizer", "train.lora",
               "train.vocab", "data.collate", "data.datasets", "data.loader",
-              "obs.logger", "obs.trackers", "cli.train"):
+              "obs.logger", "obs.trackers", "cli.train", "ops.int8_gemm",
+              "serve.calibrate", "serve.quant_ab", "microbench.timing",
+              "microbench.int8_gemm", "microbench.decode",
+              "microbench.encoder_attn", "microbench.static_scales"):
         assert f"grounded_video_llm_tpu_torch.{m}" in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -86,9 +90,9 @@ def test_kernel_module_imports_without_nvcc():
     falling back, for every registered kernel."""
     code = ("from grounded_video_llm_tpu_torch.ops import cuda_build, "
             "flash_attention, int8_matmul, decode_attention_int8, "
-            "cache_write, fused_block\n"
+            "cache_write, fused_block, int8_gemm\n"
             "ks = cuda_build.REGISTRY\n"
-            "assert len(ks) == 10, [k.symbol for k in ks]\n"
+            "assert len(ks) == 14, [k.symbol for k in ks]\n"
             "assert all(k._fn is None and k.launches == 0 for k in ks)\n"
             "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO, PATH="/nonexistent")
@@ -101,7 +105,9 @@ def test_kernel_module_imports_without_nvcc():
         "gvllm_int8_matmul",
         "gvllm_decode_attention_int8", "gvllm_scatter_write",
         "gvllm_scatter_write_multi", "gvllm_verify_attention_int8",
-        "gvllm_fused_norm_quant_gemm", "gvllm_fused_quant_gemm_ls_residual"}
+        "gvllm_fused_norm_quant_gemm", "gvllm_fused_quant_gemm_ls_residual",
+        "gvllm_flash_variant", "gvllm_int8_gemm", "gvllm_int8_gemm_dynamic",
+        "gvllm_i8i8_gemv"}
     if (shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc")
             or any(k.library_path().exists() for k in kernels)):
         pytest.skip("nvcc or a built library present: the no-nvcc build "
@@ -602,3 +608,125 @@ def test_fused_iv2_switch_off_the_cpu_runs_k10_or_raises(monkeypatch,
         assert iv2._fused_int8_ok(bp, cfg)
     monkeypatch.setenv("GVLLM_FUSED_IV2", "0")
     assert not iv2._fused_int8_ok(bp, cfg)
+
+
+def _gemm_args(M=8, K=128, N=256, x_dtype=torch.int8):
+    return (torch.zeros(M, K, dtype=x_dtype), torch.zeros(K, N,
+                                                          dtype=torch.int8),
+            torch.ones(N))
+
+
+@pytest.mark.parametrize("case", [
+    "x_dtype", "w_dtype", "s_dtype", "x_3d", "k_mismatch", "k_not_64",
+    "n_not_128", "empty", "strided_w", "s_shape"])
+def test_int8_gemm_checks_refuse_unsupported_inputs(case):
+    for name, x_dtype in (("int8_gemm", torch.int8),
+                          ("int8_gemm_dynamic", torch.bfloat16)):
+        x, w, s = _gemm_args(x_dtype=x_dtype)
+        if case == "x_dtype":
+            x = x.float()
+        elif case == "w_dtype":
+            w = w.to(torch.uint8)
+        elif case == "s_dtype":
+            s = s.half()
+        elif case == "x_3d":
+            x = x[None]
+        elif case == "k_mismatch":
+            x = torch.zeros(8, 64, dtype=x_dtype)
+        elif case == "k_not_64":
+            x, w, s = _gemm_args(K=96, x_dtype=x_dtype)
+        elif case == "n_not_128":
+            x, w, s = _gemm_args(N=192, x_dtype=x_dtype)
+        elif case == "empty":
+            x, w, s = _gemm_args(M=0, x_dtype=x_dtype)
+        elif case == "strided_w":
+            w = torch.zeros(128, 512, dtype=torch.int8)[:, ::2]
+        elif case == "s_shape":
+            s = torch.ones(255)
+        with pytest.raises((TypeError, ValueError)):
+            ig._check_gemm_args(name, x, w, s, x_dtype)
+
+
+@pytest.mark.parametrize("case", [
+    "seventeen_rows", "fp32_x", "k_not_32", "n_not_16", "empty"])
+def test_i8i8_gemv_checks_refuse_unsupported_inputs(case):
+    x, w, s = _gemm_args(M=6, K=3072, N=9216, x_dtype=torch.bfloat16)
+    if case == "seventeen_rows":
+        x = torch.zeros(17, 3072, dtype=torch.bfloat16)
+    elif case == "fp32_x":
+        x = x.float()
+    elif case == "k_not_32":
+        x, w, s = _gemm_args(M=6, K=3080, N=9216, x_dtype=torch.bfloat16)
+    elif case == "n_not_16":
+        x, w, s = _gemm_args(M=6, K=3072, N=9208, x_dtype=torch.bfloat16)
+    elif case == "empty":
+        x = torch.zeros(0, 3072, dtype=torch.bfloat16)
+    with pytest.raises((TypeError, ValueError)):
+        ig._check_gemv_args(x, w, s)
+
+
+def test_microbench_kernel_checks_accept_their_shapes():
+    for M, K, N in ((8192, 1408, 6144), (8192, 6144, 1408), (300, 1408, 6144)):
+        for name, dt in (("int8_gemm", torch.int8),
+                         ("int8_gemm_dynamic", torch.bfloat16)):
+            x = torch.empty(M, K, dtype=dt, device="meta")
+            w = torch.empty(K, N, dtype=torch.int8, device="meta")
+            ig._check_gemm_args(name, x, w, torch.empty(N, device="meta"), dt)
+    for M in (1, 6, 16):
+        for K, N in ((3072, 9216), (3072, 16384), (8192, 3072)):
+            ig._check_gemv_args(
+                torch.empty(M, K, dtype=torch.bfloat16, device="meta"),
+                torch.empty(K, N, dtype=torch.int8, device="meta"),
+                torch.empty(N, device="meta"))
+    q = torch.empty(12, 16, 2049, 88, dtype=torch.bfloat16, device="meta")
+    fa._check_variant_args(q, q, q)
+    for chunk in (ig.gemv_chunk(3072, 9216, 132), ig.gemv_chunk(8192, 3072, 132),
+                  ig.gemv_chunk(64, 16, 132)):
+        assert chunk % 128 == 0 and chunk >= 128
+
+
+@pytest.mark.parametrize("case", ["fp32_q", "shape_k", "head_dim_80",
+                                  "strided_v", "empty"])
+def test_flash_variant_checks_refuse_unsupported_inputs(case):
+    q = k = v = torch.zeros(1, 2, 16, 88, dtype=torch.bfloat16)
+    if case == "fp32_q":
+        q = q.float()
+    elif case == "shape_k":
+        k = torch.zeros(1, 2, 15, 88, dtype=torch.bfloat16)
+    elif case == "head_dim_80":
+        q = k = v = torch.zeros(1, 2, 16, 80, dtype=torch.bfloat16)
+    elif case == "strided_v":
+        v = torch.zeros(1, 2, 32, 88, dtype=torch.bfloat16)[:, :, ::2]
+    elif case == "empty":
+        q = k = v = torch.zeros(1, 2, 0, 88, dtype=torch.bfloat16)
+    with pytest.raises((TypeError, ValueError)):
+        fa._check_variant_args(q, k, v)
+
+
+def test_microbench_wrappers_refuse_devices_and_count_nothing_on_cpu():
+    counters = [ig.INT8_GEMM, ig.INT8_GEMM_DYNAMIC, ig.I8I8_GEMV,
+                fa.FLASH_VARIANT]
+    before = [k.launches for k in counters]
+    g = torch.Generator().manual_seed(0)
+    x8 = torch.randint(-127, 128, (8, 128), generator=g, dtype=torch.int8)
+    x = torch.randn(8, 128, generator=g).to(torch.bfloat16)
+    w = torch.randint(-127, 128, (128, 256), generator=g, dtype=torch.int8)
+    s = torch.rand(256, generator=g)
+    assert torch.equal(ig.int8_gemm(x8, w, s),
+                       ig.int8_gemm_reference(x8, w, s))
+    assert torch.equal(ig.int8_gemm_dynamic(x, w, s),
+                       ig.int8_gemm_dynamic_reference(x, w, s))
+    assert torch.equal(ig.i8i8_matmul(x, w, s),
+                       ig.i8i8_matmul_reference(x, w, s))
+    q = torch.randn(1, 2, 8, 64, generator=g).to(torch.bfloat16)
+    assert torch.equal(fa.flash_variant(q, q, q, "full"),
+                       fa.flash_variant_reference(q, q, q, "full"))
+    assert [k.launches for k in counters] == before
+    meta = [t.to("meta") for t in (x8, x, w, s, q)]
+    for fn, args in ((ig.int8_gemm, (meta[0], meta[2], meta[3])),
+                     (ig.int8_gemm_dynamic, (meta[1], meta[2], meta[3])),
+                     (ig.i8i8_matmul, (meta[1], meta[2], meta[3]))):
+        with pytest.raises(RuntimeError, match="no kernel"):
+            fn(*args)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fa.flash_variant(meta[4], meta[4], meta[4], "sumdot")

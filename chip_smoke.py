@@ -37,12 +37,13 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    fused_quant_gemm_ls_residual for proj and fc2, at path D's 147,528
    rows (six videos in one encode) and at 300, each beside the unfused
    W8A8 chain); the microbenchmarks' kernels: int8_gemm and
-   int8_gemm_dynamic (M3, M3d: 8192x1408x6144, its transpose and a ragged
-   M = 300; M3 bit-equal, beside torch._int_mm plus the rescale),
-   i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections, beside K3's
-   w8a8 int8_gemv and _int_mm) and flash_variant (M2: full, offset, noexp,
-   sumdot at [12, 16, 2049, 88], dh128, and every mode on a ragged case,
-   beside SDPA);
+   int8_gemm_dynamic (M3, M3d: 8192x1408x6144, its transpose, a ragged
+   M = 300 and 300x1792x1408; M3 bit-equal, beside torch._int_mm plus the
+   rescale), i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections,
+   beside K3's w8a8 int8_gemv and _int_mm) and flash_variant (M2: full,
+   offset, noexp, sumdot at [12, 16, 2049, 88], dh128, and every mode on a
+   ragged case, on unit normal q/k/v, beside SDPA; two wrong softmaxes
+   held to the same bars must fail them);
 4. small references, a depth-cut full-width model on the card (kernels)
    against the same weights on the host (plain versions): bf16 (card) vs
    fp32 (host), then int8 and int8_full with the int8 cache (same int8
@@ -93,7 +94,8 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
 7. the microbenchmarks, the path of M1, M2, M3 and M3d: each module of
    grounded_video_llm_tpu_torch/microbench (int8_gemm, decode,
    encoder_attn, static_scales with one round) once at its TPU script's
-   shapes, counted like a path; their lines are printed.
+   shapes, counted like a path (the counts must equal those the modules'
+   shapes, variants and repetitions give); their lines are printed.
 
 The last three lines are the card, one JSON object describing the kernels,
 and {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -1221,18 +1223,21 @@ def fused_phase(torch, fb, cfg, videos):
 def int8_gemm_phase(torch, ig):
     """M3 (int8_gemm) and M3d (int8_gemm_dynamic) against their plain
     versions at microbench/int8_gemm's shapes, fc1 8192x1408x6144 and the
-    fc2 transpose, and at a ragged M = 300. M3 must be bit-equal; M3d within
-    max |dy| / max |y| <= 2**-7 (its row scales and products are the plain
-    version's, so it is expected bit-equal). Beside each: the library route
-    (torch._int_mm plus the rescale, for M3d after quantize_rows) and the
-    bound. Family numbers are one pass of microbench/int8_gemm: the two big
+    fc2 transpose, at a ragged M = 300 and at M3d's largest resident K
+    (300 x 1792 x 1408: 64 rows of 1,792 bytes in shared memory, one block
+    per SM; the transpose runs its streaming route). M3 must be bit-equal;
+    M3d within max |dy| / max |y| <= 2**-7 (its row scales and products are
+    the plain version's, so it is expected bit-equal). Beside each: the
+    library route (torch._int_mm plus the rescale, for M3d after
+    quantize_rows) and the bound. Family numbers are one pass of microbench/int8_gemm: the two big
     shapes."""
     from grounded_video_llm_tpu_torch.ops.int8_matmul import quantize_rows
 
     m3, m3d = Family("int8_gemm"), Family("int8_gemm_dynamic")
     g = torch.Generator(device="cuda")
     g.manual_seed(60)
-    for M, K, N in ((8192, 1408, 6144), (8192, 6144, 1408), (300, 1408, 6144)):
+    for M, K, N in ((8192, 1408, 6144), (8192, 6144, 1408), (300, 1408, 6144),
+                    (300, ig.RES_KMAX, 1408)):
         timed = M > 300
         x = (torch.randn(M, K, generator=g, device="cuda") * 0.1).bfloat16()
         x8 = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
@@ -1267,7 +1272,9 @@ def int8_gemm_phase(torch, ig):
                   and counter.launches == before + 1)
             d_abs = float((y.float() - y_ref.float()).abs().max())
             fam.max_err = max(fam.max_err, d_abs)
-            line = (f"[kernel] {fam.name:<17} M={M} K={K} N={N} bit-equal="
+            route = ("" if fam is m3 else " resident-rows" if K <= ig.RES_KMAX
+                     else " streamed-rows")
+            line = (f"[kernel] {fam.name:<17}{route} M={M} K={K} N={N} bit-equal="
                     f"{equal} max|dy|={d_abs:.3e} max|dy|/max|y|={err:.3e} "
                     f"(<= {'0' if fam is m3 else f'{BOUND_GEMV:.3e}'})")
             if timed:
@@ -1372,15 +1379,52 @@ def i8i8_phase(torch, ig, mm, cfg):
 # ---------------------------------------------------------------------------
 
 
-def check_variant(torch, fa, mode, B, H, S, D, *, seed, timed):
-    """flash_variant vs its plain version → dict of numbers. The inputs
-    are microbench/encoder_attn's (normal × 0.1, bf16). For "noexp" the
-    output is a ratio of sums that can cancel: rows are held to the bars
-    only where |sum(s)| >= 1e-2 * sum(|s|)."""
+def variant_inputs(torch, B, H, S, D, seed):
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    q, k, v = ((torch.randn(B, H, S, D, generator=g, device="cuda") * 0.1)
-               .bfloat16() for _ in range(3))
+    return tuple(torch.randn(B, H, S, D, generator=g, device="cuda")
+                 .bfloat16() for _ in range(3))
+
+
+def wrong_softmaxes(torch, q, k, v):
+    """Two wrong kernels' outputs, as plain versions, for showing that the
+    bars separate them from a right one: exp2 where exp belongs (the scores
+    scaled by ln 2; the same as dropping log2e in the offset modes), and
+    the online softmax over 64-key tiles without the rescale of earlier
+    tiles by exp(m_old - m_new)."""
+    scale = q.shape[-1] ** -0.5
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * scale
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.exp2(s - m)
+    yield "exp2 for exp", ((p.to(v.dtype).float() @ v.float())
+                           / p.sum(dim=-1, keepdim=True))
+    del p
+    m_run = torch.full_like(m, -float("inf"))
+    acc = torch.zeros(*q.shape[:3], v.shape[-1], device=q.device)
+    den = torch.zeros_like(m)
+    for j in range(0, s.shape[-1], 64):
+        sj = s[..., j:j + 64]
+        m_run = torch.maximum(m_run, sj.amax(dim=-1, keepdim=True))
+        pj = torch.exp(sj - m_run)
+        den += pj.sum(dim=-1, keepdim=True)
+        acc += pj.to(v.dtype).float() @ v[:, :, j:j + 64].float()
+    yield "no online rescale", acc / den
+
+
+def check_variant(torch, fa, mode, B, H, S, D, *, seed, timed,
+                  wrong=False):
+    """flash_variant vs its plain version → dict of numbers. The inputs
+    are unit normal (bf16), as K1's check_flash draws them: the scores then
+    spread over a few units, so the softmax weights differ across keys and
+    an error in them shows in o. Timing runs on the microbenchmark's
+    inputs (normal × 0.1); the time does not depend on the values. For
+    "noexp" (p = s) the output is a ratio of sums that can cancel: rows
+    are held to the bars only where |sum(s)| >= 1e-2 * sum(|s|), and since
+    such a ratio reaches several units, where one bf16 ulp exceeds 2e-2,
+    its max |do| is taken relative to max(1, |o_plain|) per element.
+    wrong=True also holds two wrong kernels (wrong_softmaxes) to the same
+    bars, which must reject them."""
+    q, k, v = variant_inputs(torch, B, H, S, D, seed)
     before = fa.FLASH_VARIANT.launches
     o = fa.flash_variant(q, k, v, mode)
     ref = fa.flash_variant_reference(q, k, v, mode).float()
@@ -1394,17 +1438,31 @@ def check_variant(torch, fa, mode, B, H, S, D, *, seed, timed):
         del sc
         keep_share = float(keep.float().mean())
         got, ref = got[keep], ref[keep]
-    d_o = float((got - ref).abs().max())
+        d_o = float(((got - ref).abs() / ref.abs().clamp(min=1.0)).max())
+    else:
+        d_o = float((got - ref).abs().max())
     r_o = float(torch.linalg.vector_norm(got - ref)
                 / torch.linalg.vector_norm(ref))
     ok = (d_o <= BOUND_O and r_o <= BOUND_O_REL and launched == 1
           and bool(torch.isfinite(got).all()) and keep_share > 0.5)
     out = {"max_abs_err": d_o, "rel": r_o, "ok": ok, "keep": keep_share}
     line = (f"[kernel] flash_variant {mode:<6} q=k=v={[B, H, S, D]} "
-            f"max|do|={d_o:.3e} (<= {BOUND_O}) rel|do|={r_o:.3e} "
-            f"(<= {BOUND_O_REL})"
+            f"max|do|{'/max(1,|o|)' if mode == 'noexp' else ''}={d_o:.3e} "
+            f"(<= {BOUND_O}) rel|do|={r_o:.3e} (<= {BOUND_O_REL})"
             + (f" rows held {keep_share:.3f}" if mode == "noexp" else ""))
+    if wrong:
+        for name, y in wrong_softmaxes(torch, q, k, v):
+            y = y.to(q.dtype).float()
+            w_abs = float((y - ref).abs().max())
+            w_rel = float(torch.linalg.vector_norm(y - ref)
+                          / torch.linalg.vector_norm(ref))
+            caught = w_abs > BOUND_O or w_rel > BOUND_O_REL
+            line += (f"; wrong kernel ({name}): max|do|={w_abs:.3e} "
+                     f"rel|do|={w_rel:.3e} {'rejected' if caught else 'PASSES'}")
+            ok = ok and caught
+            del y
     if timed:
+        q, k, v = (t * 0.1 for t in (q, k, v))
         out["ms"] = cuda_ms(torch, lambda: fa.flash_variant(q, k, v, mode), 20)
         out["plain_ms"] = cuda_ms(
             torch, lambda: fa.flash_variant_reference(q, k, v, mode), 3)
@@ -1425,7 +1483,8 @@ def check_variant(torch, fa, mode, B, H, S, D, *, seed, timed):
     log(line + f" {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"flash_variant {mode} {[B, H, S, D]}: kernel "
-                             "disagrees with the plain version")
+                             "disagrees with the plain version, or the bars "
+                             "let a wrong kernel pass")
     del q, k, v, o, ref, got
     torch.cuda.empty_cache()
     return out
@@ -1435,14 +1494,16 @@ def flash_variant_phase(torch, fa, cfg):
     """M2's four kernel modes at microbench/encoder_attn's shape [12, 16,
     2049, 88] (offset as "nomax"; the script's exp2, unroll2, pipe compute
     the same function with the same kernel), dh128 at D = 128, and every
-    mode on a small ragged case [2, 3, 130, 88]. The kernels line's M2
-    numbers are the offset mode's at the main shape: the softmax the
-    InternVideo2 trunk runs, with SDPA computing the same function."""
+    mode on a small ragged case [2, 3, 130, 88]; the wrong kernels at the
+    main shape in "full" mode. The kernels line's M2 numbers are the offset
+    mode's at the main shape: the softmax the InternVideo2 trunk runs, with
+    SDPA computing the same function."""
     v = cfg.video
     fam = Family("flash_variant")
     main = (12, v.num_heads, v.seq_len, v.head_dim)
     for i, mode in enumerate(("full", "nomax", "noexp", "sumdot")):
-        r = check_variant(torch, fa, mode, *main, seed=80 + i, timed=True)
+        r = check_variant(torch, fa, mode, *main, seed=80 + i, timed=True,
+                          wrong=mode == "full")
         fam.max_err = max(fam.max_err, r["max_abs_err"])
         if mode == "nomax":
             fam.add(1, r["ms"], r["plain_ms"], r["bytes"], r["flops"],
@@ -2203,11 +2264,42 @@ def static_path(torch, kernels, params, cfg, tok, gen, batch, prompts,
     return got
 
 
-def microbench_path(torch, kernels):
+STATIC_REPS = 1     # rounds of microbench/static_scales in the path
+
+
+def microbench_expect(cfg, zero):
+    """The launch counts of microbench_path, from the modules' shapes,
+    variants and repetitions: timing.device_ms calls fn once to warm up and
+    R times between its events, and with graph=True once more on a side
+    stream before capturing the R calls (a replay launches through no
+    wrapper). encoder_attn times its seven modes, dh128 and S2048 through
+    M2 and mha (K1) once; static_scales runs the IV2 trunk (K1 in each of
+    the blocks it runs) for the calibration, a warm-up and one round over
+    its trees."""
+    from grounded_video_llm_tpu_torch.microbench import (decode, encoder_attn,
+                                                         int8_gemm,
+                                                         static_scales)
+
+    def calls(reps, graph=False):
+        return reps + (2 if graph else 1)
+
+    gemm = len(int8_gemm.SHAPES) * calls(int8_gemm.R)
+    gemv = len(decode.PROJECTIONS) * calls(decode.R, graph=True)
+    iv2 = 2 + STATIC_REPS * len(static_scales.VARIANTS)
+    return dict(zero, int8_gemm=gemm, int8_gemm_dynamic=gemm,
+                i8i8_gemv=gemv, int8_gemv=gemv, int8_matmul=gemv,
+                decode_attention_int8=calls(decode.R, graph=True),
+                flash_variant=(len(encoder_attn.MODES) + 2)
+                * calls(encoder_attn.R),
+                flash_fwd=calls(encoder_attn.R)
+                + cfg.video.num_blocks_used * iv2)
+
+
+def microbench_path(torch, kernels, cfg, zero):
     """The port's four microbenchmarks, each module's main once at its
-    script's shapes (static_scales with reps = 1), counted as one path:
-    the launches of M1, M2, M3 and M3d must all be nonzero, and K10, K7, K5,
-    K8 and K9 must not run."""
+    script's shapes (static_scales with STATIC_REPS rounds), counted as one
+    path: the launch counts must equal microbench_expect's (K10, K7, K5, K8
+    and K9 at zero)."""
     from grounded_video_llm_tpu_torch.microbench import (decode, encoder_attn,
                                                          int8_gemm,
                                                          static_scales)
@@ -2219,21 +2311,19 @@ def microbench_path(torch, kernels):
     for name, mod, argv in (("int8_gemm", int8_gemm, []),
                             ("decode", decode, []),
                             ("encoder_attn", encoder_attn, []),
-                            ("static_scales", static_scales, ["72", "1"])):
+                            ("static_scales", static_scales,
+                             ["72", str(STATIC_REPS)])):
         t1 = time.perf_counter()
         log(f"[microbench] {name}:")
         mod.main(argv)
         log(f"[microbench] {name} took {time.perf_counter() - t1:.1f} s")
     got = {n: k.launches for n, k in kernels.items()}
-    log(f"[microbench] launches {got} in {time.perf_counter() - t0:.1f} s")
-    need = ("i8i8_gemv", "flash_variant", "int8_gemm", "int8_gemm_dynamic",
-            "flash_fwd", "int8_gemv", "int8_matmul", "decode_attention_int8")
-    idle = ("flash_bwd", "scatter_write", "verify_attention_int8",
-            "scatter_write_multi", "fused_norm_quant_gemm",
-            "fused_quant_gemm_ls_residual")
-    if any(got[n] == 0 for n in need) or any(got[n] for n in idle):
-        raise AssertionError(f"microbench path launches {got}: want nonzero "
-                             f"{need}, zero {idle}")
+    want = microbench_expect(cfg, zero)
+    log(f"[microbench] launches {got} expected {want} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if got != want:
+        raise AssertionError(f"microbench path: launch counts {got}, "
+                             f"expected {want}")
     return got
 
 
@@ -2626,7 +2716,7 @@ def main() -> int:
     # ---- 7. the microbenchmarks: the path of M1, M2, M3 and M3d
     del params
     torch.cuda.empty_cache()
-    got = microbench_path(torch, kernels)
+    got = microbench_path(torch, kernels, cfg, zero)
     launches = {k: launches[k] + got[k] for k in launches}
     log(f"[main] launches over every path: {launches}")
     missing = [n for n, c in launches.items() if c == 0]

@@ -29,15 +29,20 @@
 // in registers, mma.sync.m16n8k32 s8 -> s32; the [K,N] weight (N
 // contiguous) is transposed 4 x 4 bytes at a time with __byte_perm on its
 // way to shared memory, where the mma B operand wants 4 consecutive k of a
-// column per register. M3d answers the question the TPU script asked of a
-// fused quantization: its block first reads its 128 bf16 rows once for
-// their absmax (a prologue; the scales stay in shared memory), then each K
-// step loads the bf16 x tile and rounds it to int8 on its way into shared
-// memory. No int8 copy of x exists in device memory; the price is that
-// every column block reads and rounds its rows again (N / 128 times), from
-// L2. The TPU kept a whole int8 row tile in VMEM; here 128 rows of K = 6144
-// would not fit a block's shared memory, so the rows stream with the K
-// steps. M1: three launches. A warp per row quantizes x into a 16-row int8
+// column per register. M3d asks the question the TPU script asked of a
+// fused quantization (there "a wash") again on this card. Where K <= 1,792
+// (the fc1 shape, K = 1,408) a block owns 64 rows: a prologue reads each
+// bf16 row once into registers, takes its absmax and writes the int8 row
+// into shared memory (64 x 1,424 bytes at K = 1,408), and the block then
+// streams the weight tiles of a run of column tiles past those resident
+// rows. No int8 copy of x exists in device memory, and x is read and
+// rounded once per run of column tiles: once per block, where the grid is
+// one wave of 64-row blocks, each over N / 2 columns at M = 8,192. Where K
+// is larger (the fc2 transpose, K = 6,144: 64 rows would take 384 KB) the
+// rows stream with the K steps of the 128 x 128 tile: the prologue takes
+// the row absmax, each K step rounds the bf16 x tile on its way into
+// shared memory, so every column block reads and rounds its rows again.
+// M1: three launches. A warp per row quantizes x into a 16-row int8
 // scratch (rows >= M are zero) and its scales; the GEMV splits K over
 // blocks (grid.y) so the skinny N of the down projection still fills the
 // card, each block of 4 warps owns 128 columns and its K chunk of the int8
@@ -61,6 +66,11 @@ constexpr int THREADS = 256;
 constexpr int BM = 128, BN = 128, BK = 64;
 constexpr int LDS = BK + 16;          // shared row stride in bytes (80)
 constexpr int LDW = LDS / 4;          // the same in 4-byte words (20)
+
+// ---- M3d with its rows resident in shared memory (K <= RES_KMAX)
+constexpr int RBM = 64;                 // rows per block
+constexpr int RES_VEC = 7;              // 8-bf16 vectors per lane and row
+constexpr int RES_KMAX = RES_VEC * 8 * 32;   // 1,792
 
 // ---- M1 ----
 constexpr int GV_ROWS = 16;           // one m16 tile
@@ -295,6 +305,158 @@ __global__ void __launch_bounds__(THREADS) gemm_kernel(GemmArgs p) {
   }
 }
 
+// M3d, K <= RES_KMAX: 64 rows quantized once into shared memory, then the
+// weight tiles of column tiles [t0, t1) stream past them. 8 warps as 2 x 4,
+// warp tile 32 x 32. Dynamic shared memory: As [64][K + 16] int8, Bs
+// [128][LDS] int8, the 64 row scales.
+__global__ void __launch_bounds__(THREADS)
+gemm_dyn_resident_kernel(GemmArgs p, int tiles_per_block) {
+  extern __shared__ __align__(16) unsigned char res_smem[];
+  const int M = p.M, N = p.N, K = p.K;
+  const int lda = K + 16, ldaw = lda / 4;
+  int8_t* As = reinterpret_cast<int8_t*>(res_smem);
+  int8_t* Bs = As + RBM * lda;
+  float* xs_s = reinterpret_cast<float*>(Bs + BN * LDS);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int warp_m = warp >> 2, warp_n = warp & 3;
+  const int m0 = blockIdx.y * RBM;
+  const int t0 = blockIdx.x * tiles_per_block;
+  const int t1 = min(N / BN, t0 + tiles_per_block);
+  const bf16* xb = static_cast<const bf16*>(p.x);
+
+  // prologue: each warp takes 8 rows; a lane holds up to RES_VEC vectors of
+  // a row, so the row is read once for both its absmax and its rounding
+  for (int r = warp * (RBM / 8); r < (warp + 1) * (RBM / 8); ++r) {
+    const int m = m0 + r;
+    const uint4* row = reinterpret_cast<const uint4*>(xb + (size_t)m * K);
+    uint4 v[RES_VEC];
+    float amax = 0.f;
+#pragma unroll
+    for (int i = 0; i < RES_VEC; ++i) {
+      const int c = lane + 32 * i;
+      v[i] = (m < M && c < K / 8) ? row[c] : make_uint4(0, 0, 0, 0);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&v[i]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 f = __bfloat1622float2(h[j]);
+        amax = fmaxf(amax, fmaxf(fabsf(f.x), fabsf(f.y)));
+      }
+    }
+    amax = warp_max(amax);
+    const float xs = m < M ? fmaxf(amax / 127.f, 1e-8f) : 1.f;
+#pragma unroll
+    for (int i = 0; i < RES_VEC; ++i) {
+      const int c = lane + 32 * i;
+      if (c < K / 8)
+        *reinterpret_cast<uint2*>(As + r * lda + c * 8) = quant8(v[i], xs);
+    }
+    if (lane == 0) xs_s[r] = xs;
+  }
+
+  int acc[2][4][4];
+  auto zero_acc = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][j][c] = 0;
+  };
+  zero_acc();
+
+  // the weight tile of step `it` (column tile t0 + it / ksteps, K step
+  // it % ksteps): the same 4 x 4 byte blocks as gemm_kernel's B loads
+  const int ksteps = K / BK;
+  const int total = (t1 - t0) * ksteps;
+  uint32_t b_reg[2][4];
+  auto load = [&](int it) {
+    const int n0 = (t0 + it / ksteps) * BN, k0 = (it % ksteps) * BK;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int blk = warp * 64 + i * 32 + lane;
+      const int kg = (blk >> 7) * 4 + ((lane >> 3) & 3);
+      const int ng = ((blk >> 5) & 3) * 8 + (lane & 7);
+      const uint32_t* src = reinterpret_cast<const uint32_t*>(
+          p.w + (size_t)(k0 + kg * 4) * N + n0 + ng * 4);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) b_reg[i][r] = __ldg(src + (size_t)r * (N / 4));
+    }
+  };
+  auto store = [&]() {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int blk = warp * 64 + i * 32 + lane;
+      const int kg = (blk >> 7) * 4 + ((lane >> 3) & 3);
+      const int ng = ((blk >> 5) & 3) * 8 + (lane & 7);
+      uint32_t t[4];
+      transpose4x4(b_reg[i], t);
+      uint32_t* dst = reinterpret_cast<uint32_t*>(Bs) + (ng * 4) * LDW + kg;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) dst[c * LDW] = t[c];
+    }
+  };
+
+  const uint32_t* As32 = reinterpret_cast<const uint32_t*>(As);
+  const uint32_t* Bs32 = reinterpret_cast<const uint32_t*>(Bs);
+  if (total > 0) load(0);
+  for (int it = 0; it < total; ++it) {
+    store();
+    __syncthreads();          // the first one also orders the prologue
+    if (it + 1 < total) load(it + 1);
+    const int kw0 = (it % ksteps) * (BK / 4);
+#pragma unroll
+    for (int kk = 0; kk < BK / 4; kk += 8) {        // two k32 steps (words)
+      uint32_t a[2][4], b[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        const int r0 = warp_m * 32 + mt * 16 + g;
+        a[mt][0] = As32[r0 * ldaw + kw0 + kk + tig];
+        a[mt][1] = As32[(r0 + 8) * ldaw + kw0 + kk + tig];
+        a[mt][2] = As32[r0 * ldaw + kw0 + kk + 4 + tig];
+        a[mt][3] = As32[(r0 + 8) * ldaw + kw0 + kk + 4 + tig];
+      }
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int n = warp_n * 32 + nt * 8 + g;
+        b[nt][0] = Bs32[n * LDW + kk + tig];
+        b[nt][1] = Bs32[n * LDW + kk + 4 + tig];
+      }
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt]);
+    }
+    __syncthreads();
+    if (it % ksteps != ksteps - 1) continue;
+
+    // the column tile is done: acc[mt][nt][2h + e] is row warp_m*32 +
+    // mt*16 + g + 8h, column warp_n*32 + nt*8 + 2*tig + e of the tile
+    const int n0 = (t0 + it / ksteps) * BN;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int rloc = warp_m * 32 + mt * 16 + g + 8 * h;
+        const int m = m0 + rloc;
+        if (m >= M) continue;
+        const float xs = xs_s[rloc];
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          const int n = n0 + warp_n * 32 + nt * 8 + 2 * tig;
+          __nv_bfloat162 o;
+          o.x = __float2bfloat16_rn((float)acc[mt][nt][2 * h] * xs * p.ws[n]);
+          o.y = __float2bfloat16_rn((float)acc[mt][nt][2 * h + 1] * xs *
+                                    p.ws[n + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(p.out + (size_t)m * N + n) = o;
+        }
+      }
+    }
+    zero_acc();
+  }
+}
+
 template <bool DYN>
 int launch_gemm(const void* x, const void* w, const void* ws, void* out,
                 int M, int K, int N, cudaStream_t st) {
@@ -303,6 +465,29 @@ int launch_gemm(const void* x, const void* w, const void* ws, void* out,
     return (int)cudaErrorInvalidValue;
   GemmArgs a{x, static_cast<const int8_t*>(w), static_cast<const float*>(ws),
              static_cast<bf16*>(out), M, N, K};
+  if (DYN && K <= RES_KMAX) {
+    // one wave of 64-row blocks: as many runs of column tiles per row block
+    // as the card holds blocks beside the row blocks, at least one
+    const int smem = RBM * (K + 16) + BN * LDS + RBM * 4;
+    int err = (int)cudaFuncSetAttribute(
+        gemm_dyn_resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err) return err;
+    int dev = 0, sms = 0, per_sm = 0;
+    if ((err = (int)cudaGetDevice(&dev)) ||
+        (err = (int)cudaDeviceGetAttribute(
+             &sms, cudaDevAttrMultiProcessorCount, dev)) ||
+        (err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &per_sm, gemm_dyn_resident_kernel, THREADS, smem)))
+      return err;
+    const int row_blocks = (M + RBM - 1) / RBM, tiles = N / BN;
+    if (row_blocks > 65535) return (int)cudaErrorInvalidValue;
+    const int runs = min(tiles, max(1, sms * max(per_sm, 1) / row_blocks));
+    const int per_run = (tiles + runs - 1) / runs;
+    dim3 grid((tiles + per_run - 1) / per_run, row_blocks);
+    gemm_dyn_resident_kernel<<<grid, THREADS, smem, st>>>(a, per_run);
+    return (int)cudaGetLastError();
+  }
   dim3 grid(N / BN, (M + BM - 1) / BM);
   gemm_kernel<DYN><<<grid, THREADS, 0, st>>>(a);
   return (int)cudaGetLastError();

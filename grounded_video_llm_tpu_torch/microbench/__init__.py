@@ -6,7 +6,5 @@ module runs on the card as
 
 and prints one line per variant, every number tagged with the card's name
 and power limit; ``main(argv)`` returns the numbers. Without a CUDA device
-they raise: a microbenchmark never falls back to the CPU. ``flash_fwd_ab``
-times the flash forward (K1/K2) of this checkout against another copy of
-its source on one card, in turns.
+they raise: a microbenchmark never falls back to the CPU.
 """

@@ -6,8 +6,9 @@ csrc/int8_gemm.cu) with their plain PyTorch versions.
                                @ int8 w [K, N] → int32 → fp32 × s[N] → bf16
   int8_gemm_dynamic(x, w, s)   M3d, the same script's :165
                                (`_pl_dyn_kernel`): bf16 x quantized per row
-                               inside the GEMM program; dynamic_int8_matmul's
-                               function with bf16 output
+                               inside the GEMM program (for K <= 1,792 once
+                               per block into shared memory); the function
+                               of dynamic_int8_matmul with bf16 output
   i8i8_matmul(x, w, s)         M1, scripts/microbench_decode.py:85
                                (`i8i8_matmul`): the decode-shaped W8A8 GEMV,
                                x [M <= 16, K], on the int8 tensor cores
@@ -33,6 +34,9 @@ from .cuda_build import CudaKernel
 from .int8_matmul import _exact_int8_dot, _sm_count, quantize_rows
 
 GEMM_BK, GEMM_BN = 64, 128      # K step and column tile of the M3 kernels
+GEMM_BM = 128                   # rows per block (M3, M3d with K > RES_KMAX)
+RES_BM, RES_KMAX = 64, 1792     # M3d with its int8 rows resident in shared
+                                # memory: rows per block, largest K
 GEMV_ROWS = 16                  # M1's m tile
 GEMV_BN = 128                   # M1's columns per block
 
@@ -101,8 +105,10 @@ def _check_gemm_args(name, x, w, s, x_dtype):
     _check_common(name, x, w, s, x_dtype)
     M, K = x.shape
     N = w.shape[1]
-    if M < 1 or K % GEMM_BK or N % GEMM_BN or -(-M // 128) > 65535:
-        raise ValueError(f"{name} kernel takes 1 <= M <= {65535 * 128}, "
+    bm = (RES_BM if x_dtype == torch.bfloat16 and K <= RES_KMAX
+          else GEMM_BM)
+    if M < 1 or K % GEMM_BK or N % GEMM_BN or -(-M // bm) > 65535:
+        raise ValueError(f"{name} kernel takes 1 <= M <= {65535 * bm}, "
                          f"K % {GEMM_BK} == 0 and N % {GEMM_BN} == 0; got "
                          f"M={M}, K={K}, N={N}")
 

@@ -16,7 +16,7 @@ real checkpoints load.
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -108,20 +108,15 @@ def run_quant_ab(params_bf16, params_quant, cfg: VLMConfig,
                  input_ids, attn_mask, spatial_pixels, temporal_pixels,
                  *, max_new_tokens: int = 32, eos_token_id: int = -1,
                  pad_token_id: int = 0,
-                 quantize_cache_quant: bool = True,
                  max_kl: float = DEFAULT_MAX_KL,
                  min_top1: float = DEFAULT_MIN_TOP1,
-                 min_greedy: float = DEFAULT_MIN_GREEDY,
-                 free_bf16: Optional[Callable[[], None]] = None
+                 min_greedy: float = DEFAULT_MIN_GREEDY
                  ) -> Dict[str, object]:
     """The A/B: the same pipeline inputs (numpy arrays or tensors) through
     both trees, on the device of the bf16 tree's embedding; returns the
-    metric dict with a 'pass' verdict against the thresholds. The default
-    eos of -1 stops no row, as in the JAX bar.
-
-    The bf16 leg runs first and its outputs go to the host; ``free_bf16``
-    then drops the bf16 tree, and a zero-argument callable as
-    ``params_quant`` builds the quantized tree only after that."""
+    metric dict with a 'pass' verdict against the thresholds. The quantized
+    leg decodes over the int8 KV cache. The default eos of -1 stops no row,
+    as in the JAX bar."""
     embed = params_bf16["llm"]["embed"]
     device = getattr(embed, "q", embed).device
 
@@ -143,12 +138,7 @@ def run_quant_ab(params_bf16, params_quant, cfg: VLMConfig,
                 toks.cpu().numpy(), lens.cpu().numpy())
 
     logits_a, mask, toks_a, len_a = leg(params_bf16, False)
-    params_bf16 = None      # drop this frame's reference before free_bf16
-    if free_bf16 is not None:
-        free_bf16()
-    if callable(params_quant):
-        params_quant = params_quant()
-    logits_b, _, toks_b, len_b = leg(params_quant, quantize_cache_quant)
+    logits_b, _, toks_b, len_b = leg(params_quant, True)
 
     metrics: Dict[str, object] = {}
     metrics.update(compare_logits(logits_a, logits_b, mask))

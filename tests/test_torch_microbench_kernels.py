@@ -240,3 +240,62 @@ def test_microbench_mains_refuse_the_cpu(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         module.main([])
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", os.path.join(REPO, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_chip_smoke_microbench_counts_follow_the_modules():
+    """The launch counts chip_smoke holds the microbenchmark path to, derived
+    from the modules' shapes, variants and repetitions, are the counts an
+    H100 run of the four mains gave."""
+    from grounded_video_llm_tpu_torch.core.config import vlm_config
+
+    cs = _chip_smoke()
+    names = ("flash_fwd", "flash_bwd", "int8_gemv", "int8_matmul",
+             "decode_attention_int8", "scatter_write", "i8i8_gemv",
+             "flash_variant", "int8_gemm", "int8_gemm_dynamic")
+    want = cs.microbench_expect(vlm_config("phi3.5", stage="inference"),
+                                dict.fromkeys(names, 0))
+    assert want == {"flash_fwd": 275, "flash_bwd": 0, "int8_gemv": 156,
+                    "int8_matmul": 156, "decode_attention_int8": 52,
+                    "scatter_write": 0, "i8i8_gemv": 156,
+                    "flash_variant": 369, "int8_gemm": 42,
+                    "int8_gemm_dynamic": 42}
+
+
+@pytest.mark.parametrize("scale,rejected", [(1.0, True), (0.1, False)])
+def test_chip_smoke_m2_bars_need_unit_normal_inputs(scale, rejected):
+    """The wrong softmaxes chip_smoke shows M2's bars (exp2 for exp; no
+    rescale of earlier key tiles) read far above the relative bar on unit
+    normal q/k/v, and below it on inputs × 0.1, where the softmax is nearly
+    uniform: the reason M2 is checked on unit normal inputs."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(0)
+    q, k, v = ((torch.randn(1, 2, 1025, 88, generator=g) * scale).bfloat16()
+               for _ in range(3))
+    ref = fa.flash_variant_reference(q, k, v, "full").float()
+    for _, y in cs.wrong_softmaxes(torch, q, k, v):
+        rel = float(torch.linalg.vector_norm(y.to(q.dtype).float() - ref)
+                    / torch.linalg.vector_norm(ref))
+        assert (rel > cs.BOUND_O_REL) == rejected, rel
+        if rejected:
+            assert rel > 20 * cs.BOUND_O_REL
+
+
+def test_chip_smoke_m2_wrong_rescale_is_right_within_one_key_tile():
+    """The no-rescale softmax differs from the right one only across key
+    tiles: over one 64-key tile it is the online softmax itself."""
+    cs = _chip_smoke()
+    g = torch.Generator().manual_seed(1)
+    q, k, v = (torch.randn(1, 2, 64, 88, generator=g).bfloat16()
+               for _ in range(3))
+    ref = fa.flash_variant_reference(q, k, v, "full").float()
+    _, no_rescale = list(cs.wrong_softmaxes(torch, q, k, v))
+    torch.testing.assert_close(no_rescale[1].to(q.dtype).float(), ref,
+                               **M2_TOL)

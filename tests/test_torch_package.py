@@ -647,6 +647,28 @@ def test_int8_gemm_checks_refuse_unsupported_inputs(case):
             ig._check_gemm_args(name, x, w, s, x_dtype)
 
 
+def test_int8_gemm_row_limit_follows_the_kernel_route():
+    """M3d with K <= RES_KMAX keeps 64 rows per block, so its grid's 65,535
+    row blocks hold half the rows of M3's and of M3d's streaming route."""
+    def args(M, K, dt):
+        return (torch.empty(M, K, dtype=dt, device="meta"),
+                torch.empty(K, 128, dtype=torch.int8, device="meta"),
+                torch.empty(128, device="meta"))
+
+    ig._check_gemm_args("int8_gemm", *args(65535 * 128, 1408, torch.int8),
+                        torch.int8)
+    ig._check_gemm_args("int8_gemm_dynamic",
+                        *args(65535 * 128, ig.RES_KMAX + 64, torch.bfloat16),
+                        torch.bfloat16)
+    ig._check_gemm_args("int8_gemm_dynamic",
+                        *args(65535 * 64, ig.RES_KMAX, torch.bfloat16),
+                        torch.bfloat16)
+    with pytest.raises(ValueError, match="M <= "):
+        ig._check_gemm_args("int8_gemm_dynamic",
+                            *args(65535 * 64 + 1, 1408, torch.bfloat16),
+                            torch.bfloat16)
+
+
 @pytest.mark.parametrize("case", [
     "seventeen_rows", "fp32_x", "k_not_32", "n_not_16", "empty"])
 def test_i8i8_gemv_checks_refuse_unsupported_inputs(case):

@@ -441,7 +441,7 @@ def test_run_quant_ab_passes_sound_and_fails_broken_tree():
     ids, mask, sp, tp = _ab_inputs(cfg)
     quant = TEngine(bf16, cfg, object(), quantize="int8_full").params
     quant = tcal.calibrate_and_apply(quant, cfg, [tp])
-    report = tab.run_quant_ab(bf16, lambda: quant, cfg, ids, mask, sp, tp,
+    report = tab.run_quant_ab(bf16, quant, cfg, ids, mask, sp, tp,
                               max_new_tokens=8)
     assert report["pass"], report
     assert report["mean_kl_nats"] < tab.DEFAULT_MAX_KL

@@ -9,14 +9,21 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the build: every kernel source in csrc/, one nvcc each, all at once;
    ptxas registers and spills per kernel instantiation (mangled name);
+   [sass] lines from cuobjdump: each library's wgmma (HGMMA), TMA load
+   (UTMALDG) and mma.sync (HMMA, IMMA) counts, and each of the 20
+   flash_fwd_kernel instantiations, which must run wgmma and TMA loads
+   and no mma.sync;
 3. each kernel against its plain PyTorch version at the serving path's
    shapes, with its error against a bound and CUDA-event medians of the
    kernel, the plain version and, where one PyTorch call computes the same
    function, that call, next to the least time the card could take (the
-   int8 kernels' device times come from CUDA-graph replays, so the Python
-   wrappers' launch cost is left out and printed beside them):
+   flash forward's, M2's, the int8 kernels' and the cache write's device
+   times, and SDPA's beside them, come from CUDA-graph replays, so the
+   Python wrappers' launch cost is left out; where it matters it is
+   printed beside them):
    flash_fwd (K1/K2: CLIP, InternVideo2 bounded, prefill causal, B=2
-   left-padded, edge cases); flash_bwd (K7: the grounded training shape
+   left-padded, edge cases including a tile-aligned causal square with a
+   q_offset off the tile grid; with M2's cases every instantiation runs); flash_bwd (K7: the grounded training shape
    [1, 7515, 32, 96] causal with a right-padded mask, its plain version run
    kv head by kv head, the SDPA backward beside it; B=2 with right
    paddings; GQA with 8 kv heads of 128, non-causal D=88, a window, an
@@ -32,7 +39,7 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    slots, then S = 1, S = 8, GQA 4 with D = 128, an empty cache mask and a
    per-query window); scatter_write_multi (K9: 5 slots per row from ragged
    bases, one at the array edge and one running past it, untouched bytes,
-   same storage); the fused W8A8 InternVideo2 GEMMs (K10:
+   same storage; then 128 and 1 slots at the same buffers); the fused W8A8 InternVideo2 GEMMs (K10:
    fused_norm_quant_gemm for qkv with qk_norm and fc1 with GELU,
    fused_quant_gemm_ls_residual for proj and fc2, at path D's 147,528
    rows (six videos in one encode) and at 300, each beside the unfused
@@ -42,8 +49,8 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    rescale), i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections,
    beside K3's w8a8 int8_gemv and _int_mm) and flash_variant (M2: full,
    offset, noexp, sumdot at [12, 16, 2049, 88], dh128, and every mode on a
-   ragged case, on unit normal q/k/v, beside SDPA; two wrong softmaxes
-   held to the same bars must fail them);
+   ragged case at each head dim, on unit normal q/k/v, beside SDPA; two
+   wrong softmaxes held to the same bars must fail them);
 4. small references, a depth-cut full-width model on the card (kernels)
    against the same weights on the host (plain versions): bf16 (card) vs
    fp32 (host), then int8 and int8_full with the int8 cache (same int8
@@ -107,6 +114,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -117,6 +125,7 @@ import numpy as np
 SEED = 0
 MAX_NEW_TOKENS = 32
 SPEC_DRAFT_LEN = 4      # path D: drafts per verify pass
+GRAPH_CALLS = 20        # launches per timed CUDA graph (flash, M2, K5/K9)
 BOUND_O = 2e-2      # max |o_kernel - o_plain|: bf16 P and bf16 output
 BOUND_O_REL = 5e-3  # ||do|| / ||o_plain||; measured 1.9e-3 to 2.4e-3
 BOUND_LSE = 1e-3    # max |lse_kernel - lse_plain|: fp32 row statistics
@@ -264,10 +273,11 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def graph_ms(torch, fn, reps: int = 20) -> float:
-    """Device milliseconds of fn(): fn is captured once in a CUDA graph and
-    the replays are timed by CUDA events, so the host's launch overhead
-    (the Python wrappers) is not counted."""
+def graph_ms(torch, fn, reps: int = 20, calls: int = 1) -> float:
+    """Device milliseconds of fn(): fn is captured `calls` times in a CUDA
+    graph and the replays are timed by CUDA events, so the host's launch
+    overhead (the Python wrappers) is not counted; with calls > 1 a
+    replay's own overhead (~8 us on an H100) is spread over the calls."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -275,9 +285,11 @@ def graph_ms(torch, fn, reps: int = 20) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
-    ms = cuda_ms(torch, graph.replay, reps)
+        for _ in range(calls):
+            fn()
+    ms = cuda_ms(torch, graph.replay, reps) / calls
     del graph
+    torch.cuda.empty_cache()
     return ms
 
 
@@ -289,6 +301,55 @@ def short_entry(mangled: str) -> str:
     if ns:
         mangled = mangled[len("_ZN") + len(ns.group(1)) + int(ns.group(1)):]
     return re.sub(r"(E+)v?[PN0-9].*$", r"\1", mangled)
+
+
+SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "IMMA")
+
+
+def sass_counts(text: str) -> dict:
+    """{short entry name: {opcode: count}} for the SASS opcodes in SASS_OPS,
+    from `cuobjdump -sass` output: wgmma is HGMMA, a TMA tensor load
+    UTMALDG, mma.sync HMMA (bf16) or IMMA (int8)."""
+    counts, cur = {}, None
+    for line in text.splitlines():
+        found = re.match(r"\s*Function\s*:\s*(\S+)", line)
+        if found:
+            cur = counts.setdefault(short_entry(found.group(1)),
+                                    dict.fromkeys(SASS_OPS, 0))
+            continue
+        op = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                      line)
+        if cur is not None and op and op.group(1) in cur:
+            cur[op.group(1)] += 1
+    return counts
+
+
+def sass_phase(kernels) -> None:
+    """One [sass] line per kernel library (its opcode totals), one per
+    flash_fwd_kernel instantiation; fails unless every instantiation runs
+    wgmma (HGMMA) and TMA loads (UTMALDG) and none runs mma.sync."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    libs = sorted({k.library_path() for k in kernels.values()})
+    bad = []
+    for lib in libs:
+        text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                              text=True, check=True).stdout
+        counts = sass_counts(text)
+        total = {op: sum(c[op] for c in counts.values()) for op in SASS_OPS}
+        log(f"[sass] {lib.name}: {len(counts)} kernels, "
+            + " ".join(f"{op}={n}" for op, n in total.items()))
+        for name, c in counts.items():
+            if "flash_fwd_kernel" not in name:
+                continue
+            ok = c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+            log(f"[sass] {lib.name} {name}: "
+                + " ".join(f"{op}={n}" for op, n in c.items())
+                + f" {'OK' if ok else 'FAIL'}")
+            if not ok:
+                bad.append(name)
+    if bad:
+        raise AssertionError(f"flash_fwd_kernel without wgmma or TMA, or "
+                             f"with mma.sync: {bad}")
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -332,10 +393,11 @@ class Family:
 
 def check_flash(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
                 causal=False, bounded=False, pads=None, window=None,
-                expect_dead=False, seed=0, timed=True):
+                q_offset=None, expect_dead=False, seed=0, timed=True):
     """Kernel vs plain version at one shape → dict of measured numbers.
     pads: per batch row, how many leading keys the keep-mask removes;
-    expect_dead: whether that leaves query rows with no valid key."""
+    expect_dead: whether that leaves query rows with no valid key;
+    q_offset: the first query's position (None: Sk - Sq)."""
     Sk = Sq if Sk is None else Sk
     Hkv = H if Hkv is None else Hkv
     g = torch.Generator(device="cuda")
@@ -355,11 +417,11 @@ def check_flash(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
 
     def kernel():
         return fa.flash_fwd(q, k, v, bias, scale, causal, bounded, window,
-                            has_bias)
+                            has_bias, q_offset)
 
     def plain():
         return fa.flash_fwd_reference(q, k, v, bias, scale, causal, bounded,
-                                      window, has_bias)
+                                      window, has_bias, q_offset)
 
     def library():
         # the same function as one PyTorch call (timing yardstick only)
@@ -374,7 +436,7 @@ def check_flash(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
     o, lse = kernel()
     o_ref, lse_ref = fa.flash_fwd_reference(
         q.float(), k.float(), v.float(), bias, scale, causal, bounded, window,
-        has_bias)
+        has_bias, q_offset)
     torch.cuda.synchronize()
     if torch.isnan(o).any() or torch.isnan(lse).any():
         raise AssertionError(f"{name}: NaN in kernel output")
@@ -395,13 +457,15 @@ def check_flash(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
              if bool(live.any()) else 0.0)
     ok = d_o <= BOUND_O and r_o <= BOUND_O_REL and d_lse <= BOUND_LSE
     nan = float("nan")
-    ms = cuda_ms(torch, kernel, 20) if timed else nan
+    # kernel and SDPA alike: device time from graph replays
+    ms = graph_ms(torch, kernel, 10, GRAPH_CALLS) if timed else nan
     plain_ms = cuda_ms(torch, plain, 5) if timed else nan
-    lib_ms = cuda_ms(torch, library, 20) if timed and not causal else nan
+    lib_ms = (graph_ms(torch, library, 10, GRAPH_CALLS)
+              if timed and not causal else nan)
     if timed and causal and bias is not None and B == 1 and not pads[0]:
         # an all-keep mask: SDPA's own causal path is the same function
         bias = None
-        lib_ms = cuda_ms(torch, library, 20)
+        lib_ms = graph_ms(torch, library, 10, GRAPH_CALLS)
     # least time: q, k, v, bias read once, o and lse written once; the
     # products' flops (causal: the half the mask keeps)
     nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * Hkv * D) + 4 * B * H * Sq
@@ -409,6 +473,7 @@ def check_flash(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
     bms, by = bound_ms(nbytes, flops, BF16_OPS)
     log(f"[kernel] flash_fwd {name:<20} q={[B, Sq, H, D]} kv={[B, Sk, Hkv, D]} "
         f"causal={causal} bounded={bounded} window={window} "
+        f"q_offset={Sk - Sq if q_offset is None else q_offset} "
         f"dead_rows={n_dead} max|do|={d_o:.3e} (<= {BOUND_O}) "
         f"rel|do|={r_o:.3e} (<= {BOUND_O_REL}) "
         f"max|dlse|={d_lse:.3e} (<= {BOUND_LSE})"
@@ -426,55 +491,86 @@ def check_flash(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
             "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
 
 
-def check_flash_edges(torch, fa):
-    """Cases the wrapper accepts beyond the slice's shapes: the llama head
-    dim with GQA and a window that bites, a rectangular causal block, a
-    fully masked batch row without causality, bounded mode with a bias, and
-    sequences shorter than one tile."""
-    cases = [
-        ("gqa_d128_window", dict(B=2, Sq=300, H=32, Hkv=8, D=128,
-                                 causal=True, window=64, pads=(0, 50),
-                                 expect_dead=True)),
-        ("causal_rect", dict(B=1, Sq=100, Sk=333, H=4, D=96, causal=True,
-                             pads=(7,))),
-        ("noncausal_dead_row", dict(B=2, Sq=130, H=4, D=64,
-                                    pads=(0, 130), expect_dead=True)),
-        ("bounded_bias", dict(B=2, Sq=200, H=4, D=88, bounded=True,
-                              pads=(0, 33))),
-        ("tiny", dict(B=1, Sq=1, Sk=5, H=2, D=64, causal=True)),
-    ]
-    for i, (name, kw) in enumerate(cases):
-        check_flash(torch, fa, name, seed=100 + i, timed=False, **kw)
+# Cases the wrapper accepts beyond the slice's shapes: the llama head dim
+# with GQA and a window that bites, a rectangular causal block, a fully
+# masked batch row without causality, bounded mode with a bias, a sequence
+# shorter than one tile, a causal D = 88 block whose first three rows see
+# no key (the mask removes three keys), and a tile-aligned causal
+# square whose q_offset (37) puts the diagonal inside every key tile.
+FLASH_EDGE_CASES = (
+    ("gqa_d128_window", dict(B=2, Sq=300, H=32, Hkv=8, D=128, causal=True,
+                             window=64, pads=(0, 50), expect_dead=True)),
+    ("causal_rect", dict(B=1, Sq=100, Sk=333, H=4, D=96, causal=True,
+                         pads=(7,))),
+    ("noncausal_dead_row", dict(B=2, Sq=130, H=4, D=64, pads=(0, 130),
+                                expect_dead=True)),
+    ("bounded_bias", dict(B=2, Sq=200, H=4, D=88, bounded=True,
+                          pads=(0, 33))),
+    ("tiny", dict(B=1, Sq=1, Sk=5, H=2, D=64, causal=True)),
+    ("causal_d88", dict(B=1, Sq=300, H=4, D=88, causal=True, pads=(3,),
+                        expect_dead=True)),
+    ("aligned_q_offset", dict(B=1, Sq=1024, H=8, D=96, causal=True,
+                              q_offset=37)),
+)
+
+
+def flash_cases(cfg, S_pre):
+    """Every check_flash case: {name: keyword arguments}. The first three
+    are the serving request's shapes (timed, in the kernels line)."""
+    cases = {
+        "clip": dict(B=12, Sq=cfg.clip.num_patches + 1, H=cfg.clip.num_heads,
+                     D=cfg.clip.head_dim, seed=1),
+        "internvideo2_bounded": dict(B=12, Sq=cfg.video.seq_len,
+                                     H=cfg.video.num_heads,
+                                     D=cfg.video.head_dim, bounded=True,
+                                     seed=2),
+        "prefill_causal": dict(B=1, Sq=S_pre, H=cfg.llm.num_heads,
+                               D=cfg.llm.head_dim, causal=True, pads=(0,),
+                               seed=3),
+        "leftpad_causal_b2": dict(B=2, Sq=1000, H=cfg.llm.num_heads,
+                                  D=cfg.llm.head_dim, causal=True,
+                                  pads=(0, 237), expect_dead=True, seed=4,
+                                  timed=False),
+    }
+    for i, (name, kw) in enumerate(FLASH_EDGE_CASES):
+        cases[name] = dict(kw, seed=100 + i, timed=False)
+    return cases
 
 
 def flash_phase(torch, fa, cfg, S_pre):
     fam = Family("flash_fwd")
     per_req = {"clip": cfg.clip.num_layers + cfg.clip.feature_layer + 1,
                "iv2": cfg.video.num_blocks_used, "prefill": cfg.llm.num_layers}
-    res = {
-        "clip": check_flash(torch, fa, "clip", 12, cfg.clip.num_patches + 1,
-                            cfg.clip.num_heads, cfg.clip.head_dim, seed=1),
-        "iv2": check_flash(torch, fa, "internvideo2_bounded", 12,
-                           cfg.video.seq_len, cfg.video.num_heads,
-                           cfg.video.head_dim, bounded=True, seed=2),
-        "prefill": check_flash(torch, fa, "prefill_causal", 1, S_pre,
-                               cfg.llm.num_heads, cfg.llm.head_dim,
-                               causal=True, pads=(0,), seed=3),
-    }
-    check_flash(torch, fa, "leftpad_causal_b2", 2, 1000, cfg.llm.num_heads,
-                cfg.llm.head_dim, causal=True, pads=(0, 237),
-                expect_dead=True, seed=4)
-    check_flash_edges(torch, fa)
+    cases = flash_cases(cfg, S_pre)
+    got = {name: check_flash(torch, fa, name, **kw)
+           for name, kw in cases.items()}
+    res = {"clip": got["clip"], "iv2": got["internvideo2_bounded"],
+           "prefill": got["prefill_causal"]}
     for key, n in per_req.items():
         r = res[key]
         fam.add(n, r["ms"], r["plain_ms"], r["bytes"], r["flops"], "bf16",
                 r["library_ms"])
-        fam.max_err = max(fam.max_err, r["max_abs_err"])
+    fam.max_err = max(r["max_abs_err"] for r in got.values())
     bms, by = fam.bound()
     log(f"[kernel] flash_fwd per request ({per_req}): kernel {fam.ms:.3f} ms, "
         f"plain {fam.plain_ms:.3f} ms, sdpa {fam.library_ms:.3f} ms, bound "
         f"{bms:.3f} ms ({by})")
     return fam, sum(per_req.values())
+
+
+def flash_instantiations(cfg, S_pre):
+    """The (D, causal, softmax mode) instantiations of flash_fwd_kernel that
+    flash_cases and variant_cases launch (modes as in csrc/flash_fwd.cu: 0
+    online, 1 fixed offset, 2 p = s, 3 fixed offset with bf16 sums)."""
+    from grounded_video_llm_tpu_torch.ops.flash_attention import VARIANT_MODES
+    got = set()
+    for kw in flash_cases(cfg, S_pre).values():
+        causal = kw.get("causal", False)
+        got.add((kw["D"], causal, int(kw.get("bounded", False)
+                                      and not causal)))
+    for mode, shape, _ in variant_cases(cfg):
+        got.add((shape[3], False, VARIANT_MODES[mode]))
+    return got
 
 
 # ---------------------------------------------------------------------------
@@ -1011,11 +1107,11 @@ def write_phase(torch, cw, cfg, max_len, S=None):
             c[:, rows, :, cols] = new.movedim(0, 2)
 
     call_ms = cuda_ms(torch, lambda: call(caches, args, base_t), 50)
-    ms = graph_ms(torch, lambda: call(caches, args, base_t), 50)
+    ms = graph_ms(torch, lambda: call(caches, args, base_t), 20, GRAPH_CALLS)
     # the plain version reads the slots on the host: not capturable, so its
     # time includes the host's part
     plain_ms = cuda_ms(torch, lambda: plain(caches, args, base_t), 5)
-    lib_ms = graph_ms(torch, library, 50)
+    lib_ms = graph_ms(torch, library, 20, GRAPH_CALLS)
     nbytes = 2 * sum(t.numel() * t.element_size() for t in news)
     fam.add(1, ms, plain_ms, nbytes, 0.0, "bf16", lib_ms)
     bms, by = fam.bound()
@@ -1463,14 +1559,15 @@ def check_variant(torch, fa, mode, B, H, S, D, *, seed, timed,
             del y
     if timed:
         q, k, v = (t * 0.1 for t in (q, k, v))
-        out["ms"] = cuda_ms(torch, lambda: fa.flash_variant(q, k, v, mode), 20)
+        out["ms"] = graph_ms(torch, lambda: fa.flash_variant(q, k, v, mode),
+                             10, GRAPH_CALLS)
         out["plain_ms"] = cuda_ms(
             torch, lambda: fa.flash_variant_reference(q, k, v, mode), 3)
         out["library_ms"] = None
         if mode in ("full", "nomax", "dh128"):
-            out["library_ms"] = cuda_ms(
+            out["library_ms"] = graph_ms(
                 torch, lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v), 20)
+                    q, k, v), 10, GRAPH_CALLS)
         out["bytes"] = 4 * 2 * B * H * S * D
         out["flops"] = 4.0 * B * H * S * S * D
         bms, by = bound_ms(out["bytes"], out["flops"], BF16_OPS)
@@ -1490,32 +1587,42 @@ def check_variant(torch, fa, mode, B, H, S, D, *, seed, timed,
     return out
 
 
+def variant_cases(cfg):
+    """Every check_variant case: (mode, [B, H, S, D], keyword arguments).
+    M2's four kernel modes at microbench/encoder_attn's shape [12, 16, 2049,
+    88] (offset as "nomax"; the script's exp2, unroll2, pipe compute the
+    same function with the same kernel) with the wrong kernels in "full"
+    mode, dh128 at D = 128, every mode name on a small ragged case [2, 3,
+    130, 88] (dh128 at 128), and the four kernel modes on the ragged case at
+    the other head dims, so every instantiation runs."""
+    from grounded_video_llm_tpu_torch.ops.flash_attention import VARIANT_MODES
+    v = cfg.video
+    main = (12, v.num_heads, v.seq_len, v.head_dim)
+    kernel_modes = ("full", "nomax", "noexp", "sumdot")
+    cases = [(mode, main, dict(seed=80 + i, timed=True, wrong=mode == "full"))
+             for i, mode in enumerate(kernel_modes)]
+    cases.append(("dh128", (12, v.num_heads, v.seq_len, 128),
+                  dict(seed=85, timed=True)))
+    names = sorted(VARIANT_MODES)
+    cases += [(mode, (2, 3, 130, 128 if mode == "dh128" else 88),
+               dict(seed=90 + i, timed=False)) for i, mode in enumerate(names)]
+    cases += [(mode, (2, 3, 130, D), dict(seed=110 + 4 * j + i, timed=False))
+              for j, D in enumerate((64, 96, 128))
+              for i, mode in enumerate(kernel_modes)]
+    return cases
+
+
 def flash_variant_phase(torch, fa, cfg):
-    """M2's four kernel modes at microbench/encoder_attn's shape [12, 16,
-    2049, 88] (offset as "nomax"; the script's exp2, unroll2, pipe compute
-    the same function with the same kernel), dh128 at D = 128, and every
-    mode on a small ragged case [2, 3, 130, 88]; the wrong kernels at the
-    main shape in "full" mode. The kernels line's M2 numbers are the offset
+    """M2 over variant_cases. The kernels line's M2 numbers are the offset
     mode's at the main shape: the softmax the InternVideo2 trunk runs, with
     SDPA computing the same function."""
-    v = cfg.video
     fam = Family("flash_variant")
-    main = (12, v.num_heads, v.seq_len, v.head_dim)
-    for i, mode in enumerate(("full", "nomax", "noexp", "sumdot")):
-        r = check_variant(torch, fa, mode, *main, seed=80 + i, timed=True,
-                          wrong=mode == "full")
+    for mode, shape, kw in variant_cases(cfg):
+        r = check_variant(torch, fa, mode, *shape, **kw)
         fam.max_err = max(fam.max_err, r["max_abs_err"])
-        if mode == "nomax":
+        if mode == "nomax" and kw["timed"]:
             fam.add(1, r["ms"], r["plain_ms"], r["bytes"], r["flops"],
                     "bf16", r["library_ms"])
-    r = check_variant(torch, fa, "dh128", 12, v.num_heads, v.seq_len, 128,
-                      seed=85, timed=True)
-    fam.max_err = max(fam.max_err, r["max_abs_err"])
-    for i, mode in enumerate(sorted(fa.VARIANT_MODES)):
-        r = check_variant(torch, fa, mode, 2, 3, 130,
-                          128 if mode == "dh128" else 88, seed=90 + i,
-                          timed=False)
-        fam.max_err = max(fam.max_err, r["max_abs_err"])
     return fam
 
 
@@ -2541,6 +2648,8 @@ def main() -> int:
             elif "registers" in line or "spill" in line:
                 log(f"[ptxas] {src} {entry}: {line.strip()}")
 
+    sass_phase(kernels)
+
     cfg = vlm_config("phi3.5", stage="inference")
     tok = build_tokenizer(cfg)
     gen_cfg = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False)
@@ -2574,6 +2683,8 @@ def main() -> int:
     k5 = write_phase(torch, cw, cfg, max_len)
     k8 = verify_phase(torch, da, cfg, max_len_spec, S_v)
     k9 = write_phase(torch, cw, cfg, max_len_spec, S_v)
+    for S in (128, 1):    # K9's widest and narrowest slot runs, checked
+        write_phase(torch, cw, cfg, max_len_spec, S)
     batch6 = [x for pair in zip(MODES, MODES_2) for x in pair]
     k10 = fused_phase(torch, fb, cfg, len(batch6))
     m3 = int8_gemm_phase(torch, ig)

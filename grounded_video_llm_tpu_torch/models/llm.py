@@ -479,8 +479,8 @@ def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
         else:
             attn = decode_attention(q, cache.k[i], cache.v[i], attn_valid,
                                     k_new=k, v_new=v)
-        x = x + _matmul_maybe_int8(attn.reshape(B, 1, cfg.q_dim),
-                                   lp["o_kernel"], quant)
+        x = x + _dense(attn.reshape(B, 1, cfg.q_dim), lp["o_kernel"], lp,
+                       "o", w8a8_decode=quant)
         h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
         x = x + _mlp(h, lp, cfg, w8a8_decode=quant)
         new_ks.append(k[:, 0])
@@ -552,8 +552,8 @@ def verify_step(params, cfg: LLMConfig, token_embeds: torch.Tensor, cache,
         attn = verify_attention_int8(
             q, cache.k[i], cache.k_scale[i], cache.v[i], cache.v_scale[i],
             attn_valid, k, v, scale=cfg.head_dim ** -0.5)
-        x = x + _matmul_maybe_int8(attn.reshape(B, S, cfg.q_dim),
-                                   lp["o_kernel"], True)
+        x = x + _dense(attn.reshape(B, S, cfg.q_dim), lp["o_kernel"], lp,
+                       "o", w8a8_decode=True)
         h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
         x = x + _mlp(h, lp, cfg, w8a8_decode=True)
         new_ks.append(k)

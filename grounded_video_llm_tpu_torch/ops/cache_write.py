@@ -70,6 +70,10 @@ def _check(name, caches, news, idx):
     lead = caches[0].shape[:4]
     if len(lead) != 4:
         raise ValueError(f"{name}: caches are [L, B, Hkv, max_len, *E]")
+    if lead[0] * lead[1] * lead[2] >= 2 ** 31:
+        raise ValueError(f"{name} kernel indexes its blocks in 32 bits: "
+                         f"L * B * Hkv must stay below 2^31, got "
+                         f"{tuple(lead[:3])}")
     S = news[0].shape[2] if news[0].dim() >= 4 else 0
     if not 1 <= S <= 128:
         raise ValueError(f"{name} writes 1 to 128 slots per row, got news "

@@ -141,6 +141,7 @@ def _check_launch_args(q, k, v, bias, window, kernel="flash_fwd"):
                          f"got {D}")
     if Sq == 0 or k.shape[1] == 0:
         raise ValueError(f"{kernel}: empty sequence")
+    _check_grid(kernel, B, H, max(Sq, k.shape[1]))
     if bias is not None and (bias.dtype != torch.float32
                              or bias.shape != (B, k.shape[1])
                              or not bias.is_contiguous()):
@@ -148,6 +149,18 @@ def _check_launch_args(q, k, v, bias, window, kernel="flash_fwd"):
                          "bias")
     if window is not None and window <= 0:
         raise ValueError(f"{kernel}: window must be positive, got {window}")
+
+
+def _check_grid(kernel, B, H, S):
+    """What the kernels' grids and tensor maps take: a block per (q tile,
+    head, batch row) with at most 65,535 heads and batch rows, and
+    sequence positions that are 32-bit TMA coordinates."""
+    if B > 65535 or H > 65535:
+        raise ValueError(f"{kernel} kernel grid takes at most 65535 batch "
+                         f"rows and heads, got B={B}, H={H}")
+    if S >= 2 ** 31 - 256:
+        raise ValueError(f"{kernel} kernel takes sequences shorter than "
+                         f"2^31 - 256, got {S}")
 
 
 def _check_bwd_args(q, k, v, bias, o, lse, do, window):
@@ -263,6 +276,7 @@ def _check_variant_args(q, k, v):
                          f"got {q.shape[3]}")
     if q.shape[2] == 0:
         raise ValueError("flash_variant: empty sequence")
+    _check_grid("flash_variant", q.shape[0], q.shape[1], q.shape[2])
 
 
 def flash_bwd_reference(q, k, v, bias, o, lse, do, scale, causal,

@@ -11,7 +11,10 @@ on the device → temporal-token parsing.
 
 ``quantize``: None (bf16 serving), "int8" (int8 LLM weights, weight-only
 everywhere) or "int8_full" (W8A8 prefill GEMMs and int8-cache decode
-projections, plus W8A8 encoders). ``static_scales=True`` (with "int8_full"
+projections, plus W8A8 encoders). An LLM tree with LoRA adapters serves
+them as the overlay of ``llm._dense`` in bf16 and merged into the base
+kernels (``train/lora.merge_lora``) before int8 quantization.
+``static_scales=True`` (with "int8_full"
 only; otherwise it raises, where the JAX engine ignores it) calibrates static
 activation scales for the InternVideo2 trunk's fc2 and proj legs
 (serve/calibrate.py) once, lazily, on all the clips of the first request's
@@ -48,6 +51,7 @@ from ..text import codec
 from ..text.templates import (DEFAULT_IMAGE_TOKEN, GROUNDING_TOKEN,
                               get_template)
 from ..text.tokenizer import pad_batch_generate, tokenize_with_image
+from ..train.lora import merge_lora
 from ..video.reader import read_frames
 from .generate import decode_texts, generate_tokens
 from .quantize import (is_quantized, quantize_clip_for_serving,
@@ -77,15 +81,13 @@ class InferenceEngine:
             raise ValueError(
                 "static_scales=True calibrates the W8A8 encoders' activation "
                 f"scales and needs quantize='int8_full', got {quantize!r}")
-        if "lora" in params["llm"]["layers"]:
-            raise NotImplementedError(
-                "the LLM tree has LoRA adapters: merging them (merge_lora) "
-                "is training, which is not ported")
         if quantize:
             params = dict(params)
             if not is_quantized(params["llm"]["lm_head"]):
+                # a LoRA overlay is folded into the base kernels first, as
+                # the JAX engine does; bf16 serving keeps the overlay
                 params["llm"] = quantize_llm_for_serving(
-                    params["llm"], w8a8=quantize == "int8_full")
+                    merge_lora(params["llm"]), w8a8=quantize == "int8_full")
             if (quantize == "int8_full" and not is_quantized(
                     params["clip"]["layers"]["q"]["kernel"])):
                 params["video_encoder"] = quantize_video_encoder_for_serving(

@@ -11,8 +11,9 @@ W8A8 through ops/int8_matmul.matmul_any, so they carry no marker, as in the
 JAX tree); attention, norms, LayerScale, patch embeddings and positions stay
 as they were.
 
-A tree that still carries LoRA adapters is refused: merging them is part of
-training, which is not ported. Initialising or uploading the LLM directly in
+A tree that still carries LoRA adapters is refused, as the JAX function
+asserts: the caller merges them first (``train/lora.merge_lora``; the
+engine does). Initialising or uploading the LLM directly in
 int8 form (the JAX package's route around a 16 GB chip) is not ported
 either: a bf16 Phi-3.5 or llama-3-8B fits an 80 GB card before quantizing.
 """
@@ -42,8 +43,8 @@ def quantize_llm_for_serving(llm_params: dict, w8a8: bool = False) -> dict:
     layers = dict(llm_params["layers"])
     if "lora" in layers:
         raise ValueError("quantize_llm_for_serving: the tree still has LoRA "
-                         "adapters; merge them first (merge_lora is training, "
-                         "which is not ported)")
+                         "adapters; fold them in with train.lora.merge_lora "
+                         "first")
     for name in QUANT_KERNELS:
         layers[name] = _int8(layers[name], w8a8)
     out = dict(llm_params)

@@ -3,12 +3,17 @@ Pallas interpret mode: o AND lse, over bias / bounded / causal / window /
 GQA / ragged S / head-dim cases. fp32, at the repo's kernel bar (rtol 2e-4,
 atol 2e-5, as tests/test_flash_attention.py)."""
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from grounded_video_llm_tpu.ops.flash_attention import _flash_fwd
+from grounded_video_llm_tpu_torch.core.config import vlm_config
 from grounded_video_llm_tpu_torch.ops.flash_attention import (NEG_INF,
                                                               flash_fwd,
                                                               flash_mha)
@@ -102,3 +107,70 @@ def test_flash_mha_keep_mask_matches_jax(causal):
                       mask=torch.from_numpy(mask))
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), rtol=RTOL,
                                atol=ATOL)
+
+
+REPO = Path(__file__).resolve().parents[1]
+FLASH_SOURCE = (REPO / "grounded_video_llm_tpu_torch" / "csrc"
+                / "flash_fwd.cu")
+KERNEL_MODES = {"kOnline": 0, "kFixed": 1, "kNoExp": 2, "kSumDot": 3}
+
+
+def _compiled_instantiations():
+    """(D, causal, mode) of every flash_fwd_kernel that the two C entries
+    compile: the head dims each entry dispatches on, times the launches its
+    dispatch function makes."""
+    src = FLASH_SOURCE.read_text()
+    got = set()
+    for entry, fn in (("gvllm_flash_fwd", "dispatch"),
+                      ("gvllm_flash_variant", "dispatch_variant")):
+        body = src[src.index(f"cudaError_t {fn}("):]
+        body = body[:body.index("\n}\n")]
+        launches = re.findall(r"launch<D, (true|false), (k\w+)>", body)
+        entry_body = src[src.index(f'extern "C" int {entry}('):]
+        entry_body = entry_body[:entry_body.index("\n}\n")]
+        dims = re.findall(rf"\b{fn}<(\d+)>", entry_body)
+        assert launches and dims, entry
+        got |= {(int(D), c == "true", KERNEL_MODES[m])
+                for D in dims for c, m in launches}
+    return got
+
+
+def test_chip_smoke_flash_cases_reach_every_instantiation():
+    """chip_smoke's flash and variant cases launch every flash_fwd_kernel
+    instantiation the library compiles, so the card checks each against
+    the plain version (and its [sass] line covers each)."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    compiled = _compiled_instantiations()
+    assert len(compiled) == 20     # 4 head dims x (causal + 4 modes)
+    cfg = vlm_config("phi3.5", stage="inference")
+    assert cs.flash_instantiations(cfg, 3709) == compiled
+    # the tile-aligned causal square: q_offset off the 128-key tile grid
+    aligned = dict(cs.FLASH_EDGE_CASES)["aligned_q_offset"]
+    assert aligned["Sq"] % 128 == 0 and aligned["q_offset"] % 128
+
+
+def test_chip_smoke_reads_sass_opcodes():
+    """The [sass] parser counts wgmma, TMA loads and mma.sync per kernel
+    from cuobjdump's listing (predicated lines included)."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    text = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_116flash_fwd_kernelILi88ELb0ELi1EEEvNS_4MapsEPKfP13__nv_bfloat16PfiiiiffiifNS_7StridesE
+	.headerflags	@"EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0020*/              @!P0 UTMALDG.4D [UR16], [UR4] ;
+        /*0030*/                   HGMMA.64x128x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+		Function : _ZN12_GLOBAL__N_114scatter_kernelENS_7BuffersEPKiiiiii
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+    got = cs.sass_counts(text)
+    assert got["16flash_fwd_kernelILi88ELb0ELi1EEE"] == {
+        "HGMMA": 1, "UTMALDG": 2, "HMMA": 0, "IMMA": 0}
+    assert got["14scatter_kernelE"]["HMMA"] == 1

@@ -1,7 +1,8 @@
 """The int8 serving slice of the port against the JAX package on the CPU:
 the weight bridge for serving-int8 trees, the port's own quantization, the
-prefill logits and greedy tokens for the three serving modes, and the
-engine's refusals.
+prefill logits and greedy tokens for the three serving modes, the
+engine's refusals, and the engine serving a LoRA tree (bf16 overlay;
+merged before int8_full) token-equal to the JAX engine.
 
   A  int8_full (W8A8 encoders, W8A8 prefill, w8a8 decode projections) with
      the int8 KV cache;
@@ -26,15 +27,21 @@ import numpy as np
 import pytest
 import torch
 
+from grounded_video_llm_tpu.core.config import GenerateConfig as \
+    JGenerateConfig
 from grounded_video_llm_tpu.core.config import micro_vlm_config, replace
 from grounded_video_llm_tpu.models import llm as jllm
 from grounded_video_llm_tpu.models import vlm as jvlm
+from grounded_video_llm_tpu.serve import engine as jengine
 from grounded_video_llm_tpu.serve import quantize as jq
 from grounded_video_llm_tpu.serve.generate import (
     generate_tokens as j_generate)
+from grounded_video_llm_tpu.train import lora as jlora
 from grounded_video_llm_tpu.text.tokenizer import (build_test_tokenizer,
                                                    pad_batch_generate,
                                                    tokenize_with_image)
+from grounded_video_llm_tpu_torch.core.config import \
+    GenerateConfig as TGenerateConfig
 from grounded_video_llm_tpu_torch.models import llm as tllm
 from grounded_video_llm_tpu_torch.models import vlm as tvlm
 from grounded_video_llm_tpu_torch.models.from_jax import params_from_jax
@@ -248,9 +255,78 @@ def test_engine_quantizes_and_refuses(model):
         TEngine(fp32, cfg, tok, quantize="int8", static_scales=True)
     with pytest.raises(ValueError):
         TEngine(fp32, cfg, tok, quantize="int4")
-    lora = dict(fp32)
-    lora["llm"] = dict(fp32["llm"])
-    lora["llm"]["layers"] = dict(fp32["llm"]["layers"], lora={})
-    for quantize in (None, "int8"):
-        with pytest.raises(NotImplementedError):
-            TEngine(lora, cfg, tok, quantize=quantize)
+    # an unmerged LoRA tree is still refused by the quantizer itself, as
+    # the JAX function asserts; the engine merges before it quantizes
+    lora = dict(fp32["llm"])
+    lora["layers"] = dict(fp32["llm"]["layers"], lora={})
+    with pytest.raises(ValueError, match="merge_lora"):
+        tq.quantize_llm_for_serving(lora)
+
+
+def _with_lora(jp, cfg, seed):
+    """jp with rank-4 adapters on the LLM whose B is drawn from a numpy seed
+    (B != 0, so the adapters change the logits)."""
+    out = dict(jp)
+    out["llm"] = jlora.attach_lora(
+        jp["llm"], jlora.init_lora(jax.random.key(seed), cfg.llm, rank=4))
+    rng = np.random.default_rng(seed)
+    for la in out["llm"]["layers"]["lora"].values():
+        la["b"] = jnp.asarray(
+            (rng.normal(size=la["b"].shape) * 0.05).astype(np.float32))
+    return out
+
+
+def _engine_tokens_equal(monkeypatch, cfg, jp, tok, quantize, quant_cache,
+                         sp, tm):
+    """The JAX and the port InferenceEngine on the same LoRA tree: 8 greedy
+    tokens for two prompts, token for token."""
+    captured = {}
+    j_gen = jengine.generate_tokens
+
+    def capture(*a, **kw):
+        out = j_gen(*a, **kw)
+        captured["tokens"] = np.asarray(out[0])
+        return out
+
+    monkeypatch.setattr(jengine, "generate_tokens", capture)
+    prompts = ["<image>\nwhen does it happen?",
+               "describe <image> briefly please"]
+    gen = dict(max_new_tokens=8, do_sample=False, quantize_cache=quant_cache)
+    jeng = jengine.InferenceEngine(jp, cfg, tok, quantize=quantize)
+    jeng.generate(prompts, tm, sp, JGenerateConfig(**gen))
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg, "cpu")
+    assert "lora" in tp["llm"]["layers"]
+    teng = TEngine(tp, cfg, tok, quantize=quantize)
+    assert ("lora" in teng.params["llm"]["layers"]) == (quantize is None)
+    teng.generate(prompts, tm, sp, TGenerateConfig(**gen))
+    np.testing.assert_array_equal(teng.last_tokens[0].numpy(),
+                                  captured["tokens"])
+    return captured["tokens"]
+
+
+def test_engine_serves_lora_tree_bf16_equal_to_jax(monkeypatch):
+    """Unquantized serving of a LoRA tree (micro_vlm_config): the overlay
+    runs in _dense, as in the JAX engine; the adapters change the tokens
+    against the same tree without them."""
+    cfg = micro_vlm_config("phi3.5")
+    jp = jvlm.init_params(jax.random.key(3), cfg)
+    tok = build_test_tokenizer("phi3.5")
+    rng = np.random.default_rng(3)
+    sp = rng.integers(0, 256, (cfg.num_segs, 336, 336, 3), dtype=np.uint8)
+    tm = rng.integers(0, 256, (cfg.num_frames, 224, 224, 3), dtype=np.uint8)
+    got = _engine_tokens_equal(monkeypatch, cfg, _with_lora(jp, cfg, 5), tok,
+                               None, False, sp, tm)
+    tp = params_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg, "cpu")
+    plain = TEngine(tp, cfg, tok)
+    plain.generate(["<image>\nwhen does it happen?",
+                    "describe <image> briefly please"], tm, sp,
+                   TGenerateConfig(max_new_tokens=8, do_sample=False))
+    assert not np.array_equal(plain.last_tokens[0].numpy(), got)
+
+
+def test_engine_serves_lora_tree_int8_full_equal_to_jax(model, monkeypatch):
+    """int8_full with the int8 cache on the widened micro LLM: both engines
+    merge the adapters, then quantize; greedy tokens equal."""
+    cfg, jp, _, _, tok, _, _, sp, tm = model
+    _engine_tokens_equal(monkeypatch, cfg, _with_lora(jp, cfg, 6), tok,
+                         "int8_full", True, sp[0], tm[0])

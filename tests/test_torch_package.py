@@ -127,11 +127,21 @@ def _qkv(B=1, S=8, H=2, Hkv=2, D=64, dtype=torch.bfloat16):
 
 @pytest.mark.parametrize("case", [
     "fp32_q", "fp16_k", "head_dim_80", "strided_q", "gqa_ratio",
-    "bias_fp16", "bias_shape", "window_zero", "empty"])
+    "bias_fp16", "bias_shape", "window_zero", "empty", "misaligned_q",
+    "heads_65536", "batch_65536", "seq_2_31"])
 def test_launch_checks_refuse_unsupported_inputs(case):
     q, k, v = _qkv()
     bias, window = None, None
-    if case == "fp32_q":
+    if case == "misaligned_q":
+        # the tensor maps need 16-byte aligned bases
+        q = torch.zeros(1 * 8 * 2 * 64 + 1, dtype=torch.bfloat16)[1:].view(
+            1, 8, 2, 64)
+    elif case in ("heads_65536", "batch_65536", "seq_2_31"):
+        B, S, H = {"heads_65536": (1, 8, 65536), "batch_65536": (65536, 8, 1),
+                   "seq_2_31": (1, 2 ** 31, 1)}[case]
+        q, k, v = (torch.empty(B, S, H, 64, dtype=torch.bfloat16,
+                               device="meta") for _ in range(3))
+    elif case == "fp32_q":
         q = q.float()
     elif case == "fp16_k":
         k = k.half()
@@ -457,10 +467,18 @@ def _multi_args(L=2, B=3, Hkv=2, S=4, max_len=8, D=16):
 
 @pytest.mark.parametrize("case", [
     "no_pairs", "five_pairs", "unpaired", "dtype", "slots_129", "new_shape",
-    "new_without_slots", "odd_bytes", "base_int64", "base_shape"])
+    "new_without_slots", "odd_bytes", "base_int64", "base_shape",
+    "rows_2_31"])
 def test_scatter_write_multi_checks_refuse_unsupported_inputs(case):
     caches, news, base = _multi_args()
-    if case == "no_pairs":
+    if case == "rows_2_31":
+        L, B, Hkv = 2 ** 16, 2 ** 8, 2 ** 7
+        caches = [torch.empty(L, B, Hkv, 8, 16, dtype=torch.int8,
+                              device="meta")]
+        news = [torch.empty(L, B, 4, Hkv, 16, dtype=torch.int8,
+                            device="meta")]
+        base = torch.empty(B, dtype=torch.int32, device="meta")
+    elif case == "no_pairs":
         caches, news = [], []
     elif case == "five_pairs":
         caches, news = (caches * 3)[:5], (news * 3)[:5]
@@ -708,10 +726,15 @@ def test_microbench_kernel_checks_accept_their_shapes():
 
 
 @pytest.mark.parametrize("case", ["fp32_q", "shape_k", "head_dim_80",
-                                  "strided_v", "empty"])
+                                  "strided_v", "empty", "heads_65536",
+                                  "seq_2_31"])
 def test_flash_variant_checks_refuse_unsupported_inputs(case):
     q = k = v = torch.zeros(1, 2, 16, 88, dtype=torch.bfloat16)
-    if case == "fp32_q":
+    if case in ("heads_65536", "seq_2_31"):
+        H, S = (65536, 16) if case == "heads_65536" else (1, 2 ** 31)
+        q = k = v = torch.empty(1, H, S, 88, dtype=torch.bfloat16,
+                                device="meta")
+    elif case == "fp32_q":
         q = q.float()
     elif case == "shape_k":
         k = torch.zeros(1, 2, 15, 88, dtype=torch.bfloat16)

@@ -9,10 +9,11 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
 1. the card (nvidia-smi name and power limit), torch and CUDA versions;
 2. the build: every kernel source in csrc/, one nvcc each, all at once;
    ptxas registers and spills per kernel instantiation (mangled name);
-   [sass] lines from cuobjdump: each library's wgmma (HGMMA), TMA load
-   (UTMALDG) and mma.sync (HMMA, IMMA) counts, and each of the 20
-   flash_fwd_kernel instantiations, which must run wgmma and TMA loads
-   and no mma.sync;
+   [sass] lines from cuobjdump: each library's wgmma (HGMMA bf16, IGMMA
+   int8), TMA load (UTMALDG) and mma.sync (HMMA, IMMA) counts, and one
+   line for each instantiation of the 20 flash_fwd_kernels, the 16 flash
+   backward kernels (dq and dk/dv) and the 12 fused-block GEMM kernels,
+   each of which must run wgmma and TMA loads and no mma.sync;
 3. each kernel against its plain PyTorch version at the serving path's
    shapes, with its error against a bound and CUDA-event medians of the
    kernel, the plain version and, where one PyTorch call computes the same
@@ -25,14 +26,17 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    left-padded, edge cases including a tile-aligned causal square with a
    q_offset off the tile grid; with M2's cases every instantiation runs); flash_bwd (K7: the grounded training shape
    [1, 7515, 32, 96] causal with a right-padded mask, its plain version run
-   kv head by kv head, the SDPA backward beside it; B=2 with right
-   paddings; GQA with 8 kv heads of 128, non-causal D=88, a window, an
-   explicit q_offset, left padding with dead rows whose dq must be exactly
-   0); the one int8_matmul wrapper over its two
-   kernels, w8a8 (int8_gemv, K3's w8a8 branch) and weight-only (int8_matmul,
-   K6 and K3's weight-only branch): both at M 1 and 6 on the four Phi-3.5
-   projections, weight-only also at M 1, 6, 255 on O 9216 and the lm_head's
-   32,366; decode_attention_int8 (K4: B 1 and 6, 32 heads of 96, 3,840
+   kv head by kv head, SDPA's causal backward (no mask: where the padded
+   rows carry no gradient, as the training loss leaves them, it gives the
+   same dq, dk, dv) and its masked backward beside it, all graph-replayed;
+   B=2 with right paddings; GQA with 8 kv heads of 128, non-causal D=88, a
+   window, an explicit q_offset, left padding with dead rows whose dq must
+   be exactly 0, and the other (head dim, causal) instantiations; every
+   case launched twice, bit-equal); the one int8_matmul wrapper over its
+   two kernels, w8a8 (int8_gemv, K3's w8a8 branch) and weight-only
+   (int8_matmul, K6 and K3's weight-only branch): both at M 1 and 6 on the
+   four Phi-3.5 projections, weight-only also at M 1, 6, 255 on O 9216 and
+   the lm_head's 32,366; decode_attention_int8 (K4: B 1 and 6, 32 heads of 96, 3,840
    slots, ragged masks; a GQA case with 8 kv heads of 128) and
    scatter_write (K5: ragged slots, untouched bytes, same storage);
    verify_attention_int8 (K8: path D's [6, 5, 32, 96] queries over 3,840
@@ -43,10 +47,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    fused_norm_quant_gemm for qkv with qk_norm and fc1 with GELU,
    fused_quant_gemm_ls_residual for proj and fc2, at path D's 147,528
    rows (six videos in one encode) and at 300, each beside the unfused
-   W8A8 chain); the microbenchmarks' kernels: int8_gemm and
-   int8_gemm_dynamic (M3, M3d: 8192x1408x6144, its transpose, a ragged
-   M = 300 and 300x1792x1408; M3 bit-equal, beside torch._int_mm plus the
-   rescale), i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections,
+   W8A8 chain, both graph-replayed); the microbenchmarks' kernels:
+   int8_gemm and int8_gemm_dynamic (M3, M3d: 8192x1408x6144, its
+   transpose, a ragged M = 300 and 300x1792x1408; M3 bit-equal, beside
+   torch._int_mm plus the rescale), i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections,
    beside K3's w8a8 int8_gemv and _int_mm) and flash_variant (M2: full,
    offset, noexp, sumdot at [12, 16, 2049, 88], dh128, and every mode on a
    ragged case at each head dim, on unit normal q/k/v, beside SDPA; two
@@ -100,9 +104,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    of one more microbatch and the model-FLOP share;
 7. the microbenchmarks, the path of M1, M2, M3 and M3d: each module of
    grounded_video_llm_tpu_torch/microbench (int8_gemm, decode,
-   encoder_attn, static_scales with one round) once at its TPU script's
-   shapes, counted like a path (the counts must equal those the modules'
-   shapes, variants and repetitions give); their lines are printed.
+   encoder_attn, static_scales with one round, flash_bwd, iv2_block) once
+   at its TPU script's shapes, counted like a path (the counts must equal
+   those the modules' shapes, variants and repetitions give); their lines
+   are printed.
 
 The last three lines are the card, one JSON object describing the kernels,
 and {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -125,7 +130,7 @@ import numpy as np
 SEED = 0
 MAX_NEW_TOKENS = 32
 SPEC_DRAFT_LEN = 4      # path D: drafts per verify pass
-GRAPH_CALLS = 20        # launches per timed CUDA graph (flash, M2, K5/K9)
+GRAPH_CALLS = 20        # launches per timed CUDA graph (flash, K7, M2, K5/K9)
 BOUND_O = 2e-2      # max |o_kernel - o_plain|: bf16 P and bf16 output
 BOUND_O_REL = 5e-3  # ||do|| / ||o_plain||; measured 1.9e-3 to 2.4e-3
 BOUND_LSE = 1e-3    # max |lse_kernel - lse_plain|: fp32 row statistics
@@ -303,13 +308,13 @@ def short_entry(mangled: str) -> str:
     return re.sub(r"(E+)v?[PN0-9].*$", r"\1", mangled)
 
 
-SASS_OPS = ("HGMMA", "UTMALDG", "HMMA", "IMMA")
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
 
 
 def sass_counts(text: str) -> dict:
     """{short entry name: {opcode: count}} for the SASS opcodes in SASS_OPS,
-    from `cuobjdump -sass` output: wgmma is HGMMA, a TMA tensor load
-    UTMALDG, mma.sync HMMA (bf16) or IMMA (int8)."""
+    from `cuobjdump -sass` output: wgmma is HGMMA (bf16) or IGMMA (int8),
+    a TMA tensor load UTMALDG, mma.sync HMMA (bf16) or IMMA (int8)."""
     counts, cur = {}, None
     for line in text.splitlines():
         found = re.match(r"\s*Function\s*:\s*(\S+)", line)
@@ -324,13 +329,33 @@ def sass_counts(text: str) -> dict:
     return counts
 
 
+# the kernels whose SASS must show wgmma and TMA loads and no mma.sync:
+# (library, entry-name fragment, wgmma opcode)
+SASS_REQUIRED = (("libflash_fwd.so", "flash_fwd_kernel", "HGMMA"),
+                 ("libflash_bwd.so", "flash_bwd_dq_kernel", "HGMMA"),
+                 ("libflash_bwd.so", "flash_bwd_dkv_kernel", "HGMMA"),
+                 ("libfused_block.so", "gemm_kernel", "IGMMA"))
+
+
+def sass_ok(lib: str, name: str, c: dict):
+    """None where no rule names the kernel, else whether its opcode counts
+    pass: wgmma of the rule's type and TMA loads, no mma.sync."""
+    for rule_lib, frag, op in SASS_REQUIRED:
+        if lib == rule_lib and frag in name:
+            return (c[op] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+                    and c["IMMA"] == 0)
+    return None
+
+
 def sass_phase(kernels) -> None:
     """One [sass] line per kernel library (its opcode totals), one per
-    flash_fwd_kernel instantiation; fails unless every instantiation runs
-    wgmma (HGMMA) and TMA loads (UTMALDG) and none runs mma.sync."""
+    instantiation of the flash forward (K1/K2/M2), the flash backward's two
+    kernels (K7) and the fused-block GEMM (K10); fails unless each of those
+    runs wgmma (HGMMA for bf16, IGMMA for int8) and TMA loads (UTMALDG) and
+    none runs mma.sync (HMMA, IMMA), and each rule finds a kernel."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     libs = sorted({k.library_path() for k in kernels.values()})
-    bad = []
+    bad, seen = [], set()
     for lib in libs:
         text = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
                               text=True, check=True).stdout
@@ -339,17 +364,20 @@ def sass_phase(kernels) -> None:
         log(f"[sass] {lib.name}: {len(counts)} kernels, "
             + " ".join(f"{op}={n}" for op, n in total.items()))
         for name, c in counts.items():
-            if "flash_fwd_kernel" not in name:
+            ok = sass_ok(lib.name, name, c)
+            if ok is None:
                 continue
-            ok = c["HGMMA"] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
+            seen |= {(r, f) for r, f, _ in SASS_REQUIRED
+                     if r == lib.name and f in name}
             log(f"[sass] {lib.name} {name}: "
                 + " ".join(f"{op}={n}" for op, n in c.items())
                 + f" {'OK' if ok else 'FAIL'}")
             if not ok:
                 bad.append(name)
-    if bad:
-        raise AssertionError(f"flash_fwd_kernel without wgmma or TMA, or "
-                             f"with mma.sync: {bad}")
+    missing = {(r, f) for r, f, _ in SASS_REQUIRED} - seen
+    if bad or missing:
+        raise AssertionError(f"kernels without wgmma or TMA, or with "
+                             f"mma.sync: {bad}; no kernel for {missing}")
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -615,8 +643,11 @@ def flash_bwd_plain(torch, fa, q, k, v, bias, o, lse, do, scale, causal,
 
 def sdpa_backward_ms(torch, q, k, v, keep, do, scale, reps):
     """Library yardstick: scaled_dot_product_attention forward + backward
-    (torch.autograd.grad) minus its forward, with the mask as the boolean
-    [B, 1, Sq, Sk] attn_mask SDPA takes. → (ms, backend)."""
+    (torch.autograd.grad) minus its forward, both timed as K7 is, by
+    replays of a CUDA graph of GRAPH_CALLS calls. keep: the mask as the
+    boolean [B, 1, Sq, Sk] attn_mask SDPA takes, or None for is_causal=True
+    with no mask, timed on each backend that takes it, the fastest kept.
+    → (ms, backend)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     F = torch.nn.functional
@@ -624,25 +655,36 @@ def sdpa_backward_ms(torch, q, k, v, keep, do, scale, reps):
                   for x in (q, k, v))
     dot = do.transpose(1, 2)
     gqa = q.shape[2] != k.shape[2]
-    for backend in (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
-                    SDPBackend.MATH):
+    backends = ((SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
+                 SDPBackend.MATH) if keep is not None else
+                (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                 SDPBackend.CUDNN_ATTENTION))
+    times = []
+    for backend in backends:
         try:
             with sdpa_kernel([backend]):
                 def fwd():
                     return F.scaled_dot_product_attention(
                         qt, kt, vt, attn_mask=keep, scale=scale,
-                        enable_gqa=gqa)
+                        is_causal=keep is None, enable_gqa=gqa)
 
                 def fwd_bwd():
                     out = fwd()
                     return torch.autograd.grad(out, (qt, kt, vt), dot)
 
                 fwd_bwd()
-                ms = cuda_ms(torch, fwd_bwd, reps) - cuda_ms(torch, fwd, reps)
-            return ms, backend.name
+                ms = (graph_ms(torch, fwd_bwd, reps, GRAPH_CALLS)
+                      - graph_ms(torch, fwd, reps, GRAPH_CALLS))
         except RuntimeError:
             continue
-    return float("nan"), "none"
+        times.append((ms, backend.name))
+        if keep is not None:
+            break
+    if not times:
+        return float("nan"), "none"
+    ms, name = min(times)
+    others = ", ".join(f"{n} {t:.4f}" for t, n in times if n != name)
+    return ms, name + (f"; {others}" if others else "")
 
 
 def check_flash_bwd(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
@@ -653,7 +695,15 @@ def check_flash_bwd(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
     o and lse come from the forward kernel, do is random. pads: per batch
     row, how many keys the mask removes (at the end, or at the start with
     left=True); expect_dead: whether that leaves rows with no valid key,
-    whose dq must be exactly 0."""
+    whose dq must be exactly 0. Two launches on the same inputs must give
+    bit-identical dq, dk and dv (K7 is deterministic). Timed, the kernel
+    and the SDPA backward are both CUDA-graph replays: SDPA with the same
+    mask, and where the mask is causal over a square with right pads only,
+    SDPA's causal backward with no mask too, which is then the library
+    time: padded keys are seen by padded rows only, so where do is zero on
+    the padded rows, as the training loss leaves it, it gives the same dq,
+    dk and dv (on this check's random do, the same dq on every other row);
+    the masked backends are several times slower."""
     Sk = Sq if Sk is None else Sk
     Hkv = H if Hkv is None else Hkv
     q_off = Sk - Sq if q_offset is None else q_offset
@@ -688,9 +738,12 @@ def check_flash_bwd(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
                                causal, window, q_offset)
 
     got = kernel()
+    again = kernel()
     want = plain()
     torch.cuda.synchronize()
-    launched = fa.FLASH_BWD.launches == before + 1
+    launched = fa.FLASH_BWD.launches == before + 2
+    same = all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    del again
     rels, worst = [], 0.0
     for x, y in zip(got, want):
         d = x.float() - y.float()
@@ -702,7 +755,7 @@ def check_flash_bwd(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
     dead = torch.isposinf(lse).permute(0, 2, 1)      # [B, Sq, H]
     n_dead = int(dead.sum())
     dead_zero = bool((got[0][dead] == 0).all()) if n_dead else True
-    ok = (finite and launched and dead_zero
+    ok = (finite and launched and dead_zero and same
           and all(r <= b for r, b in zip(rels, BOUND_BWD_REL)))
     pairs = visible_pairs(mask.cpu().numpy(), Sq, Sk, causal, window, q_off)
     flops = 10.0 * D * pairs * H          # five products per visible pair
@@ -711,10 +764,10 @@ def check_flash_bwd(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
               + 2 * (B * Sq * H * D + 2 * B * Sk * Hkv * D))    # dq dk dv
     bms, by = bound_ms(nbytes, flops, BF16_OPS)
     nan = float("nan")
-    ms = plain_ms = lib_ms = nan
-    backend = "-"
+    ms = plain_ms = lib_ms = masked_ms = nan
+    backend = masked_backend = "-"
     if timed:
-        ms = cuda_ms(torch, kernel, reps)
+        ms = graph_ms(torch, kernel, reps, GRAPH_CALLS)
         plain_ms = cuda_ms(torch, plain, 2)
         qpos = torch.arange(Sq, device="cuda")[:, None] + q_off
         kpos = torch.arange(Sk, device="cuda")[None, :]
@@ -724,16 +777,24 @@ def check_flash_bwd(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
             if window is not None:
                 vis = vis & (qpos - kpos < window)
             keep = keep & vis
-        lib_ms, backend = sdpa_backward_ms(torch, q, k, v, keep, do, scale,
-                                           reps)
+        masked_ms, masked_backend = sdpa_backward_ms(
+            torch, q, k, v, keep, do, scale, reps)
         del keep
+        lib_ms, backend = masked_ms, masked_backend
+        if (causal and Sq == Sk and q_off == 0 and not left
+                and (window is None or window >= Sk)):
+            lib_ms, backend = sdpa_backward_ms(torch, q, k, v, None, do,
+                                               scale, reps)
+            backend = f"{backend}, is_causal, no mask"
     log(f"[kernel] flash_bwd {name:<22} q={[B, Sq, H, D]} kv={[B, Sk, Hkv, D]}"
         f" causal={causal} window={window} q_offset={q_offset} "
         f"dead_rows={n_dead} dq_dead_rows_zero={dead_zero} "
+        f"two_launches_bit_equal={same} "
         f"rel|ddq|={rels[0]:.3e} rel|ddk|={rels[1]:.3e} rel|ddv|={rels[2]:.3e}"
         f" (<= {BOUND_BWD_REL}) max|d|={worst:.3e} visible_pairs={pairs}"
         + (f" kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-           f"sdpa_bwd_ms={lib_ms:.4f} ({backend}) bound_ms={bms:.4f} ({by}) "
+           f"sdpa_bwd_ms={lib_ms:.4f} ({backend}) sdpa_masked_bwd_ms="
+           f"{masked_ms:.4f} ({masked_backend}) bound_ms={bms:.4f} ({by}) "
            f"TFLOP/s={flops / ms / 1e9:.1f}" if timed else "")
         + f" {'OK' if ok else 'FAIL'}")
     if not ok:
@@ -746,6 +807,35 @@ def check_flash_bwd(torch, fa, name, B, Sq, H, D, *, Sk=None, Hkv=None,
     torch.cuda.empty_cache()
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
             "library_ms": lib_ms, "bytes": nbytes, "flops": flops}
+
+
+# K7's edge cases: with the training shape's (D 96, causal) every (head
+# dim, causal) instantiation gvllm_flash_bwd dispatches runs
+FLASH_BWD_EDGE_CASES = (
+    ("gqa_d128", dict(B=2, Sq=300, H=32, Hkv=8, D=128, pads=(0, 50))),
+    ("noncausal_d88", dict(B=2, Sq=2049, H=16, D=88, causal=False,
+                           pads=(0, 100))),
+    ("window", dict(B=1, Sq=700, H=4, D=96, window=64, pads=(13,))),
+    ("q_offset", dict(B=1, Sq=100, Sk=333, H=4, D=96, q_offset=150,
+                      pads=(0,))),
+    ("leftpad_dead_rows", dict(B=2, Sq=300, H=4, D=96, pads=(0, 77),
+                               left=True, expect_dead=True)),
+    ("tiny", dict(B=1, Sq=1, Sk=5, H=2, D=64)),
+    ("noncausal_d64", dict(B=1, Sq=257, H=4, D=64, causal=False)),
+    ("causal_d88", dict(B=1, Sq=333, H=4, D=88, pads=(5,))),
+    ("noncausal_d96_rect", dict(B=1, Sq=200, Sk=300, H=4, D=96,
+                                causal=False, pads=(7,))),
+    ("noncausal_d128", dict(B=1, Sq=130, H=4, Hkv=2, D=128, causal=False)),
+)
+
+
+def flash_bwd_instantiations():
+    """The (D, causal) instantiations of K7's two kernels that the training
+    shape and FLASH_BWD_EDGE_CASES launch."""
+    got = {(96, True)}
+    for _, kw in FLASH_BWD_EDGE_CASES:
+        got.add((kw["D"], kw.get("causal", True)))
+    return got
 
 
 def flash_bwd_phase(torch, fa, cfg, S_train):
@@ -767,18 +857,7 @@ def flash_bwd_phase(torch, fa, cfg, S_train):
                     seed=51)
     check_flash_bwd(torch, fa, "b2_rightpad_both", 2, 777, L.num_heads,
                     L.head_dim, pads=(65, 300), seed=52)
-    edges = [
-        ("gqa_d128", dict(B=2, Sq=300, H=32, Hkv=8, D=128, pads=(0, 50))),
-        ("noncausal_d88", dict(B=2, Sq=2049, H=16, D=88, causal=False,
-                               pads=(0, 100))),
-        ("window", dict(B=1, Sq=700, H=4, D=96, window=64, pads=(13,))),
-        ("q_offset", dict(B=1, Sq=100, Sk=333, H=4, D=96, q_offset=150,
-                          pads=(0,))),
-        ("leftpad_dead_rows", dict(B=2, Sq=300, H=4, D=96, pads=(0, 77),
-                                   left=True, expect_dead=True)),
-        ("tiny", dict(B=1, Sq=1, Sk=5, H=2, D=64)),
-    ]
-    for i, (name, kw) in enumerate(edges):
+    for i, (name, kw) in enumerate(FLASH_BWD_EDGE_CASES):
         check_flash_bwd(torch, fa, name, seed=60 + i, **kw)
     fam.add(L.num_layers, r["ms"], r["plain_ms"], r["bytes"], r["flops"],
             "bf16", r["library_ms"])
@@ -1181,14 +1260,20 @@ def verify_phase(torch, da, cfg, max_len, S_v):
 # ---------------------------------------------------------------------------
 
 
+WIDE_K = 6208   # K10's rows past the register-held 6,144; K % 128 != 0
+
+
 def fused_phase(torch, fb, cfg, videos):
     """The four GEMMs of a W8A8 InternVideo2 block at path D's rows (its
     videos encoded in one call: videos x 12 segments x 2,049 tokens)
     against their plain versions, and at 300 rows (a ragged row tile) with
-    the "none" epilogue too. Beside each: the unfused W8A8 chain the port
-    runs with the switch off (rms_norm → dynamic_int8_matmul on
-    torch._int_mm → epilogue). Family numbers are per encode of path D:
-    39 blocks."""
+    the "none" epilogue and a K = WIDE_K ls_residual GEMM too. Beside
+    each: the unfused W8A8 chain the port runs with the switch off
+    (rms_norm → dynamic_int8_matmul on torch._int_mm → epilogue). The
+    kernel and the chain are both timed by replays of a CUDA graph of two
+    calls (an output of the widest GEMM is 1.8 GB). TOP/s counts 2·M·K·N
+    once per GEMM: qk_norm no longer runs the q and k columns' GEMM twice.
+    Family numbers are per encode of path D: 39 blocks."""
     import torch.nn.functional as F
 
     from grounded_video_llm_tpu_torch.ops.int8_matmul import (
@@ -1264,6 +1349,15 @@ def fused_phase(torch, fb, cfg, videos):
                 lambda: fb.fused_norm_quant_gemm(x, nw, w["proj"], eps=eps),
                 lambda: fb.fused_norm_quant_gemm_reference(x, nw, w["proj"],
                                                            eps=eps), None))
+            # a row longer than the register-held rows' 6,144 and a K that
+            # is no multiple of the GEMM's 128-byte step (TMA zero-fills the
+            # last one)
+            hw, ww = randn(M, WIDE_K, scale=0.5), weight(WIDE_K, D)
+            cases.append((
+                "wide-K ls+res", qglr, WIDE_K, D,
+                lambda: fb.fused_quant_gemm_ls_residual(hw, ww, b_d, ls, x),
+                lambda: fb.fused_quant_gemm_ls_residual_reference(
+                    hw, ww, b_d, ls, x), None))
         for name, fam, d_in, d_out, kernel, plain, unfused in cases:
             counter = (fb.FUSED_NORM_QUANT_GEMM if fam is nqg
                        else fb.FUSED_QUANT_GEMM_LS_RESIDUAL)
@@ -1280,9 +1374,9 @@ def fused_phase(torch, fb, cfg, videos):
                     f"O={d_out} max|dy|={d_abs:.3e} max|dy|/max|y|={err:.3e}"
                     f" (<= {BOUND_GEMV:.3e})")
             if timed:
-                ms = cuda_ms(torch, kernel, 10)
+                ms = graph_ms(torch, kernel, 5, 2)
                 plain_ms = cuda_ms(torch, plain, 2)
-                unfused_ms = cuda_ms(torch, unfused, 10)
+                unfused_ms = graph_ms(torch, unfused, 5, 2)
                 nbytes = (2 * M * d_in + d_in * d_out + 8 * d_out
                           + 2 * M * d_out * (2 if fam is qglr else 1))
                 ops = 2.0 * M * d_in * d_out
@@ -2382,9 +2476,13 @@ def microbench_expect(cfg, zero):
     wrapper). encoder_attn times its seven modes, dh128 and S2048 through
     M2 and mha (K1) once; static_scales runs the IV2 trunk (K1 in each of
     the blocks it runs) for the calibration, a warm-up and one round over
-    its trees."""
+    its trees; flash_bwd runs K2 once for its lse, then K2 alone, K7 alone
+    and both through autograd; iv2_block runs three blocks with attention
+    (K1 each) and three without, two of them fused (two K10 launches of
+    each entry a block), then one fused GEMM per leg."""
     from grounded_video_llm_tpu_torch.microbench import (decode, encoder_attn,
-                                                         int8_gemm,
+                                                         flash_bwd, int8_gemm,
+                                                         iv2_block,
                                                          static_scales)
 
     def calls(reps, graph=False):
@@ -2393,22 +2491,32 @@ def microbench_expect(cfg, zero):
     gemm = len(int8_gemm.SHAPES) * calls(int8_gemm.R)
     gemv = len(decode.PROJECTIONS) * calls(decode.R, graph=True)
     iv2 = 2 + STATIC_REPS * len(static_scales.VARIANTS)
+    blocks = calls(iv2_block.R)
+    # per fused block 2 launches of each K10 entry; qkv/fc1 and proj/fc2
+    # legs one each
+    k10 = (2 * 2 + 2) * blocks
     return dict(zero, int8_gemm=gemm, int8_gemm_dynamic=gemm,
                 i8i8_gemv=gemv, int8_gemv=gemv, int8_matmul=gemv,
                 decode_attention_int8=calls(decode.R, graph=True),
                 flash_variant=(len(encoder_attn.MODES) + 2)
                 * calls(encoder_attn.R),
                 flash_fwd=calls(encoder_attn.R)
-                + cfg.video.num_blocks_used * iv2)
+                + cfg.video.num_blocks_used * iv2
+                + 1 + 2 * calls(flash_bwd.R)
+                + len(iv2_block.BLOCKS) * blocks,
+                flash_bwd=2 * calls(flash_bwd.R),
+                fused_norm_quant_gemm=k10,
+                fused_quant_gemm_ls_residual=k10)
 
 
 def microbench_path(torch, kernels, cfg, zero):
-    """The port's four microbenchmarks, each module's main once at its
+    """The port's six microbenchmarks, each module's main once at its
     script's shapes (static_scales with STATIC_REPS rounds), counted as one
-    path: the launch counts must equal microbench_expect's (K10, K7, K5, K8
-    and K9 at zero)."""
+    path: the launch counts must equal microbench_expect's (K5, K8 and K9
+    at zero)."""
     from grounded_video_llm_tpu_torch.microbench import (decode, encoder_attn,
-                                                         int8_gemm,
+                                                         flash_bwd, int8_gemm,
+                                                         iv2_block,
                                                          static_scales)
 
     for k in kernels.values():
@@ -2419,10 +2527,13 @@ def microbench_path(torch, kernels, cfg, zero):
                             ("decode", decode, []),
                             ("encoder_attn", encoder_attn, []),
                             ("static_scales", static_scales,
-                             ["72", str(STATIC_REPS)])):
+                             ["72", str(STATIC_REPS)]),
+                            ("flash_bwd", flash_bwd, []),
+                            ("iv2_block", iv2_block, [])):
         t1 = time.perf_counter()
         log(f"[microbench] {name}:")
         mod.main(argv)
+        torch.cuda.empty_cache()
         log(f"[microbench] {name} took {time.perf_counter() - t1:.1f} s")
     got = {n: k.launches for n, k in kernels.items()}
     want = microbench_expect(cfg, zero)

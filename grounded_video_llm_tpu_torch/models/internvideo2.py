@@ -38,7 +38,7 @@ import torch.nn.functional as F
 from ..core.config import InternVideo2Config
 from ..ops.attention import mha
 from ..ops.fused_block import (fused_norm_quant_gemm,
-                               fused_quant_gemm_ls_residual)
+                               fused_quant_gemm_ls_residual, qk_norm_tile)
 from ..ops.int8_matmul import Int8Weight, matmul_any
 from ..ops.normalization import layer_scale, rms_norm
 from .param_utils import layer_slice, truncated_normal
@@ -210,13 +210,16 @@ def _fused_int8_ok(bp, cfg: InternVideo2Config) -> bool:
             f"GVLLM_FUSED_IV2=1: the fused W8A8 block has no static "
             f"activation scales, and {static} carry them; unset the switch "
             "or serve without static_scales")
-    if cfg.embed_dim % 128 == 0 and cfg.mlp_hidden % 512 == 0:
+    if (cfg.embed_dim % 128 == 0 and cfg.mlp_hidden % 512 == 0
+            and (not cfg.qk_normalization
+                 or qk_norm_tile(cfg.embed_dim) is not None)):
         return True
     if w.q.device.type != "cpu":
         raise ValueError(
             f"GVLLM_FUSED_IV2=1: the fused W8A8 block needs embed_dim % 128 "
-            f"== 0 and mlp_hidden % 512 == 0, got {cfg.embed_dim} and "
-            f"{cfg.mlp_hidden}")
+            f"== 0, mlp_hidden % 512 == 0 and, with qk_normalization, an "
+            f"embed_dim of at most 8 column tiles of 256, 176 or 128; got "
+            f"{cfg.embed_dim} and {cfg.mlp_hidden}")
     return False
 
 

@@ -43,19 +43,33 @@ from .cuda_build import CudaKernel
 from .int8_matmul import Int8Weight, _exact_int8_dot, quantize_rows
 
 EPILOGUES = {"none": 0, "gelu": 1, "qk_norm": 2}
-_BK, _BN = 64, 128          # csrc/fused_block.cu tile: K step, N tile
+# csrc/fused_block.cu: K in multiples of the weight transpose's 64-byte
+# tile; output tiles of 256, 176 or 128 columns (N % 128 == 0 always fits);
+# qk_norm runs each K-wide third as one cluster of at most 8 tiles
+_BK, _BN = 64, 128
+_QK_TILES, _MAX_CLUSTER = (256, 176, 128), 8
 
-# gvllm_fused_norm_quant_gemm(x, norm_w, w, ws, bias, qn, out, x8, xs, ssq,
+# gvllm_fused_norm_quant_gemm(x, norm_w, w, ws, bias, qn, out, x8, xs, wt,
 #                             M, K, N, epilogue, eps, stream)
 FUSED_NORM_QUANT_GEMM = CudaKernel(
     "fused_block.cu", "gvllm_fused_norm_quant_gemm",
     [ctypes.c_void_p] * 10 + [ctypes.c_int] * 4 + [ctypes.c_float]
     + [ctypes.c_void_p])
 # gvllm_fused_quant_gemm_ls_residual(x, w, ws, bias, ls, res, out, x8, xs,
-#                                    M, K, N, stream)
+#                                    wt, M, K, N, stream)
 FUSED_QUANT_GEMM_LS_RESIDUAL = CudaKernel(
     "fused_block.cu", "gvllm_fused_quant_gemm_ls_residual",
-    [ctypes.c_void_p] * 9 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+
+def qk_norm_tile(D: int) -> Optional[int]:
+    """The kernel's column tile for the qk_norm epilogue at width D: a
+    K-wide third runs as one cluster of D / tile blocks, at most 8 (D =
+    1,408: 8 x 176). None where no tile fits."""
+    for bn in _QK_TILES:
+        if D % bn == 0 and D // bn <= _MAX_CLUSTER:
+            return bn
+    return None
 
 
 def erf_rational(x: torch.Tensor) -> torch.Tensor:
@@ -128,9 +142,12 @@ def _check_weight(name, w):
         raise ValueError(f"{name} kernel takes a contiguous weight")
 
 
-def _check_launch_args(name, x, w, vectors, residual=None):
+def _check_launch_args(name, x, w, vectors, residual=None, qk_norm=False):
     _check_weight(name, w)
     D, O = w.q.shape
+    if qk_norm and qk_norm_tile(D) is None:
+        raise ValueError(f"{name} kernel: qk_norm takes D = c x t with t in "
+                         f"{_QK_TILES} and c <= {_MAX_CLUSTER}, got {D}")
     if x.dtype != torch.bfloat16:
         raise TypeError(f"{name} kernel takes bf16 x, got {x.dtype}")
     if x.shape[-1] != D or x.numel() == 0:
@@ -164,6 +181,12 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, contiguous and 16-byte aligned (the kernel reads 16 bytes a lane)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def fused_norm_quant_gemm(x, norm_w, w: Int8Weight, *, eps: float,
                           epilogue: str = "none", bias=None,
                           qk_norm_w=None) -> torch.Tensor:
@@ -187,23 +210,20 @@ def fused_norm_quant_gemm(x, norm_w, w: Int8Weight, *, eps: float,
                            f"{x.device}")
     O = w.q.shape[-1]
     _check_launch_args("fused_norm_quant_gemm", x, w,
-                       [("norm_w", norm_w, D), ("bias", bias, O)])
-    if epilogue == "qk_norm" and D % _BN:
-        raise ValueError(f"fused_norm_quant_gemm kernel: qk_norm takes D % "
-                         f"{_BN} == 0, got {D}")
-    x2 = x.reshape(-1, D).contiguous()
+                       [("norm_w", norm_w, D), ("bias", bias, O)],
+                       qk_norm=epilogue == "qk_norm")
+    x2 = _aligned(x.reshape(-1, D))
     M = x2.shape[0]
     out = torch.empty(M, O, dtype=x.dtype, device=x.device)
     x8 = torch.empty(M, D, dtype=torch.int8, device=x.device)
     xs = torch.empty(M, dtype=torch.float32, device=x.device)
-    ssq = (torch.empty(M, 2 * D // _BN, dtype=torch.float32, device=x.device)
-           if epilogue == "qk_norm" else None)
-    nw, b = _vec(norm_w), _vec(bias)
+    wt = torch.empty(O, D, dtype=torch.int8, device=x.device)
+    nw, b = _aligned(_vec(norm_w)), _vec(bias)
     qn = _vec(qk_norm_w.reshape(-1)) if epilogue == "qk_norm" else None
     FUSED_NORM_QUANT_GEMM(
         x2.data_ptr(), nw.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(),
         _ptr(b), _ptr(qn), out.data_ptr(), x8.data_ptr(), xs.data_ptr(),
-        _ptr(ssq), M, D, O, EPILOGUES[epilogue], float(eps),
+        wt.data_ptr(), M, D, O, EPILOGUES[epilogue], float(eps),
         torch.cuda.current_stream(x.device).cuda_stream)
     FUSED_NORM_QUANT_GEMM.launches += 1
     return out.reshape(*x.shape[:-1], O)
@@ -224,17 +244,18 @@ def fused_quant_gemm_ls_residual(x, w: Int8Weight, bias, ls,
                        [("bias", bias, O), ("ls", ls, O)], residual)
     if ls is None:
         raise ValueError("fused_quant_gemm_ls_residual: ls is required")
-    x2 = x.reshape(-1, D).contiguous()
+    x2 = _aligned(x.reshape(-1, D))
     r2 = residual.reshape(-1, O).contiguous()
     M = x2.shape[0]
     out = torch.empty(M, O, dtype=x.dtype, device=x.device)
     x8 = torch.empty(M, D, dtype=torch.int8, device=x.device)
     xs = torch.empty(M, dtype=torch.float32, device=x.device)
+    wt = torch.empty(O, D, dtype=torch.int8, device=x.device)
     b, lsv = _vec(bias), _vec(ls)
     FUSED_QUANT_GEMM_LS_RESIDUAL(
         x2.data_ptr(), w.q.data_ptr(), w.scale.data_ptr(), _ptr(b),
         lsv.data_ptr(), r2.data_ptr(), out.data_ptr(), x8.data_ptr(),
-        xs.data_ptr(), M, D, O,
+        xs.data_ptr(), wt.data_ptr(), M, D, O,
         torch.cuda.current_stream(x.device).cuda_stream)
     FUSED_QUANT_GEMM_LS_RESIDUAL.launches += 1
     return out.reshape(*x.shape[:-1], O)

@@ -172,5 +172,45 @@ def test_chip_smoke_reads_sass_opcodes():
 """
     got = cs.sass_counts(text)
     assert got["16flash_fwd_kernelILi88ELb0ELi1EEE"] == {
-        "HGMMA": 1, "UTMALDG": 2, "HMMA": 0, "IMMA": 0}
+        "HGMMA": 1, "IGMMA": 0, "UTMALDG": 2, "HMMA": 0, "IMMA": 0}
     assert got["14scatter_kernelE"]["HMMA"] == 1
+
+
+def test_chip_smoke_reads_int8_wgmma_and_holds_each_rule():
+    """The parser counts int8 wgmma (IGMMA); the [sass] rules hold the flash
+    forward and backward to HGMMA, the fused-block GEMM to IGMMA, each with
+    TMA loads and without mma.sync, and name no other kernel."""
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    text = """
+		Function : _ZN12_GLOBAL__N_111gemm_kernelILi176ELi2EEEv14CUtensorMap_stS1_NS_4ArgsE
+        /*0000*/                   UTMALDG.2D [UR8], [UR4] ;
+        /*0010*/                   IGMMA.64x176x32.S8.S8 R24, gdesc[UR4], R24 ;
+        /*0020*/                   IGMMA.64x176x32.S8.S8 R24, gdesc[UR8], R24 ;
+		Function : _ZN12_GLOBAL__N_120flash_bwd_dkv_kernelILi96ELb1EEEvNS_4MapsENS_6ParamsE
+        /*0000*/                   UTMALDG.4D [UR8], [UR4] ;
+        /*0010*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+		Function : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi96ELb1EEEvNS_4MapsENS_6ParamsE
+        /*0000*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+"""
+    got = cs.sass_counts(text)
+    gemm = got["11gemm_kernelILi176ELi2EEE"]
+    assert gemm == {"HGMMA": 0, "IGMMA": 2, "UTMALDG": 1, "HMMA": 0,
+                    "IMMA": 0}
+    assert cs.sass_ok("libfused_block.so", "11gemm_kernelILi176ELi2EEE",
+                      gemm) is True
+    dkv = got["20flash_bwd_dkv_kernelILi96ELb1EEE"]
+    assert cs.sass_ok("libflash_bwd.so", "20flash_bwd_dkv_kernelILi96ELb1EEE",
+                      dkv) is True
+    # mma.sync and no wgmma or TMA: refused
+    assert cs.sass_ok("libflash_bwd.so", "19flash_bwd_dq_kernelILi96ELb1EEE",
+                      got["19flash_bwd_dq_kernelILi96ELb1EEE"]) is False
+    # bf16 wgmma where the int8 GEMM needs IGMMA: refused
+    assert cs.sass_ok("libfused_block.so", "11gemm_kernelILi176ELi2EEE",
+                      dict(gemm, HGMMA=2, IGMMA=0)) is False
+    # kernels no rule names are only reported
+    assert cs.sass_ok("libfused_block.so", "16row_quant_kernelE", gemm) is None
+    assert cs.sass_ok("libint8_gemm.so", "11gemm_kernelILi176ELi2EEE",
+                      gemm) is None

@@ -4,6 +4,10 @@ do (o and lse from the JAX forward), and the autograd FlashAttention against
 jax.grad of the JAX flash_mha. fp32, at the JAX package's backward bar
 (rtol 1e-3, atol 1e-4, tests/test_flash_attention.py)."""
 
+import importlib.util
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -133,3 +137,29 @@ def test_no_grad_forward_is_the_plain_forward():
     with_grad = fa.flash_mha(q, k, v, causal=True)
     assert with_grad.grad_fn is not None
     assert torch.equal(with_grad.detach(), ref)
+
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def test_chip_smoke_flash_bwd_cases_reach_every_instantiation():
+    """chip_smoke's K7 cases launch every (head dim, causal) instantiation
+    that gvllm_flash_bwd dispatches (parsed from csrc/flash_bwd.cu), so the
+    card checks each against the plain version and its [sass] lines cover
+    each."""
+    src = (REPO / "grounded_video_llm_tpu_torch" / "csrc"
+           / "flash_bwd.cu").read_text()
+    body = src[src.index("cudaError_t dispatch("):]
+    body = body[:body.index("\n}\n")]
+    causal = {c == "true" for c in re.findall(r"launch<D, (true|false)>",
+                                              body)}
+    entry = src[src.index('extern "C" int gvllm_flash_bwd('):]
+    dims = {int(d) for d in re.findall(r"\bdispatch<(\d+)>", entry)}
+    compiled = {(d, c) for d in dims for c in causal}
+    assert compiled == {(d, c) for d in (64, 88, 96, 128)
+                        for c in (True, False)}
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke", REPO / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    assert cs.flash_bwd_instantiations() == compiled

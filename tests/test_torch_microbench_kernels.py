@@ -34,7 +34,9 @@ from grounded_video_llm_tpu.ops.int8_matmul import (dynamic_int8_matmul,
                                                     quantize_weights_int8)
 from grounded_video_llm_tpu_torch.microbench import decode as mb_decode
 from grounded_video_llm_tpu_torch.microbench import encoder_attn as mb_attn
+from grounded_video_llm_tpu_torch.microbench import flash_bwd as mb_bwd
 from grounded_video_llm_tpu_torch.microbench import int8_gemm as mb_gemm
+from grounded_video_llm_tpu_torch.microbench import iv2_block as mb_iv2
 from grounded_video_llm_tpu_torch.microbench import \
     static_scales as mb_static
 from grounded_video_llm_tpu_torch.ops import flash_attention as fa
@@ -235,7 +237,67 @@ def test_static_scales_summary_has_the_scripts_keys():
     assert [n for n, _ in mb_static.VARIANTS] == list(best)
 
 
-@pytest.mark.parametrize("module", [mb_gemm, mb_decode, mb_attn, mb_static])
+def test_flash_bwd_variants_compute_one_function():
+    """K7 alone, K2 + K7 through autograd and SDPA's backward give one
+    gradient on CPU tensors (plain versions; bf16 inputs)."""
+    q, k, do = mb_bwd.inputs(1, 40, 2, 2, 32, "cpu")
+    fns = mb_bwd.variants(q, k, do)
+    assert list(fns) == list(mb_bwd.VARIANTS)
+    dq, dk, dv = fns["k7_bwd"]()
+    for a, b in zip(fns["k2_k7_fwd_bwd"](), (dq, dk, dv)):
+        assert torch.equal(a, b)
+    for a, b in zip(fns["sdpa_fwd_bwd"](), (dq, dk, dv)):
+        torch.testing.assert_close(a.transpose(1, 2).float(), b.float(),
+                                   rtol=0.05, atol=0.05)
+    torch.testing.assert_close(fns["sdpa_fwd"]().transpose(1, 2).float(),
+                               fns["k2_fwd"]()[0].float(), rtol=0.02,
+                               atol=0.02)
+    out = mb_bwd.summary({n: 1.0 + i for i, n in enumerate(mb_bwd.VARIANTS)},
+                         "card, 700.00 W")
+    assert out["sdpa_bwd"] == 1.0 and out["k7_vs_sdpa_bwd"] == 0.5
+    assert (mb_bwd.B, mb_bwd.S, mb_bwd.H, mb_bwd.KV, mb_bwd.D) == (
+        1, 7515, 32, 32, 96)
+
+
+def test_iv2_block_variants_compute_one_block():
+    """The three blocks and the four GEMM legs on a micro IV2 config (CPU,
+    plain versions): the W8A8 blocks near the bf16 one, each leg's
+    quantized variants near its bf16 dot, the attention stub restored."""
+    from grounded_video_llm_tpu_torch.core.config import InternVideo2Config
+    from grounded_video_llm_tpu_torch.models import internvideo2
+
+    cfg = InternVideo2Config(embed_dim=128, depth=2, num_heads=2,
+                             mlp_ratio=4.0, image_size=28, patch_size=14,
+                             num_frames=2, num_blocks_used=1,
+                             layerscale_init=1.0)
+    bp, bq = mb_iv2.block_params(cfg, "cpu")
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, cfg.seq_len, 128, generator=g).bfloat16()
+    out = {k: f().float() for k, f in
+           mb_iv2.block_variants(x, bp, bq, cfg).items()}
+    assert list(out) == list(mb_iv2.BLOCKS)
+    for name in ("block_w8a8", "block_w8a8_fused"):
+        rel = (out[name] - out["block_bf16"]).norm() / out["block_bf16"].norm()
+        assert rel < 0.05, (name, rel)
+    real = internvideo2.mha
+    with mb_iv2.no_attention():
+        assert internvideo2.mha is not real
+        stubbed = mb_iv2.block_variants(x, bp, bq, cfg)["block_bf16"]()
+    assert internvideo2.mha is real
+    assert not torch.equal(stubbed.float(), out["block_bf16"])
+    h = torch.randn(x.shape[0] * x.shape[1], 512, generator=g).bfloat16()
+    legs = mb_iv2.leg_variants(x.reshape(-1, 128), h, bp, bq, cfg)
+    assert list(legs) == list(mb_iv2.LEGS)
+    for leg, fns in legs.items():
+        ref = fns["dot_bf16"]().float()
+        w8 = fns["w8a8"]().float()
+        assert (w8 - ref).norm() / ref.norm() < 0.05, leg
+        assert fns["dot_i8i8"]().dtype == torch.int32
+        assert fns["fused"]().shape == ref.shape
+
+
+@pytest.mark.parametrize("module", [mb_gemm, mb_decode, mb_attn, mb_static,
+                                    mb_bwd, mb_iv2])
 def test_microbench_mains_refuse_the_cpu(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -253,20 +315,22 @@ def _chip_smoke():
 def test_chip_smoke_microbench_counts_follow_the_modules():
     """The launch counts chip_smoke holds the microbenchmark path to, derived
     from the modules' shapes, variants and repetitions, are the counts an
-    H100 run of the four mains gave."""
+    H100 run of the six mains gave."""
     from grounded_video_llm_tpu_torch.core.config import vlm_config
 
     cs = _chip_smoke()
     names = ("flash_fwd", "flash_bwd", "int8_gemv", "int8_matmul",
              "decode_attention_int8", "scatter_write", "i8i8_gemv",
-             "flash_variant", "int8_gemm", "int8_gemm_dynamic")
+             "flash_variant", "int8_gemm", "int8_gemm_dynamic",
+             "fused_norm_quant_gemm", "fused_quant_gemm_ls_residual")
     want = cs.microbench_expect(vlm_config("phi3.5", stage="inference"),
                                 dict.fromkeys(names, 0))
-    assert want == {"flash_fwd": 275, "flash_bwd": 0, "int8_gemv": 156,
+    assert want == {"flash_fwd": 325, "flash_bwd": 22, "int8_gemv": 156,
                     "int8_matmul": 156, "decode_attention_int8": 52,
                     "scatter_write": 0, "i8i8_gemv": 156,
                     "flash_variant": 369, "int8_gemm": 42,
-                    "int8_gemm_dynamic": 42}
+                    "int8_gemm_dynamic": 42, "fused_norm_quant_gemm": 54,
+                    "fused_quant_gemm_ls_residual": 54}
 
 
 @pytest.mark.parametrize("scale,rejected", [(1.0, True), (0.1, False)])

@@ -602,7 +602,9 @@ def test_new_cpu_tensors_run_the_plain_versions_without_counting():
 
 @pytest.mark.parametrize("embed_dim,mlp_ratio,fused", [(96, 4.0, None),
                                                        (128, 4.0, True),
-                                                       (128, 3.0, None)])
+                                                       (128, 3.0, None),
+                                                       (1152, 4.0, None),
+                                                       (1408, 4.0, True)])
 def test_fused_iv2_switch_off_the_cpu_runs_k10_or_raises(monkeypatch,
                                                          embed_dim,
                                                          mlp_ratio, fused):
@@ -626,6 +628,28 @@ def test_fused_iv2_switch_off_the_cpu_runs_k10_or_raises(monkeypatch,
         assert iv2._fused_int8_ok(bp, cfg)
     monkeypatch.setenv("GVLLM_FUSED_IV2", "0")
     assert not iv2._fused_int8_ok(bp, cfg)
+
+
+@pytest.mark.parametrize("D,tile", [(1408, 176), (128, 128), (1024, 256),
+                                    (2048, 256), (1152, None), (3200, None),
+                                    (96, None)])
+def test_fused_qk_norm_widths(D, tile):
+    """qk_norm runs each K-wide third as one cluster of at most 8 blocks of
+    256, 176 or 128 columns (IV2-1B's 1,408 = 8 x 176); the launch checks
+    refuse other widths for qk_norm only."""
+    assert fb.qk_norm_tile(D) == tile
+    x = torch.empty(8, D, dtype=torch.bfloat16, device="meta")
+    O = 3 * D if D % 128 == 0 else 384
+    w = mm.Int8Weight(torch.empty(D, O, dtype=torch.int8, device="meta"),
+                      torch.empty(O, device="meta"))
+    if D % 64:
+        return
+    fb._check_launch_args("fused", x, w, [])
+    if tile is None:
+        with pytest.raises(ValueError, match="qk_norm"):
+            fb._check_launch_args("fused", x, w, [], qk_norm=True)
+    else:
+        fb._check_launch_args("fused", x, w, [], qk_norm=True)
 
 
 def _gemm_args(M=8, K=128, N=256, x_dtype=torch.int8):

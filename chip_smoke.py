@@ -10,10 +10,12 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
 2. the build: every kernel source in csrc/, one nvcc each, all at once;
    ptxas registers and spills per kernel instantiation (mangled name);
    [sass] lines from cuobjdump: each library's wgmma (HGMMA bf16, IGMMA
-   int8), TMA load (UTMALDG) and mma.sync (HMMA, IMMA) counts, and one
-   line for each instantiation of the 20 flash_fwd_kernels, the 16 flash
-   backward kernels (dq and dk/dv) and the 12 fused-block GEMM kernels,
-   each of which must run wgmma and TMA loads and no mma.sync;
+   int8), TMA load (UTMALDG), bulk copy (UBLKCP) and mma.sync (HMMA, IMMA)
+   counts, and one line for each instantiation of the 20 flash_fwd_kernels,
+   the 16 flash backward kernels (dq and dk/dv) and the 12 fused-block GEMM
+   kernels, each of which must run wgmma and TMA loads and no mma.sync,
+   and of the 8 int8-cache attention kernels (K4, K8: 4 head dims each),
+   which must run bulk (or TMA) copies, and K8's tensor-core products;
 3. each kernel against its plain PyTorch version at the serving path's
    shapes, with its error against a bound and CUDA-event medians of the
    kernel, the plain version and, where one PyTorch call computes the same
@@ -36,12 +38,17 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    two kernels, w8a8 (int8_gemv, K3's w8a8 branch) and weight-only
    (int8_matmul, K6 and K3's weight-only branch): both at M 1 and 6 on the
    four Phi-3.5 projections, weight-only also at M 1, 6, 255 on O 9216 and
-   the lm_head's 32,366; decode_attention_int8 (K4: B 1 and 6, 32 heads of 96, 3,840
-   slots, ragged masks; a GQA case with 8 kv heads of 128) and
-   scatter_write (K5: ragged slots, untouched bytes, same storage);
-   verify_attention_int8 (K8: path D's [6, 5, 32, 96] queries over 3,840
-   slots, then S = 1, S = 8, GQA 4 with D = 128, an empty cache mask and a
-   per-query window); scatter_write_multi (K9: 5 slots per row from ragged
+   the lm_head's 32,366; the int8 -> bf16 conversion of K4 and K8 on all
+   256 byte values; decode_attention_int8 (K4: B 1 and 6, 32 heads of 96,
+   3,840 slots, ragged masks, each timed on its mask and with every slot
+   visible; ATTENTION_CASES: every G and D the C entry takes, L off the
+   cluster's slot grid, whole chunks no query sees, L past the one-block
+   design's cap) and scatter_write (K5: ragged slots, untouched bytes, same
+   storage); verify_attention_int8 (K8: path D's [6, 5, 32, 96] queries
+   over 3,840 slots, timed the same two ways, then VERIFY_CASES: S = 1,
+   S = 8, GQA 4 with D = 128, an empty cache mask, a per-query window,
+   every G and D, masked chunks, 40 queries, L past the old cap); every K4
+   and K8 case launched twice, bit-equal; scatter_write_multi (K9: 5 slots per row from ragged
    bases, one at the array edge and one running past it, untouched bytes,
    same storage; then 128 and 1 slots at the same buffers); the fused W8A8 InternVideo2 GEMMs (K10:
    fused_norm_quant_gemm for qkv with qk_norm and fc1 with GELU,
@@ -308,13 +315,14 @@ def short_entry(mangled: str) -> str:
     return re.sub(r"(E+)v?[PN0-9].*$", r"\1", mangled)
 
 
-SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "HMMA", "IMMA")
+SASS_OPS = ("HGMMA", "IGMMA", "UTMALDG", "UBLKCP", "HMMA", "IMMA")
 
 
 def sass_counts(text: str) -> dict:
     """{short entry name: {opcode: count}} for the SASS opcodes in SASS_OPS,
     from `cuobjdump -sass` output: wgmma is HGMMA (bf16) or IGMMA (int8),
-    a TMA tensor load UTMALDG, mma.sync HMMA (bf16) or IMMA (int8)."""
+    a TMA tensor load UTMALDG, a bulk copy (cp.async.bulk) UBLKCP, mma.sync
+    HMMA (bf16) or IMMA (int8)."""
     counts, cur = {}, None
     for line in text.splitlines():
         found = re.match(r"\s*Function\s*:\s*(\S+)", line)
@@ -329,30 +337,45 @@ def sass_counts(text: str) -> dict:
     return counts
 
 
-# the kernels whose SASS must show wgmma and TMA loads and no mma.sync:
-# (library, entry-name fragment, wgmma opcode)
-SASS_REQUIRED = (("libflash_fwd.so", "flash_fwd_kernel", "HGMMA"),
-                 ("libflash_bwd.so", "flash_bwd_dq_kernel", "HGMMA"),
-                 ("libflash_bwd.so", "flash_bwd_dkv_kernel", "HGMMA"),
-                 ("libfused_block.so", "gemm_kernel", "IGMMA"))
+# the kernels whose SASS is held to a rule: (library, entry-name fragment,
+# groups of opcodes each of which must count one, opcodes that must not
+# appear). The flash kernels and the fused-block GEMM: wgmma and TMA loads,
+# no mma.sync; the int8-cache attention (K8, K4): bulk copies, and K8's
+# products on tensor cores
+_WGMMA_RULE = (("UTMALDG",),)
+SASS_REQUIRED = (
+    ("libflash_fwd.so", "flash_fwd_kernel", (("HGMMA",),) + _WGMMA_RULE,
+     ("HMMA", "IMMA")),
+    ("libflash_bwd.so", "flash_bwd_dq_kernel", (("HGMMA",),) + _WGMMA_RULE,
+     ("HMMA", "IMMA")),
+    ("libflash_bwd.so", "flash_bwd_dkv_kernel", (("HGMMA",),) + _WGMMA_RULE,
+     ("HMMA", "IMMA")),
+    ("libfused_block.so", "gemm_kernel", (("IGMMA",),) + _WGMMA_RULE,
+     ("HMMA", "IMMA")),
+    ("libverify_attention_int8.so", "attention_kernel",
+     (("HMMA", "HGMMA"), ("UBLKCP", "UTMALDG")), ()),
+    ("libdecode_attention_int8.so", "attention_kernel",
+     (("UBLKCP", "UTMALDG"),), ()))
 
 
 def sass_ok(lib: str, name: str, c: dict):
     """None where no rule names the kernel, else whether its opcode counts
-    pass: wgmma of the rule's type and TMA loads, no mma.sync."""
-    for rule_lib, frag, op in SASS_REQUIRED:
+    pass its rule."""
+    for rule_lib, frag, needs, forbid in SASS_REQUIRED:
         if lib == rule_lib and frag in name:
-            return (c[op] > 0 and c["UTMALDG"] > 0 and c["HMMA"] == 0
-                    and c["IMMA"] == 0)
+            return (all(any(c[op] > 0 for op in group) for group in needs)
+                    and not any(c[op] for op in forbid))
     return None
 
 
 def sass_phase(kernels) -> None:
     """One [sass] line per kernel library (its opcode totals), one per
     instantiation of the flash forward (K1/K2/M2), the flash backward's two
-    kernels (K7) and the fused-block GEMM (K10); fails unless each of those
-    runs wgmma (HGMMA for bf16, IGMMA for int8) and TMA loads (UTMALDG) and
-    none runs mma.sync (HMMA, IMMA), and each rule finds a kernel."""
+    kernels (K7), the fused-block GEMM (K10) and the int8-cache attention
+    (K4, K8); fails unless each of those passes its rule in SASS_REQUIRED
+    (wgmma of its type and TMA loads and no mma.sync; K8 mma.sync or wgmma
+    and bulk or TMA copies, K4 bulk or TMA copies) and each rule finds a
+    kernel."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     libs = sorted({k.library_path() for k in kernels.values()})
     bad, seen = [], set()
@@ -367,17 +390,17 @@ def sass_phase(kernels) -> None:
             ok = sass_ok(lib.name, name, c)
             if ok is None:
                 continue
-            seen |= {(r, f) for r, f, _ in SASS_REQUIRED
+            seen |= {(r, f) for r, f, *_ in SASS_REQUIRED
                      if r == lib.name and f in name}
             log(f"[sass] {lib.name} {name}: "
                 + " ".join(f"{op}={n}" for op, n in c.items())
                 + f" {'OK' if ok else 'FAIL'}")
             if not ok:
                 bad.append(name)
-    missing = {(r, f) for r, f, _ in SASS_REQUIRED} - seen
+    missing = {(r, f) for r, f, *_ in SASS_REQUIRED} - seen
     if bad or missing:
-        raise AssertionError(f"kernels without wgmma or TMA, or with "
-                             f"mma.sync: {bad}; no kernel for {missing}")
+        raise AssertionError(f"kernels failing their [sass] rule: {bad}; "
+                             f"no kernel for {missing}")
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -1013,9 +1036,14 @@ def ragged_valid(torch, B, L, seed):
 
 
 def check_attention(torch, da, name, B, H, Hkv, D, L, *, S=None, layers=1,
-                    timed=False, seed=0, empty=False, window=False):
+                    timed=False, seed=0, empty=False, window=False,
+                    holes=False):
     """K4 (S None: one query per row, a [B, L] mask) or K8 (S queries per
-    row, per-query masks, verify_mask) against its plain version."""
+    row, per-query masks, verify_mask) against its plain version, launched
+    twice (the two outputs must be bit-equal). holes: the last row also
+    loses slots 512..1,023 and 1,280..1,407, whole chunks of 128 that no
+    query sees. Timed: graph replays over `layers` buffers on this mask and
+    on one where every slot is visible."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
 
@@ -1042,76 +1070,129 @@ def check_attention(torch, da, name, B, H, Hkv, D, L, *, S=None, layers=1,
         kernel_fn, plain_fn = (da.verify_attention_int8,
                                da.verify_attention_int8_reference)
         counter, what = da.VERIFY_ATTENTION_INT8, "verify_attention_int8"
+    if holes:
+        mask[-1, ..., 512:1024] = False
+        mask[-1, ..., 1280:1408] = False
     scale = D ** -0.5
+    masks = {"": mask}
 
-    def kernel(i=0):
-        return kernel_fn(q, k8[i], ks[i], v8[i], vs[i], mask, kn, vn,
+    def kernel(i=0, m=""):
+        return kernel_fn(q, k8[i], ks[i], v8[i], vs[i], masks[m], kn, vn,
                          scale=scale)
 
-    def plain(i=0):
-        return plain_fn(q, k8[i], ks[i], v8[i], vs[i], mask, kn, vn,
+    def plain(i=0, m=""):
+        return plain_fn(q, k8[i], ks[i], v8[i], vs[i], masks[m], kn, vn,
                         scale=scale)
 
     before = counter.launches
-    o, o_ref = kernel(), plain()
+    o, o_ref, o2 = kernel(), plain(), kernel()
     torch.cuda.synchronize()
+    same = torch.equal(o, o2)
     do = o.float() - o_ref.float()
     err = float(do.abs().max())
     rel = float(torch.linalg.vector_norm(do)
                 / torch.linalg.vector_norm(o_ref.float()))
     row = float((torch.linalg.vector_norm(do, dim=-1)
                  / torch.linalg.vector_norm(o_ref.float(), dim=-1)).max())
-    ok = (rel <= BOUND_ATTN_REL and row <= BOUND_ATTN_ROW
+    ok = (rel <= BOUND_ATTN_REL and row <= BOUND_ATTN_ROW and same
           and bool(torch.isfinite(o).all())
-          and counter.launches == before + 1)
-    masks = mask.view(B, n_q, L)
-    # the slots this data needs: those any query of the row can see
-    n_need = int(masks.any(dim=1).sum())
-    pairs = int(masks.sum()) + B * n_q * (n_q + 1) // 2    # (query, key)
+          and counter.launches == before + 2)
+    plan = da.attention_plan(B, Hkv, H // Hkv, n_q, L, D)
     line = (f"[kernel] {what} {name:<10} B={B} S={n_q} H={H} Hkv={Hkv} "
-            f"D={D} L={L} slots_read={n_need} max|do|={err:.3e} "
-            f"rel|do|={rel:.3e} (<= {BOUND_ATTN_REL}) max per (row, head, "
-            f"query) rel|do|={row:.3e} (<= {BOUND_ATTN_ROW:.3e})")
+            f"D={D} L={L} cluster={plan.cluster} "
+            f"slots/block={plan.slots_per_block} stages={plan.stages} "
+            f"smem={plan.smem} slots_read={needed_slots(mask, B, n_q, L)} "
+            f"max|do|={err:.3e} rel|do|={rel:.3e} (<= {BOUND_ATTN_REL}) max "
+            f"per (row, head, query) rel|do|={row:.3e} (<= "
+            f"{BOUND_ATTN_ROW:.3e}) two_launches_bit_equal={same}")
     out = {"err": err}
     if timed:
+        masks["all"] = torch.ones_like(mask)
+        for m, key in (("", ""), ("all", "all_")):
+            n_need = needed_slots(masks[m], B, n_q, L)
+            pairs = int(masks[m].sum()) + B * n_q * (n_q + 1) // 2
+            out[key + "ms"] = graph_ms(
+                torch, lambda: [kernel(i, m) for i in range(layers)]) / layers
+            # the needed slots and their scales, the mask, q / k_new / v_new
+            # read and the output written
+            out[key + "bytes"] = (Hkv * n_need * (2 * D + 8) + B * n_q * L
+                                  + 2 * (2 * B * n_q * H * D
+                                         + 2 * B * n_q * Hkv * D))
+            out[key + "ops"] = 4 * D * H * pairs
         out["call_ms"] = cuda_ms(
             torch, lambda: [kernel(i) for i in range(layers)], 10) / layers
-        out["ms"] = graph_ms(
-            torch, lambda: [kernel(i) for i in range(layers)]) / layers
         out["plain_ms"] = graph_ms(
             torch, lambda: [plain(i) for i in range(layers)], 5) / layers
-        # the needed slots and their scales, the mask, q / k_new / v_new
-        # read and the output written
-        out["bytes"] = (Hkv * n_need * (2 * D + 8) + B * n_q * L
-                        + 2 * (2 * B * n_q * H * D + 2 * B * n_q * Hkv * D))
-        out["ops"] = 4 * D * H * pairs
         bms, by = bound_ms(out["bytes"], out["ops"], BF16_OPS)
+        ams, _ = bound_ms(out["all_bytes"], out["all_ops"], BF16_OPS)
         line += (f" kernel_ms={out['ms']:.4f} (with the host's launch: "
                  f"{out['call_ms']:.4f}) plain_ms={out['plain_ms']:.4f}"
-                 f" bound_ms={bms:.4f} ({by}) over {layers} layers")
+                 f" bound_ms={bms:.4f} ({by}, {bms / out['ms']:.1%} reached)"
+                 f" every_slot_visible: kernel_ms={out['all_ms']:.4f} "
+                 f"bound_ms={ams:.4f} ({ams / out['all_ms']:.1%}) over "
+                 f"{layers} layers")
     log(line + f" {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{what} {name}: kernel disagrees with the "
-                             "plain version")
+                             "plain version or two launches differ")
     del k8, ks, v8, vs
     torch.cuda.empty_cache()
     return out
 
 
-def attention_phase(torch, da, cfg, max_len):
+def needed_slots(mask, B, n_q, L) -> int:
+    """The slots this data needs: those some query of the row can see."""
+    return int(mask.view(B, n_q, L).any(dim=1).sum())
+
+
+def check_conversion(torch, cuda_build) -> None:
+    """The int8 -> bf16 conversion K4 and K8 run (i8x4_to_bf16, through its
+    own C entry) on every byte value at each of the four positions of a
+    word: equal to torch's conversion."""
+    import ctypes
+    conv = cuda_build.CudaKernel(
+        "decode_attention_int8.cu", "gvllm_int8_to_bf16",
+        [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    cuda_build.REGISTRY.remove(conv)
+    x = torch.arange(-128, 128, dtype=torch.int16).to(torch.int8)
+    x = torch.cat([x.roll(r) for r in range(4)]).cuda()
+    y = torch.empty(x.numel(), dtype=torch.bfloat16, device="cuda")
+    conv(x.data_ptr(), y.data_ptr(), x.numel(),
+         torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    same = torch.equal(y, x.to(torch.bfloat16))
+    log(f"[kernel] int8 -> bf16 conversion of K4/K8: 256 byte values at 4 "
+        f"positions equal to torch's: {same} {'OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("the int8 -> bf16 conversion is not exact")
+
+
+# K4 beyond the path's B = 1 and B = 6 (G 1, D 96): the other G and D the C
+# entry launches, L off the cluster's slot grid, whole chunks no query sees,
+# and an L past the one-block design's cap (G * L * 4 <= 187 KB: 47,872 at
+# G 1, 5,984 at G 8)
+ATTENTION_CASES = (
+    ("gqa_d128", dict(B=2, H=32, Hkv=8, D=128, L=1000)),
+    ("g2_d32", dict(B=2, H=16, Hkv=8, D=32, L=1037)),
+    ("g8_d64", dict(B=2, H=32, Hkv=4, D=64, L=3001, holes=True)),
+    ("long", dict(B=1, H=8, Hkv=8, D=96, L=60000)),
+    ("g8_long", dict(B=1, H=16, Hkv=2, D=128, L=8000)))
+
+
+def attention_phase(torch, da, cfg, max_len, cuda_build):
     L = cfg.llm
+    check_conversion(torch, cuda_build)
     k4 = Family("decode_attention_int8")
     for B in (1, 6):
-        timed = B == 6
         r = check_attention(torch, da, f"b{B}", B, L.num_heads,
                             L.num_kv_heads, L.head_dim, max_len,
-                            layers=L.num_layers if timed else 1, timed=timed,
-                            seed=30 + B)
+                            layers=L.num_layers, timed=True, seed=30 + B)
         k4.max_err = max(k4.max_err, r["err"])
-        if timed:
+        if B == 6:
             k4.add(L.num_layers, r["ms"], r["plain_ms"], r["bytes"], r["ops"])
-    r = check_attention(torch, da, "gqa_d128", 2, 32, 8, 128, 1000, seed=39)
-    k4.max_err = max(k4.max_err, r["err"])
+    for i, (name, kw) in enumerate(ATTENTION_CASES):
+        r = check_attention(torch, da, name, seed=39 + i, **kw)
+        k4.max_err = max(k4.max_err, r["err"])
     bms, by = k4.bound()
     log(f"[kernel] decode_attention_int8 per decode step of mode A (32 "
         f"launches, B=6): kernel {k4.ms:.3f} ms, plain {k4.plain_ms:.3f} ms, "
@@ -1227,10 +1308,30 @@ def verify_mask(torch, B, S, L, seed, *, empty=False, window=False):
     return mask.contiguous()
 
 
+# K8 beyond path D's shape (G 1, D 96, S 5): S = 1 and 8, the other G and D
+# the C entry launches, an empty cache mask, a window, L off the cluster's
+# slot grid, whole chunks no query sees, more than 32 queries (two value
+# passes), and L past the one-block design's cap (Q * L fp32 scores in 227
+# KB: 9,985 at Q 5, D 96; 2,363 at Q 20, D 128)
+VERIFY_CASES = (
+    ("s1", dict(B=6, S=1, H=32, Hkv=32, D=96)),
+    ("s8", dict(B=2, S=8, H=32, Hkv=32, D=96, L=1000)),
+    ("gqa4_d128", dict(B=2, S=8, H=32, Hkv=8, D=128, L=1000)),
+    ("empty", dict(B=2, S=SPEC_DRAFT_LEN + 1, H=32, Hkv=32, D=96, L=640,
+                   empty=True)),
+    ("window", dict(B=2, S=SPEC_DRAFT_LEN + 1, H=32, Hkv=32, D=96, L=640,
+                    window=True)),
+    ("g2_d32", dict(B=2, S=3, H=16, Hkv=8, D=32, L=777)),
+    ("g8_d64", dict(B=2, S=5, H=32, Hkv=4, D=64, L=3001, holes=True)),
+    ("q40", dict(B=1, S=5, H=64, Hkv=8, D=64, L=1000)),
+    ("q5_long", dict(B=1, S=5, H=8, Hkv=8, D=96, L=12000)),
+    ("q20_long", dict(B=1, S=5, H=32, Hkv=8, D=128, L=6000)))
+
+
 def verify_phase(torch, da, cfg, max_len, S_v):
-    """K8 at path D's shape (timed over 32 layers' buffers) and the cases:
-    S = 1, S = 8, GQA 4 with D = 128, an empty cache mask, a window. The
-    family's numbers are per verify pass (32 launches)."""
+    """K8 at path D's shape (timed over 32 layers' buffers) and
+    VERIFY_CASES (L: max_len where a case names none). The family's
+    numbers are per verify pass (32 launches)."""
     L = cfg.llm
     k8 = Family("verify_attention_int8")
     r = check_attention(torch, da, "path_D", 6, L.num_heads, L.num_kv_heads,
@@ -1238,21 +1339,30 @@ def verify_phase(torch, da, cfg, max_len, S_v):
                         timed=True, seed=70)
     k8.add(L.num_layers, r["ms"], r["plain_ms"], r["bytes"], r["ops"])
     k8.max_err = r["err"]
-    for i, (name, kw) in enumerate((
-            ("s1", dict(B=6, S=1, H=32, Hkv=32, D=96, L=max_len)),
-            ("s8", dict(B=2, S=8, H=32, Hkv=32, D=96, L=1000)),
-            ("gqa4_d128", dict(B=2, S=8, H=32, Hkv=8, D=128, L=1000)),
-            ("empty", dict(B=2, S=S_v, H=32, Hkv=32, D=96, L=640,
-                           empty=True)),
-            ("window", dict(B=2, S=S_v, H=32, Hkv=32, D=96, L=640,
-                            window=True)))):
-        r = check_attention(torch, da, name, seed=71 + i, **kw)
+    for i, (name, kw) in enumerate(VERIFY_CASES):
+        r = check_attention(torch, da, name, seed=71 + i,
+                            **dict({"L": max_len}, **kw))
         k8.max_err = max(k8.max_err, r["err"])
     bms, by = k8.bound()
     log(f"[kernel] verify_attention_int8 per verify pass of path D "
         f"({L.num_layers} launches, B=6, S={S_v}): kernel {k8.ms:.3f} ms, "
         f"plain {k8.plain_ms:.3f} ms, bound {bms:.3f} ms ({by})")
     return k8
+
+
+def attention_instantiations(cfg):
+    """(C entry, D) of every attention_kernel the K4 and K8 cases launch,
+    and the q heads per kv head (G) each entry's cases reach."""
+    L = cfg.llm
+    path = dict(H=L.num_heads, Hkv=L.num_kv_heads, D=L.head_dim)
+    cases = {"decode_attention_int8": [path] + [kw for _, kw in
+                                                ATTENTION_CASES],
+             "verify_attention_int8": [path] + [kw for _, kw in
+                                                VERIFY_CASES]}
+    dims = {(entry, kw["D"]) for entry, kws in cases.items() for kw in kws}
+    groups = {entry: {kw["H"] // kw["Hkv"] for kw in kws}
+              for entry, kws in cases.items()}
+    return dims, groups
 
 
 # ---------------------------------------------------------------------------
@@ -2790,7 +2900,7 @@ def main() -> int:
         + cfg.num_video_tokens
     k7 = flash_bwd_phase(torch, fa, cfg, S_train)
     k3, k6 = gemv_phase(torch, mm, cfg)
-    k4 = attention_phase(torch, da, cfg, max_len)
+    k4 = attention_phase(torch, da, cfg, max_len, cuda_build)
     k5 = write_phase(torch, cw, cfg, max_len)
     k8 = verify_phase(torch, da, cfg, max_len_spec, S_v)
     k9 = write_phase(torch, cw, cfg, max_len_spec, S_v)

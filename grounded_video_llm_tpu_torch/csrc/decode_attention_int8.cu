@@ -15,293 +15,82 @@
 //   out[d] = (sum_i v8[i][d] * pv_i + p_new * v_new[d]) / (sum_i p_i + p_new)
 //   in bf16. The new slot is always valid, so a row never dies.
 //
-// What bounds it on an H100: every cache byte is read once per step and used
-// for ~2 operations per head in the group, far below the ridge, so the cache
-// stream is the limit: 147.5 MB at B = 6, L = 3,840, 32 heads of 96 -> 44 us.
+// What bounds it on an H100: every cache byte is read at most once per step
+// and used for ~2 operations per head in the group, far below the ridge, so
+// the cache stream is the limit. Counting every slot: 147.5 MB at B = 6,
+// L = 3,840, 32 heads of 96 -> 44 us at 3.35 TB/s. Counting only the slots
+// some query sees, as chip_smoke's bound does (the kernel never loads a
+// chunk of 128 slots no query sees): 0.0349 ms on its ragged test mask.
 //
-// Design. One block of 8 warps per (b, kv head) serves the G query heads of
-// the group. Pass 1: each warp takes four slots at a time, eight lanes per
-// slot, each lane reading D/32 contiguous 4-byte words of its slot (four
-// coalesced rows per warp instruction); the dot is reduced over the eight
-// lanes with three shuffles; scores stay in shared memory (G * L floats,
-// dynamic shared memory). Pass 2: threads over slots form p and
-// bf16(p * vs) in place and sum p. Pass 3: the same slot walk, each lane
-// accumulating sum v8 * pv over its columns; slot groups and warps are
-// reduced with shuffles and shared memory. D must be a multiple of 32.
-// Two passes over the scores keep the exact global-max softmax of the
-// Pallas kernel (pv is rounded after subtracting the final max). At B = 1
-// there are only 32 blocks for 132 SMs; splitting the slots across blocks
-// is later work.
+// Design: int8_attention.cuh, the kernel K8 runs too, with S = 1 and K4's
+// order of normalisation (pv = bf16(p * vs) with the cluster's global max,
+// the partial denominators added in rank order at the end). A thread-block
+// cluster per (b, kv head) splits the slots; each block bulk-copies its
+// visible chunks of K and V into shared memory, scores them on tensor cores
+// (mma.sync bf16; the int8 bytes become bf16 with two logic ops and a
+// packed subtraction a pair), exchanges its row maxima through distributed
+// shared memory and sums pv * v on tensor cores; the blocks' partial outputs
+// are added in rank order. At B = 6, L = 3,840 a row is a cluster of 2
+// blocks (384 blocks, where the one-block design had 192); at B = 1 one of 8
+// (256 blocks, where it had 32). The cap on L: the one-block design kept
+// G * L fp32 scores in one block (L <= 47,872 / G); a block now keeps 1/16
+// of a row's scores and mask bits (L <= 827,392 at G = 1, D = 96; 102,400 at
+// G = 8, D = 128; the header states the plan).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <float.h>
-#include <stdint.h>
-
-namespace {
-
-typedef __nv_bfloat16 bf16;
-
-constexpr int THREADS = 256;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_D = 128;
-constexpr int MAX_WPL = MAX_D / 32;   // 4-byte words per lane, D % 32 == 0
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// sum over the 8 lanes of a slot group
-__device__ __forceinline__ float group8_sum(float v) {
-#pragma unroll
-  for (int off = 4; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
-}
-
-__device__ __forceinline__ void bf16x4(const bf16* p, float out[4]) {
-  const uint2 u = *reinterpret_cast<const uint2*>(p);
-  out[0] = __uint_as_float(u.x << 16);
-  out[1] = __uint_as_float(u.x & 0xFFFF0000u);
-  out[2] = __uint_as_float(u.y << 16);
-  out[3] = __uint_as_float(u.y & 0xFFFF0000u);
-}
-
-__device__ __forceinline__ void i8x4(int word, float out[4]) {
-  out[0] = (float)(int8_t)(word & 0xFF);
-  out[1] = (float)(int8_t)((word >> 8) & 0xFF);
-  out[2] = (float)(int8_t)((word >> 16) & 0xFF);
-  out[3] = (float)(int8_t)((word >> 24) & 0xFF);
-}
-
-template <int G>
-__global__ void __launch_bounds__(THREADS)
-decode_kernel(const bf16* __restrict__ q, const int8_t* __restrict__ k8,
-              const float* __restrict__ ks, const int8_t* __restrict__ v8,
-              const float* __restrict__ vs, const uint8_t* __restrict__ valid,
-              const bf16* __restrict__ k_new, const bf16* __restrict__ v_new,
-              bf16* __restrict__ out, int Hkv, int L, int D, float scale) {
-  extern __shared__ float s[];                   // [G][L]
-  __shared__ float red[WARPS][G][MAX_D];
-  __shared__ float stat[WARPS][G];
-  __shared__ float s_new[G], m_row[G], denom[G];
-
-  const int b = blockIdx.x / Hkv, hk = blockIdx.x % Hkv;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  // a warp walks 4 slots at a time: 8 lanes per slot, each lane owning
-  // WPL = D / 32 consecutive 4-byte words (columns sub*4*WPL ...)
-  const int sg = lane >> 3, sub = lane & 7;
-  const int wpl = D >> 5;
-  const int col0 = sub * 4 * wpl;
-  const size_t head = (size_t)b * Hkv + hk;       // cache row (b, hk)
-  const int8_t* kh = k8 + head * L * D;
-  const int8_t* vh = v8 + head * L * D;
-  const float* ksh = ks + head * L;
-  const float* vsh = vs + head * L;
-  const uint8_t* vm = valid + (size_t)b * L;
-  const int H = Hkv * G;
-
-  // this lane's columns of q (bf16 already, so also its bf16 rounding)
-  float qf[G][4 * MAX_WPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int w = 0; w < MAX_WPL; ++w) {
-      if (w < wpl) {
-        bf16x4(q + ((size_t)b * H + hk * G + g) * D + col0 + 4 * w, &qf[g][4 * w]);
-      } else {
-        qf[g][4 * w] = qf[g][4 * w + 1] = qf[g][4 * w + 2] = qf[g][4 * w + 3] = 0.f;
-      }
-    }
-
-  // the new slot's score (warp 0, slot group 0)
-  if (warp == 0) {
-    float kn[4 * MAX_WPL];
-#pragma unroll
-    for (int w = 0; w < MAX_WPL; ++w) {
-      if (w < wpl) {
-        bf16x4(k_new + head * D + col0 + 4 * w, &kn[4 * w]);
-      } else {
-        kn[4 * w] = kn[4 * w + 1] = kn[4 * w + 2] = kn[4 * w + 3] = 0.f;
-      }
-    }
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4 * MAX_WPL; ++c) part = fmaf(qf[g][c], kn[c], part);
-      part = group8_sum(part);
-      if (lane == 0) s_new[g] = part * scale;
-    }
-  }
-
-  // pass 1: scores of the cache slots, running max per lane
-  float mx[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) mx[g] = -FLT_MAX;
-  // the loop bound is warp-uniform: every lane reaches the shuffles
-  for (int base = warp * 4; base < L; base += WARPS * 4) {
-    const int i = base + sg;
-    const bool in = i < L;
-    int kw[MAX_WPL];
-    const int* row = reinterpret_cast<const int*>(kh + (size_t)i * D + col0);
-#pragma unroll
-    for (int w = 0; w < MAX_WPL; ++w) kw[w] = (in && w < wpl) ? __ldg(row + w) : 0;
-    const float ksc = in ? ksh[i] : 0.f;
-    const bool keep = in && vm[i] != 0;
-    float kv[4 * MAX_WPL];
-#pragma unroll
-    for (int w = 0; w < MAX_WPL; ++w) i8x4(kw[w], &kv[4 * w]);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float part = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4 * MAX_WPL; ++c) part = fmaf(qf[g][c], kv[c], part);
-      part = group8_sum(part);
-      const float sc = keep ? part * ksc * scale : -FLT_MAX;
-      mx[g] = fmaxf(mx[g], sc);
-      if (sub == 0 && in) s[g * L + i] = sc;
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float m = warp_max(mx[g]);
-    if (lane == 0) stat[warp][g] = m;
-  }
-  __syncthreads();
-  if (threadIdx.x < G) {
-    const int g = threadIdx.x;
-    float m = s_new[g];
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, stat[w][g]);
-    m_row[g] = m;
-  }
-  __syncthreads();
-
-  // pass 2: p_i = exp(s_i - m), the sum of p, and pv_i = bf16(p_i * vs_i)
-  float psum[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) psum[g] = 0.f;
-  for (int i = threadIdx.x; i < L; i += THREADS) {
-    const float vsc = vsh[i];
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float p = expf(s[g * L + i] - m_row[g]);
-      psum[g] += p;
-      s[g * L + i] = __bfloat162float(__float2bfloat16_rn(p * vsc));
-    }
-  }
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const float t = warp_sum(psum[g]);
-    if (lane == 0) stat[warp][g] = t;
-  }
-  __syncthreads();
-  if (threadIdx.x < G) {
-    const int g = threadIdx.x;
-    float t = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) t += stat[w][g];
-    denom[g] = t + expf(s_new[g] - m_row[g]);
-  }
-
-  // pass 3: sum_i v8[i] * pv_i over this lane's columns
-  float acc[G][4 * MAX_WPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int c = 0; c < 4 * MAX_WPL; ++c) acc[g][c] = 0.f;
-  for (int i = warp * 4 + sg; i < L; i += WARPS * 4) {
-    int vw[MAX_WPL];
-    const int* row = reinterpret_cast<const int*>(vh + (size_t)i * D + col0);
-#pragma unroll
-    for (int w = 0; w < MAX_WPL; ++w) vw[w] = w < wpl ? __ldg(row + w) : 0;
-    float vv[4 * MAX_WPL];
-#pragma unroll
-    for (int w = 0; w < MAX_WPL; ++w) i8x4(vw[w], &vv[4 * w]);
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      const float pv = s[g * L + i];
-#pragma unroll
-      for (int c = 0; c < 4 * MAX_WPL; ++c) acc[g][c] = fmaf(vv[c], pv, acc[g][c]);
-    }
-  }
-  // the 4 slot groups of a warp hold the same columns: add them up
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int c = 0; c < 4 * MAX_WPL; ++c) {
-      float v = acc[g][c];
-      v += __shfl_xor_sync(0xffffffffu, v, 8);
-      v += __shfl_xor_sync(0xffffffffu, v, 16);
-      acc[g][c] = v;
-    }
-  if (sg == 0) {
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-#pragma unroll
-      for (int c = 0; c < 4 * MAX_WPL; ++c)
-        if (c < 4 * wpl) red[warp][g][col0 + c] = acc[g][c];
-  }
-  __syncthreads();
-  for (int t = threadIdx.x; t < G * D; t += THREADS) {
-    const int g = t / D, d = t % D;
-    float sum = 0.f;
-#pragma unroll
-    for (int w = 0; w < WARPS; ++w) sum += red[w][g][d];
-    const float p_new = expf(s_new[g] - m_row[g]);
-    const float vn = __bfloat162float(v_new[head * D + d]);
-    out[((size_t)b * H + hk * G + g) * D + d] =
-        __float2bfloat16_rn((sum + p_new * vn) / denom[g]);
-  }
-}
-
-template <int G>
-int launch(const void* q, const void* k8, const void* ks, const void* v8,
-           const void* vs, const void* valid, const void* k_new,
-           const void* v_new, void* out, int B, int Hkv, int L, int D,
-           float scale, cudaStream_t st) {
-  const size_t smem = (size_t)G * L * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      decode_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  decode_kernel<G><<<B * Hkv, THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const int8_t*>(k8),
-      static_cast<const float*>(ks), static_cast<const int8_t*>(v8),
-      static_cast<const float*>(vs), static_cast<const uint8_t*>(valid),
-      static_cast<const bf16*>(k_new), static_cast<const bf16*>(v_new),
-      static_cast<bf16*>(out), Hkv, L, D, scale);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
+#include "int8_attention.cuh"
 
 // q [B,H,D] bf16, k8/v8 [B,Hkv,L,D] int8, ks/vs [B,Hkv,L] fp32, valid [B,L]
-// bytes, k_new/v_new [B,Hkv,D] bf16 -> out [B,H,D] bf16. H = Hkv * G.
+// bytes, k_new/v_new [B,Hkv,D] bf16 -> out [B,H,D] bf16. H = Hkv * G,
+// G in {1, 2, 4, 8}, D in {32, 64, 96, 128}.
 extern "C" int gvllm_decode_attention_int8(
     const void* q, const void* k8, const void* ks, const void* v8,
     const void* vs, const void* valid, const void* k_new, const void* v_new,
     void* out, int B, int H, int Hkv, int L, int D, float scale,
     void* stream) {
-  if (B < 1 || Hkv < 1 || H % Hkv || L < 1 || D < 32 || D % 32 || D > MAX_D)
+  if (B < 1 || Hkv < 1 || H % Hkv || L < 1 || D < 32 || D % 32 || D > 128)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (H / Hkv) {
-    case 1: return launch<1>(q, k8, ks, v8, vs, valid, k_new, v_new, out, B, Hkv, L, D, scale, st);
-    case 2: return launch<2>(q, k8, ks, v8, vs, valid, k_new, v_new, out, B, Hkv, L, D, scale, st);
-    case 4: return launch<4>(q, k8, ks, v8, vs, valid, k_new, v_new, out, B, Hkv, L, D, scale, st);
-    case 8: return launch<8>(q, k8, ks, v8, vs, valid, k_new, v_new, out, B, Hkv, L, D, scale, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  const int G = H / Hkv;
+  if (G != 1 && G != 2 && G != 4 && G != 8) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.q = static_cast<const bf16*>(q);
+  a.k8 = static_cast<const int8_t*>(k8);
+  a.ks = static_cast<const float*>(ks);
+  a.v8 = static_cast<const int8_t*>(v8);
+  a.vs = static_cast<const float*>(vs);
+  a.mask = static_cast<const uint8_t*>(valid);
+  a.k_new = static_cast<const bf16*>(k_new);
+  a.v_new = static_cast<const bf16*>(v_new);
+  a.out = static_cast<bf16*>(out);
+  a.Hkv = Hkv;
+  a.G = G;
+  a.S = 1;
+  a.L = L;
+  a.scale = scale;
+  return run<false>(a, B, D, static_cast<cudaStream_t>(stream));
+}
+
+namespace {
+
+__global__ void convert_kernel(const uint32_t* in, uint32_t* out, int words) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= words) return;
+  uint32_t lo, hi;
+  i8x4_to_bf16(in[i], lo, hi);           // (b0, b2), (b1, b3)
+  out[2 * i] = __byte_perm(lo, hi, 0x5410);
+  out[2 * i + 1] = __byte_perm(lo, hi, 0x7632);
+}
+
+}  // namespace
+
+// The kernels' int8 -> bf16 conversion (i8x4_to_bf16) alone, for a check
+// of every byte value on the card: n int8 (a multiple of 4) -> n bf16, in
+// order.
+extern "C" int gvllm_int8_to_bf16(const void* in, void* out, int n,
+                                  void* stream) {
+  if (n < 4 || n % 4) return (int)cudaErrorInvalidValue;
+  const int words = n / 4;
+  convert_kernel<<<(words + 255) / 256, 256, 0,
+                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(in), static_cast<uint32_t*>(out), words);
+  return (int)cudaGetLastError();
 }

@@ -3,9 +3,10 @@
 Every kernel source lives in ``grounded_video_llm_tpu_torch/csrc/`` and has a
 plain C interface (no PyTorch headers, so nvcc takes seconds). At first use
 it is compiled with nvcc for ``sm_90a`` into
-``build/torch_kernels/<hash of source and flags>/lib<stem>.so`` under the
-repository root (gitignored) and loaded with ctypes. A source edit changes
-the hash, so a stale library is never loaded. Nothing is built when a module
+``build/torch_kernels/<hash of source, its headers and flags>/lib<stem>.so``
+under the repository root (gitignored) and loaded with ctypes. An edit of
+the source or of a header it includes from its own directory changes the
+hash, so a stale library is never loaded. Nothing is built when a module
 is imported.
 
 ``CudaKernel`` is one exported C entry point of such a library plus the
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -58,8 +60,10 @@ class CudaKernel:
         REGISTRY.append(self)
 
     def library_path(self) -> Path:
-        digest = hashlib.sha256(self.source.read_bytes()
-                                + " ".join(NVCC_FLAGS).encode())
+        text = self.source.read_bytes()
+        digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+        for name in sorted(set(re.findall(rb'#include "([^"]+)"', text))):
+            digest.update((self.source.parent / name.decode()).read_bytes())
         return (BUILD_ROOT / digest.hexdigest()[:16]
                 / f"lib{self.source.stem}.so")
 

@@ -6,9 +6,10 @@ of grounded_video_llm_tpu/ops/decode_attention_int8.py, ``_kernel`` and
 
 Cache layout (``models/llm.QuantKVCache``): values [L, B, Hkv, max_len, D]
 int8 with fp32 scales [L, B, Hkv, max_len], one scale per (slot, kv head).
-One slot's D bytes are contiguous, so a warp reads a slot in one coalesced
-row. (The JAX package's head-major transposed [.., D, max_len] layout is a
-TPU lane-padding choice; it has no use on the GPU.) A layer is a free view
+One slot's D bytes are contiguous, so the slots of a (batch row, kv head)
+are one contiguous run, which the kernels copy in chunks of 128 slots.
+(The JAX package's head-major transposed [.., D, max_len] layout is a TPU
+lane-padding choice; it has no use on the GPU.) A layer is a free view
 ``cache.k[l]`` [B, Hkv, max_len, D], so there is no layer-indexed twin.
 
 The math, including where it rounds (the kernel and the plain version
@@ -31,7 +32,7 @@ bit-equal to it. The output is in q's dtype.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,8 +40,83 @@ from .cuda_build import CudaKernel
 from .flash_attention import NEG_INF
 from .int8_matmul import quantize_rows
 
-# shared memory a block may use on an H100, less the kernel's static part
-_SMEM_BYTES = 227 * 1024 - 40 * 1024
+# the launch plan of csrc/int8_attention.cuh (make_plan), mirrored here so
+# the wrappers refuse what the C entries would and the CPU tests can hold it
+ATTN_CHUNK = 128          # slots a chunk: one bulk copy, one mask test
+ATTN_QG = 32              # queries a value pass
+ATTN_CMAX = 16            # blocks a cluster at most
+ATTN_TARGET_BLOCKS = 396  # blocks a grid aims for: one wave, three an SM
+ATTN_MIN_CHUNKS = 4       # chunks a block, where the grid allows
+_SMEM_TARGET = 74 * 1024   # three blocks an SM
+_SMEM_LIMIT = 227 * 1024
+
+
+class AttentionPlan(NamedTuple):
+    """One launch of K4 or K8: ``cluster`` blocks per (b, kv head) (grid
+    ``blocks`` = B * Hkv * cluster), ``slots_per_block`` consecutive slots
+    each (the last block of a row fewer), ``stages`` ring stages of
+    ATTN_CHUNK * (D + 4) bytes and ``smem`` bytes of dynamic shared
+    memory."""
+    cluster: int
+    blocks: int
+    slots_per_block: int
+    stages: int
+    smem: int
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _plan_with(c0, B, Hkv, G, S, L, D) -> Optional[AttentionPlan]:
+    Q = G * S
+    nch = -(-L // ATTN_CHUNK)
+    cpb = -(-nch // c0)
+    C = -(-nch // cpb)
+    P = min(cpb * ATTN_CHUNK, _round_up(L, 16)) + 8      # row pitch
+    items = cpb * (1 + -(-Q // ATTN_QG))
+    stage = ATTN_CHUNK * (D + 4) + 16     # rows, key scales, mbarriers
+    Qp = _round_up(Q, 8)
+    rest = (Q * P * 4 + _round_up(S * cpb * ATTN_CHUNK // 8, 16)
+            + Qp * D * 2 + min(Qp, ATTN_QG) * D * 4
+            + _round_up(Q * S * 4, 16) + _round_up(16 * Q, 16)
+            + _round_up(4 * cpb, 16))
+    n = min(max((_SMEM_TARGET - rest) // stage, 2), items)
+    if rest + n * stage > _SMEM_LIMIT:
+        n = (_SMEM_LIMIT - rest) // stage
+    if n < 1:
+        return None
+    return AttentionPlan(C, B * Hkv * C, cpb * ATTN_CHUNK, n, rest + n * stage)
+
+
+def attention_plan(B: int, Hkv: int, G: int, S: int, L: int,
+                   D: int) -> Optional[AttentionPlan]:
+    """The C entries' plan for q [B, S, Hkv * G, D] over L slots (K4: S = 1):
+    clusters of ATTN_TARGET_BLOCKS // (B * Hkv) blocks, but none so many
+    that a block gets fewer than ATTN_MIN_CHUNKS chunks (at least 1 block,
+    at most ATTN_CMAX and one a chunk), more while a block needs more than
+    _SMEM_TARGET of shared memory; None where not even ATTN_CMAX blocks fit
+    the 227 KB a block may have."""
+    nch = -(-L // ATTN_CHUNK)
+    top = min(nch, ATTN_CMAX)
+    c0 = min(ATTN_TARGET_BLOCKS // (B * Hkv), -(-nch // ATTN_MIN_CHUNKS))
+    for c0 in range(min(max(c0, 1), top), top + 1):
+        plan = _plan_with(c0, B, Hkv, G, S, L, D)
+        if plan is not None and (plan.smem <= _SMEM_TARGET or c0 == top):
+            return plan
+    return _plan_with(top, B, Hkv, G, S, L, D)
+
+
+def _check_plan(kernel: str, B, Hkv, G, S, L, D) -> None:
+    if attention_plan(B, Hkv, G, S, L, D) is None:
+        raise ValueError(
+            f"{kernel} kernel: G*S = {G * S} queries over L = {L} slots "
+            f"need more than {_SMEM_LIMIT} bytes of shared memory in each "
+            f"block of a {ATTN_CMAX}-block cluster (a block keeps L/"
+            f"{ATTN_CMAX} slots' scores and mask bits, 4*G*S + S/8 bytes a "
+            f"slot, plus at least one stage of {ATTN_CHUNK}*(D + 4) bytes); "
+            "too many (at D = 96 the cap is 827,392 slots for G*S = 1, "
+            "165,888 for 5)")
 
 
 def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -134,9 +210,7 @@ def _check_launch_args(q, k_q, k_s, v_q, v_s, valid_mask, k_new, v_new):
     if D % 32 or D > 128:
         raise ValueError(f"decode_attention_int8 kernel takes D in (32, 64, "
                          f"96, 128), got {D}")
-    if G * L * 4 > _SMEM_BYTES:
-        raise ValueError(f"decode_attention_int8 kernel keeps G*L = {G * L} "
-                         "scores in shared memory; too many")
+    _check_plan("decode_attention_int8", B, Hkv, G, 1, L, D)
 
 
 def decode_attention_int8(q, k_q, k_s, v_q, v_s, valid_mask, k_new, v_new,
@@ -203,18 +277,6 @@ VERIFY_ATTENTION_INT8 = CudaKernel(
     [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_float]
     + [ctypes.c_void_p])
 
-_VERIFY_THREADS, _VERIFY_QC = 256, 8
-
-
-def verify_smem_bytes(G: int, S: int, L: int, D: int) -> int:
-    """Shared memory of one K8 block: scores, q, new-token scores and the
-    value pass's partial sums (csrc/verify_attention_int8.cu)."""
-    lanes = _VERIFY_THREADS // (D // 4)
-    Q = G * S
-    scores = -(-Q * L // 4) * 4          # rounded up: q stays 16-byte aligned
-    return 4 * (scores + Q * D + Q * S + lanes * _VERIFY_QC * D)
-
-
 def _check_verify_args(q, k_q, k_s, v_q, v_s, mask, k_new, v_new):
     tensors = (q, k_q, k_s, v_q, v_s, mask, k_new, v_new)
     if any(t.device != q.device for t in tensors):
@@ -241,11 +303,7 @@ def _check_verify_args(q, k_q, k_s, v_q, v_s, mask, k_new, v_new):
     if D % 32 or D > 128:
         raise ValueError(f"verify_attention_int8 kernel takes D in (32, 64, "
                          f"96, 128), got {D}")
-    need = verify_smem_bytes(H // Hkv, S, L, D)
-    if need > 227 * 1024:
-        raise ValueError(f"verify_attention_int8 kernel keeps G*S*L = "
-                         f"{H // Hkv * S * L} scores in shared memory "
-                         f"({need} bytes); too many")
+    _check_plan("verify_attention_int8", B, Hkv, H // Hkv, S, L, D)
 
 
 def verify_attention_int8(q, k_q, k_s, v_q, v_s, mask, k_new, v_new, *,

@@ -172,7 +172,8 @@ def test_chip_smoke_reads_sass_opcodes():
 """
     got = cs.sass_counts(text)
     assert got["16flash_fwd_kernelILi88ELb0ELi1EEE"] == {
-        "HGMMA": 1, "IGMMA": 0, "UTMALDG": 2, "HMMA": 0, "IMMA": 0}
+        "HGMMA": 1, "IGMMA": 0, "UTMALDG": 2, "UBLKCP": 0, "HMMA": 0,
+        "IMMA": 0}
     assert got["14scatter_kernelE"]["HMMA"] == 1
 
 
@@ -197,8 +198,8 @@ def test_chip_smoke_reads_int8_wgmma_and_holds_each_rule():
 """
     got = cs.sass_counts(text)
     gemm = got["11gemm_kernelILi176ELi2EEE"]
-    assert gemm == {"HGMMA": 0, "IGMMA": 2, "UTMALDG": 1, "HMMA": 0,
-                    "IMMA": 0}
+    assert gemm == {"HGMMA": 0, "IGMMA": 2, "UTMALDG": 1, "UBLKCP": 0,
+                    "HMMA": 0, "IMMA": 0}
     assert cs.sass_ok("libfused_block.so", "11gemm_kernelILi176ELi2EEE",
                       gemm) is True
     dkv = got["20flash_bwd_dkv_kernelILi96ELb1EEE"]

@@ -444,7 +444,7 @@ def test_verify_attention_checks_refuse_unsupported_inputs(case):
         a[6] = torch.zeros(2, 2, 2, 64, dtype=torch.bfloat16)
     elif case == "too_many_scores":
         a = [t.to("meta") for t in _verify_args(S=8, H=32, Hkv=8, D=128,
-                                                L=3000)]
+                                                L=30000)]
     with pytest.raises((TypeError, ValueError)):
         da._check_verify_args(*a)
 

@@ -14,8 +14,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    counts, and one line for each instantiation of the 20 flash_fwd_kernels,
    the 16 flash backward kernels (dq and dk/dv) and the 12 fused-block GEMM
    kernels, each of which must run wgmma and TMA loads and no mma.sync,
-   and of the 8 int8-cache attention kernels (K4, K8: 4 head dims each),
-   which must run bulk (or TMA) copies, and K8's tensor-core products;
+   of the 8 int8-cache attention kernels (K4, K8: 4 head dims each),
+   which must run bulk (or TMA) copies, and K8's tensor-core products, and
+   of the 6 int8 decode product kernels (K3/K6: w8a8 and weight-only at 8,
+   16 and 32 rows), which must run TMA loads and mma.sync (IMMA, HMMA);
 3. each kernel against its plain PyTorch version at the serving path's
    shapes, with its error against a bound and CUDA-event medians of the
    kernel, the plain version and, where one PyTorch call computes the same
@@ -34,11 +36,17 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    B=2 with right paddings; GQA with 8 kv heads of 128, non-causal D=88, a
    window, an explicit q_offset, left padding with dead rows whose dq must
    be exactly 0, and the other (head dim, causal) instantiations; every
-   case launched twice, bit-equal); the one int8_matmul wrapper over its
-   two kernels, w8a8 (int8_gemv, K3's w8a8 branch) and weight-only
-   (int8_matmul, K6 and K3's weight-only branch): both at M 1 and 6 on the
-   four Phi-3.5 projections, weight-only also at M 1, 6, 255 on O 9216 and
-   the lm_head's 32,366; the int8 -> bf16 conversion of K4 and K8 on all
+   case launched twice, bit-equal); the one int8_matmul wrapper over the
+   two C entries of its kernel, w8a8 (int8_gemv, K3's w8a8 branch,
+   bit-equal to its plain version) and weight-only (int8_matmul, K6 and
+   K3's weight-only branch): both at M 1, 6, 30 and 255 on the four
+   Phi-3.5 projections, weight-only also at the same M on O 9216 and the
+   lm_head's 32,366, and both off the kernel's tile grids; every case
+   launched twice, bit-equal; one call of each branch under
+   torch.profiler must be one device kernel; timed per decode step (M 6
+   w8a8, M 1 weight-only) and per verify pass (M 30, lm_head included)
+   beside torch._int_mm and torch._weight_int8pack_mm; the int8 -> bf16
+   conversion of K4 and K8 on all
    256 byte values; decode_attention_int8 (K4: B 1 and 6, 32 heads of 96,
    3,840 slots, ragged masks, each timed on its mask and with every slot
    visible; ATTENTION_CASES: every G and D the C entry takes, L off the
@@ -341,7 +349,8 @@ def sass_counts(text: str) -> dict:
 # groups of opcodes each of which must count one, opcodes that must not
 # appear). The flash kernels and the fused-block GEMM: wgmma and TMA loads,
 # no mma.sync; the int8-cache attention (K8, K4): bulk copies, and K8's
-# products on tensor cores
+# products on tensor cores; the int8 decode products (K3, K6): TMA loads
+# and mma.sync, int8 (IMMA) for w8a8, bf16 (HMMA) for weight-only
 _WGMMA_RULE = (("UTMALDG",),)
 SASS_REQUIRED = (
     ("libflash_fwd.so", "flash_fwd_kernel", (("HGMMA",),) + _WGMMA_RULE,
@@ -355,7 +364,11 @@ SASS_REQUIRED = (
     ("libverify_attention_int8.so", "attention_kernel",
      (("HMMA", "HGMMA"), ("UBLKCP", "UTMALDG")), ()),
     ("libdecode_attention_int8.so", "attention_kernel",
-     (("UBLKCP", "UTMALDG"),), ()))
+     (("UBLKCP", "UTMALDG"),), ()),
+    ("libint8_matmul.so", "int8_mm_kernelILb1", (("IMMA",), ("UTMALDG",)),
+     ("HMMA", "HGMMA", "IGMMA")),
+    ("libint8_matmul.so", "int8_mm_kernelILb0", (("HMMA",), ("UTMALDG",)),
+     ("IMMA", "HGMMA", "IGMMA")))
 
 
 def sass_ok(lib: str, name: str, c: dict):
@@ -371,11 +384,12 @@ def sass_ok(lib: str, name: str, c: dict):
 def sass_phase(kernels) -> None:
     """One [sass] line per kernel library (its opcode totals), one per
     instantiation of the flash forward (K1/K2/M2), the flash backward's two
-    kernels (K7), the fused-block GEMM (K10) and the int8-cache attention
-    (K4, K8); fails unless each of those passes its rule in SASS_REQUIRED
-    (wgmma of its type and TMA loads and no mma.sync; K8 mma.sync or wgmma
-    and bulk or TMA copies, K4 bulk or TMA copies) and each rule finds a
-    kernel."""
+    kernels (K7), the fused-block GEMM (K10), the int8-cache attention
+    (K4, K8) and the int8 decode products (K3, K6); fails unless each of
+    those passes its rule in SASS_REQUIRED (wgmma of its type and TMA loads
+    and no mma.sync; K8 mma.sync or wgmma and bulk or TMA copies, K4 bulk
+    or TMA copies; K3/K6 TMA loads and mma.sync of the branch's type) and
+    each rule finds a kernel."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     libs = sorted({k.library_path() for k in kernels.values()})
     bad, seen = [], set()
@@ -903,12 +917,71 @@ def gemv_error(torch, y, y_ref):
                  / y_ref.float().abs().max().clamp_min(1e-30))
 
 
+GEMV_ROWS = (1, 6, 30, 255)   # decode (B = 1, 6), verify (6 x 5), the cap
+LM_HEAD_COPIES = 4            # 98 MB each at Phi-3.5's width: past the L2
+# shapes off the kernel's grids: O off the 128-column tiles (1,000 is
+# ragged for the weight-only branch, 1,008 the w8a8 branch's multiple of
+# 16) and D off the 64-row stages
+GEMV_EDGE_CASES = ((False, 1000, 3072), (True, 1008, 3072),
+                   (False, 1000, 1000), (True, 1008, 1000))
+# their rows: 12 takes the kernel's 16-row tiles, 40 two passes, one partial
+GEMV_EDGE_ROWS = (6, 12, 30, 40)
+
+
+def int8_weight(torch, mm, shape, g):
+    """Random int8 weights [..., D, O] on the card, stored as the quantizer
+    stores them (rows padded to 16 bytes where O is ragged)."""
+    w = torch.randint(-127, 128, shape, generator=g, device="cuda",
+                      dtype=torch.int8)
+    return mm.empty_int8_weight(shape, "cuda").copy_(w) if shape[-1] % 16 \
+        else w
+
+
+def gemv_library_ms(torch, x, w, s, layers, w8a8):
+    """(ms, what) of the one PyTorch call per layer that computes the
+    branch's product: torch._int_mm on the quantized rows (w8a8; it takes
+    more than 16 rows), torch._weight_int8pack_mm (weight-only; its weight
+    K-major, transposed once outside the timing, its scales bf16), or
+    (None, the error) where the card's build has no such call."""
+    M, D = x.shape
+    if w8a8:
+        x8 = torch.zeros(max(M, 17), D, dtype=torch.int8, device="cuda")
+        return graph_ms(torch, lambda: [torch._int_mm(x8, w[i])
+                                        for i in range(layers)]) / layers, \
+            "_int_mm"
+    try:
+        w_t = [w[i].t().contiguous() for i in range(layers)]
+        s_bf = s.bfloat16()
+        torch._weight_int8pack_mm(x, w_t[0], s_bf[0])
+        torch.cuda.synchronize()
+        return graph_ms(torch, lambda: [
+            torch._weight_int8pack_mm(x, w_t[i], s_bf[i])
+            for i in range(layers)]) / layers, "_weight_int8pack_mm"
+    except RuntimeError as e:
+        return None, f"_weight_int8pack_mm: {str(e).splitlines()[0][:100]}"
+
+
+def device_kernels(torch, fn):
+    """Names of the device kernels one call of fn runs, from a
+    torch.profiler window around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
 def check_gemv(torch, mm, name, M, D, O, *, layers=1, w8a8=False,
                timed=False, seed=0):
     """mm.int8_matmul vs its plain version on layer 0 of a stacked random
-    int8 weight [layers, D, O], and the branch's kernel counted the launch;
-    timed: CUDA-event medians of one pass over all layers (the decode step
-    streams them cold from HBM) → per-layer numbers."""
+    int8 weight [layers, D, O]: w8a8 bit-equal, weight-only within
+    BOUND_GEMV; launched twice, bit-equal, each launch counted by the
+    branch's kernel. timed: CUDA-graph replays of one pass over all layers
+    (the decode step streams them cold from HBM) → per-call numbers."""
     counter = mm.INT8_GEMV if w8a8 else mm.INT8_MATMUL
 
     def kernel(x, w, s):
@@ -919,23 +992,29 @@ def check_gemv(torch, mm, name, M, D, O, *, layers=1, w8a8=False,
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
-    w = torch.randint(-127, 128, (layers, D, O), generator=g, device="cuda",
-                      dtype=torch.int8)
+    w = int8_weight(torch, mm, (layers, D, O), g)
     s = torch.rand(layers, O, generator=g, device="cuda") * 1e-3 + 1e-4
     x = torch.randn(M, D, generator=g, device="cuda").to(torch.bfloat16)
     before = counter.launches
     y = kernel(x, w[0], s[0])
+    y2 = kernel(x, w[0], s[0])
     y_ref = plain(x, w[0], s[0])
     torch.cuda.synchronize()
     err = gemv_error(torch, y, y_ref)
-    ok = (err <= BOUND_GEMV and y.dtype == torch.bfloat16
-          and bool(torch.isfinite(y).all())
-          and counter.launches == before + 1)
+    exact = bool(torch.equal(y, y_ref))
+    twice = bool(torch.equal(y, y2))
+    ok = ((exact if w8a8 else err <= BOUND_GEMV) and twice
+          and y.dtype == torch.bfloat16 and bool(torch.isfinite(y).all())
+          and counter.launches == before + 2)
     out = {"err": float((y.float() - y_ref.float()).abs().max())}
+    plan = mm.int8_matmul_plan(M, D, O, w8a8)
     line = (f"[kernel] {name:<19} M={M} D={D} O={O} "
-            f"{'w8a8' if w8a8 else 'weight-only'} max|dy|={out['err']:.3e} "
-            f"max|dy|/max|y|={err:.3e} "
-            f"(<= {BOUND_GEMV:.3e})")
+            f"{'w8a8' if w8a8 else 'weight-only'} plan C={plan.cluster} "
+            f"stages={plan.stages}/{plan.stages_per_block} passes="
+            f"{plan.passes} smem={plan.smem} bit-equal={exact} "
+            f"max|dy|={out['err']:.3e} max|dy|/max|y|={err:.3e} "
+            f"({'bit-equal' if w8a8 else f'<= {BOUND_GEMV:.3e}'}) "
+            f"two-launches-bit-equal={twice}")
     if timed:
         def run(fn):
             return lambda: [fn(x, w[i], s[i]) for i in range(layers)]
@@ -943,75 +1022,111 @@ def check_gemv(torch, mm, name, M, D, O, *, layers=1, w8a8=False,
         out["call_ms"] = cuda_ms(torch, run(kernel), 10) / layers
         out["ms"] = graph_ms(torch, run(kernel)) / layers
         out["plain_ms"] = graph_ms(torch, run(plain), 5) / layers
-        if w8a8:
-            # the int8 x int8 dot alone as one PyTorch call: torch._int_mm
-            # takes more than 16 rows
-            x8 = torch.zeros(max(M, 17), D, dtype=torch.int8, device="cuda")
-            out["library_ms"] = graph_ms(
-                torch, lambda: [torch._int_mm(x8, w[i])
-                                for i in range(layers)]) / layers
+        out["library_ms"], lib = gemv_library_ms(torch, x, w, s, layers,
+                                                 w8a8)
         out["bytes"] = D * O + 4 * O + 2 * M * D + 2 * M * O
         out["ops"] = 2 * M * D * O
         bms, by = bound_ms(out["bytes"], out["ops"],
                            INT8_OPS if w8a8 else BF16_OPS)
         line += (f" kernel_ms={out['ms']:.4f} (with the host's launch: "
-                 f"{out['call_ms']:.4f}) plain_ms={out['plain_ms']:.4f}"
-                 + (f" int_mm_ms={out['library_ms']:.4f}" if w8a8 else "")
-                 + f" bound_ms={bms:.4f} ({by}) over {layers} layers")
+                 f"{out['call_ms']:.4f}) plain_ms={out['plain_ms']:.4f} "
+                 + (f"library_ms={out['library_ms']:.4f} ({lib})"
+                    if out["library_ms"] is not None else f"library none "
+                    f"({lib})")
+                 + f" bound_ms={bms:.4f} ({by}) over {layers} weight "
+                 "copies")
     log(line + f" {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} M={M} D={D} O={O}: kernel disagrees "
-                             "with the plain version")
+                             "with the plain version or with itself")
     del w, s, x
     torch.cuda.empty_cache()
     return out
 
 
 def gemv_phase(torch, mm, cfg):
-    """int8_matmul, both branches, at M 1 and 6 on the four Phi-3.5
-    projections (timed over 32 layers: w8a8 at M 6, mode A's decode step;
-    weight-only at M 1, a decode step of modes B and C), and weight-only at
-    M 1, 6, 255 on O 9216 and the vocabulary (timed: the lm_head at M 6).
-    The int8_matmul family's numbers are mode A's per step (the lm_head)."""
+    """int8_matmul, both branches, at M 1, 6, 30 and 255 on the four
+    Phi-3.5 projections, timed over 32 layers: w8a8 at M 6 (mode A's decode
+    step) and 30 (path D's verify pass), weight-only at M 1 (a decode step
+    of modes B and C); weight-only at the same M on O 9216 and the
+    vocabulary (timed: the lm_head at M 6 and 30); GEMV_EDGE_CASES; one
+    torch.profiler window over a call of each branch, which must hold
+    exactly one device kernel. The families' numbers are mode A's per step
+    (the 128 w8a8 projections; the lm_head)."""
     L = cfg.llm
-    D, I, V = L.hidden_size, L.intermediate_size, L.padded_vocab_size
+    D, V = L.hidden_size, L.padded_vocab_size
     shapes = {"qkv": (D, L.q_dim + 2 * L.kv_dim), "o": (L.q_dim, D),
-              "gate_up": (D, 2 * I), "down": (I, D)}
+              "gate_up": (D, 2 * L.intermediate_size),
+              "down": (L.intermediate_size, D)}
     k3, k6 = Family("int8_gemv"), Family("int8_matmul")
-    wo_step = Family("int8_matmul")      # modes B and C, printed only
+    # printed only: modes B and C's step, path D's pass, the lm_head at 30
+    wo_step, verify, k6_30 = (Family("int8_matmul"), Family("int8_gemv"),
+                              Family("int8_matmul"))
+    timed_fam = {(True, 6): k3, (True, 30): verify, (False, 1): wo_step}
 
     for j, (pname, (d, o)) in enumerate(shapes.items()):
         for w8a8 in (False, True):
             fam = k3 if w8a8 else k6
-            for M in (1, 6):
-                timed = M == (6 if w8a8 else 1)
+            for M in GEMV_ROWS:
+                tf = timed_fam.get((w8a8, M))
                 r = check_gemv(torch, mm, f"{fam.name} {pname}", M, d, o,
-                               layers=L.num_layers if timed else 1,
-                               w8a8=w8a8, timed=timed, seed=10 + j)
+                               layers=L.num_layers if tf else 1,
+                               w8a8=w8a8, timed=tf is not None, seed=10 + j)
                 fam.max_err = max(fam.max_err, r["err"])
-                if timed:
-                    (k3 if w8a8 else wo_step).add(
-                        L.num_layers, r["ms"], r["plain_ms"], r["bytes"],
-                        r["ops"], "int8" if w8a8 else "bf16",
-                        r.get("library_ms"))
-    for M in (1, 6, 255):
+                if tf:
+                    tf.add(L.num_layers, r["ms"], r["plain_ms"], r["bytes"],
+                           r["ops"], "int8" if w8a8 else "bf16",
+                           r["library_ms"])
+    for M in GEMV_ROWS:
         for o in (shapes["qkv"][1], V):
-            timed = M == 6 and o == V
-            r = check_gemv(torch, mm, "int8_matmul", M, D, o, timed=timed,
-                           seed=20 + M)
+            tf = {6: k6, 30: k6_30}.get(M) if o == V else None
+            # timed over LM_HEAD_COPIES copies of the weight, so that a
+            # graph replay's own cost is spread over as many calls
+            r = check_gemv(torch, mm, "int8_matmul lm_head" if o == V
+                           else "int8_matmul", M, D, o, timed=tf is not None,
+                           layers=LM_HEAD_COPIES if tf else 1, seed=20 + M)
             k6.max_err = max(k6.max_err, r["err"])
-            if timed:
-                k6.add(1, r["ms"], r["plain_ms"], r["bytes"], r["ops"])
-    for fam, what in ((k3, "mode A, 128 launches at M=6"),
-                      (k6, "mode A, the lm_head at M=6"),
-                      (wo_step, "modes B and C, 128 launches at M=1, "
-                       "without the lm_head")):
+            if tf:
+                tf.add(1, r["ms"], r["plain_ms"], r["bytes"], r["ops"],
+                       library_ms=r["library_ms"])
+    for w8a8, o, d in GEMV_EDGE_CASES:
+        fam = k3 if w8a8 else k6
+        for M in GEMV_EDGE_ROWS:
+            r = check_gemv(torch, mm, f"{fam.name} edge", M, d, o, w8a8=w8a8,
+                           seed=30 + M)
+            fam.max_err = max(fam.max_err, r["err"])
+    verify.add(1, k6_30.ms, k6_30.plain_ms, k6_30.bytes, k6_30.ops["bf16"],
+               library_ms=k6_30.library_ms)
+    if k6_30.library_ms is None:      # no library call for the whole pass
+        verify.library_ms = None
+    g = torch.Generator(device="cuda")
+    g.manual_seed(40)
+    x = torch.randn(6, D, generator=g, device="cuda").bfloat16()
+    for w8a8, (d, o) in ((True, shapes["qkv"]), (False, (D, V))):
+        w = int8_weight(torch, mm, (d, o), g)
+        s = torch.rand(o, generator=g, device="cuda") + 1e-4
+        names = device_kernels(torch, lambda: mm.int8_matmul(x, w, s, w8a8))
+        ok = len(names) == 1 and "int8_mm_kernel" in names[0]
+        log(f"[kernel] {'int8_gemv' if w8a8 else 'int8_matmul'} one call "
+            f"under torch.profiler: {len(names)} device kernel(s) {names} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("int8_matmul must run as one device kernel "
+                                 f"a call, saw {names}")
+    del x, w, s
+    for fam, what in ((k3, "mode A's step, 128 launches at M=6"),
+                      (k6, "mode A's step, the lm_head at M=6"),
+                      (wo_step, "modes B and C's step, 128 launches at M=1, "
+                       "without the lm_head"),
+                      (verify, "path D's verify pass, 128 launches at M=30 "
+                       "and the lm_head at M=30"),
+                      (k6_30, "the lm_head at M=30")):
         bms, by = fam.bound()
-        lib = (f"{fam.library_ms:.3f} ms" if fam.library_ms is not None
+        lib = (f"{fam.library_ms:.4f} ms" if fam.library_ms is not None
                else "none")
-        log(f"[kernel] {fam.name} per decode step ({what}): kernel "
-            f"{fam.ms:.3f} ms, plain {fam.plain_ms:.3f} ms, library {lib}, "
-            f"bound {bms:.3f} ms ({by})")
+        log(f"[kernel] {fam.name} per {what}: kernel {fam.ms:.4f} ms, "
+            f"plain {fam.plain_ms:.4f} ms, library {lib}, bound {bms:.4f} "
+            f"ms ({by}), {100 * bms / fam.ms:.1f}% of the bound reached")
     return k3, k6
 
 

@@ -80,6 +80,8 @@
 #include <float.h>
 #include <stdint.h>
 
+#include "int8_mma.cuh"
+
 namespace {
 
 typedef __nv_bfloat16 bf16;
@@ -183,139 +185,9 @@ struct Args {
 };
 
 // ---------------------------------------------------------------------------
-// device helpers
+// device helpers (the ones the int8 matrix products share are in
+// int8_mma.cuh)
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-__device__ __forceinline__ uint32_t bf16x2_sub(uint32_t a, uint32_t b) {
-  __nv_bfloat162 x, y;
-  *reinterpret_cast<uint32_t*>(&x) = a;
-  *reinterpret_cast<uint32_t*>(&y) = b;
-  const __nv_bfloat162 r = __hsub2(x, y);
-  return *reinterpret_cast<const uint32_t*>(&r);
-}
-
-// The int8 bytes b0..b3 of w as two bf16 pairs, exactly: lo = (b0, b2),
-// hi = (b1, b3), the first of each in the low half. A byte b is worth
-// (b & 0x7F) - 128 * (b >> 7); the bf16 0x4300 | (b & 0x7F) is
-// 128 + (b & 0x7F), 0x4300 | (b & 0x80) is 128 or 256, and their
-// difference, b's value, is a bf16 (no rounding): two logic ops and one
-// packed subtraction a pair, no I2F.
-__device__ __forceinline__ void i8x4_to_bf16(uint32_t w, uint32_t& lo,
-                                             uint32_t& hi) {
-  const uint32_t magic = 0x43004300u, odd = w >> 8;
-  lo = bf16x2_sub((w & 0x007F007Fu) | magic, (w & 0x00800080u) | magic);
-  hi = bf16x2_sub((odd & 0x007F007Fu) | magic, (odd & 0x00800080u) | magic);
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// c += a b: A 16x16 (row), B 16x8 (col), bf16, fp32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// spin until the barrier's phase of parity `parity` has completed; traps
-// after 2^28 polls (a pipeline fault) instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t polls = 0;; ++polls) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (polls == (1u << 28)) __trap();
-  }
-}
-
-// bytes (a multiple of 16) from global to shared memory, completed on bar
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-// all threads of every block of the cluster (release / acquire)
-__device__ __forceinline__ void cluster_sync() {
-  __syncwarp();
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// a float in the shared memory of the cluster's block `rank`, at the offset
-// `addr` has in this block's
-__device__ __forceinline__ float ld_cluster(uint32_t addr, int rank) {
-  uint32_t remote;
-  float v;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(remote)
-               : "r"(addr), "r"(rank));
-  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "r"(remote)
-               : "memory");
-  return v;
-}
 
 // *a = max(*a, v) for floats (ordered as ints by their sign bit); exact, so
 // the order of the atomics does not matter

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ..core.config import NUM_SPECIAL_TOKENS, VLMConfig, replace
-from ..ops.int8_matmul import Int8Embedding, Int8Weight
+from ..ops.int8_matmul import Int8Embedding, Int8Weight, empty_int8_weight
 from . import vlm
 
 _EMBED = ("llm", "embed")
@@ -82,13 +82,14 @@ def _int8_from_jax(path, pair: dict, shape, device):
                              f"{xs.dtype}{xs.shape}, expected "
                              f"float32{shape[:-2]}")
         xt = torch.from_numpy(xs.copy()).to(device)
-    qt = torch.from_numpy(q.copy()).to(device)
     st = torch.from_numpy(s.copy()).to(device)
     if path == _EMBED:
         if "w8a8" in pair:
             raise ValueError("params_from_jax: the embedding has no w8a8 "
                              "marker")
-        return Int8Embedding(qt, st)
+        return Int8Embedding(torch.from_numpy(q.copy()).to(device), st)
+    qt = empty_int8_weight(q.shape, device)
+    qt.copy_(torch.from_numpy(q.copy()))
     return Int8Weight(qt, st, "w8a8" in pair, xt)
 
 

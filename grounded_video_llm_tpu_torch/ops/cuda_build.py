@@ -5,9 +5,9 @@ plain C interface (no PyTorch headers, so nvcc takes seconds). At first use
 it is compiled with nvcc for ``sm_90a`` into
 ``build/torch_kernels/<hash of source, its headers and flags>/lib<stem>.so``
 under the repository root (gitignored) and loaded with ctypes. An edit of
-the source or of a header it includes from its own directory changes the
-hash, so a stale library is never loaded. Nothing is built when a module
-is imported.
+the source or of a header it includes from its own directory (or of one
+that header includes) changes the hash, so a stale library is never
+loaded. Nothing is built when a module is imported.
 
 ``CudaKernel`` is one exported C entry point of such a library plus the
 number of launches made through its Python wrapper (``launches``). Several
@@ -44,6 +44,17 @@ def _nvcc() -> str:
     return nvcc
 
 
+def _headers(source: Path, seen: Optional[set] = None) -> set:
+    """The headers ``source`` includes from its own directory, and theirs."""
+    seen = set() if seen is None else seen
+    for name in re.findall(rb'#include "([^"]+)"', source.read_bytes()):
+        header = source.parent / name.decode()
+        if header not in seen:
+            seen.add(header)
+            _headers(header, seen)
+    return seen
+
+
 class CudaKernel:
     """A ctypes-bound entry point ``symbol`` of the library built from
     ``csrc/<source>``. argtypes: the C signature (c_void_p for every pointer
@@ -62,8 +73,8 @@ class CudaKernel:
     def library_path(self) -> Path:
         text = self.source.read_bytes()
         digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
-        for name in sorted(set(re.findall(rb'#include "([^"]+)"', text))):
-            digest.update((self.source.parent / name.decode()).read_bytes())
+        for header in sorted(_headers(self.source)):
+            digest.update(header.read_bytes())
         return (BUILD_ROOT / digest.hexdigest()[:16]
                 / f"lib{self.source.stem}.so")
 

@@ -13,11 +13,18 @@ no layer-indexed twin.
 
 JAX's K3 (``int8_matmul_layer``) and K6 (``int8_matmul``) compute the same
 weight-only function; K3 adds a w8a8 branch. The port has one wrapper,
-``int8_matmul(x, w_q, scale, w8a8=False)``, over two kernels of
+``int8_matmul(x, w_q, scale, w8a8=False)``, over the two C entries of
 ``csrc/int8_matmul.cu``: weight-only (``INT8_MATMUL``) and w8a8
-(``INT8_GEMV``, K3's w8a8 branch). On CPU tensors the wrapper runs the plain
+(``INT8_GEMV``, K3's w8a8 branch), one launch a call, the launch plan
+mirrored by ``int8_matmul_plan``. On CPU tensors the wrapper runs the plain
 version; on CUDA tensors it launches the branch's kernel (counted in that
 kernel's ``launches``) or raises.
+
+The kernel reads the weights by TMA, which needs rows 16 bytes apart: an
+int8 weight whose O is not a multiple of 16 (the lm_head's padded
+vocabulary) is stored in rows of O rounded up to 16 bytes, and
+``Int8Weight.q`` is the [..., D, O] view of them (``empty_int8_weight``;
+the quantizer and the weight bridge make every int8 weight so).
 
 The plain version has the kernels' roundings: weight-only sums bf16 x times
 int8 w exactly in fp32, scales after the dot and rounds to x's dtype; w8a8
@@ -41,8 +48,16 @@ from .cuda_build import CudaKernel
 # kept for parity (models/llm._matmul_maybe_int8)
 INT8_GEMM_MIN_ROWS = 256
 
-_BLOCK_O = 128          # output columns per block in csrc/int8_matmul.cu
-_QUAD_LANES = 32        # 4-row groups walked in parallel by one block
+# csrc/int8_matmul.cu's launch plan (make_plan), mirrored by
+# int8_matmul_plan: columns a tile, weight rows a stage, x rows a pass,
+# blocks a cluster, blocks an SM (of an H100's 132) and the shared memory a
+# block aims at
+_BO, _BK, _MP, _CMAX, _CPORT = 128, 64, 32, 16, 8
+_TARGET_BLOCKS = 132 * 2
+_SMEM_TARGET = 112 * 1024
+_ALIGN = 1024           # a swizzled TMA box starts on 1,024 bytes
+_XBOX = 128             # x columns a TMA box, w8a8
+_OUT_PITCH = _BO + 4    # floats a row of a block's partial sums
 
 
 class Int8Weight(NamedTuple):
@@ -75,11 +90,23 @@ def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / xs).clamp_(-127, 127).to(torch.int8), xs
 
 
-def _quantize_2d(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def empty_int8_weight(shape, device=None) -> torch.Tensor:
+    """An uninitialised int8 weight [..., D, O] whose rows start a multiple
+    of 16 bytes apart, as the decode kernel's TMA reads them: where O % 16
+    != 0, the [..., :O] view of [..., D, O rounded up to 16] (the pad bytes
+    are never read); else a contiguous tensor."""
+    *lead, D, O = shape
+    pitch = -(-O // 16) * 16
+    return torch.empty(*lead, D, pitch, dtype=torch.int8,
+                       device=device)[..., :O]
+
+
+def _quantize_2d(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """Quantize w [D, O] into q (int8 [D, O]); return the scales."""
     wf = w.float()
     scale = (wf.abs().amax(dim=-2) / 127.0).clamp_min(1e-8)
-    q = torch.round(wf / scale[None, :]).clamp_(-127, 127).to(torch.int8)
-    return q, scale
+    q.copy_(torch.round(wf / scale[None, :]).clamp_(-127, 127))
+    return scale
 
 
 def quantize_weights_int8(w: torch.Tensor
@@ -87,17 +114,18 @@ def quantize_weights_int8(w: torch.Tensor
     """w [.., D, O] → (int8 values, fp32 scales [.., O]); symmetric absmax
     per output channel. A stacked weight is quantized one leading slice at
     a time (the scales are per slice), so no fp32 copy of the whole stack
-    is made."""
+    is made. The values are stored as ``empty_int8_weight`` lays them out."""
+    q = empty_int8_weight(w.shape, w.device)
     if w.dim() == 2:
-        return _quantize_2d(w)
+        return q, _quantize_2d(w, q)
     lead = w.shape[:-2]
     flat = w.reshape(-1, *w.shape[-2:])
-    q = torch.empty(flat.shape, dtype=torch.int8, device=w.device)
+    q_flat = q.view(-1, *w.shape[-2:])
     scale = torch.empty(flat.shape[0], w.shape[-1], dtype=torch.float32,
                         device=w.device)
     for i in range(flat.shape[0]):
-        q[i], scale[i] = _quantize_2d(flat[i])
-    return q.reshape(w.shape), scale.reshape(*lead, w.shape[-1])
+        scale[i] = _quantize_2d(flat[i], q_flat[i])
+    return q, scale.reshape(*lead, w.shape[-1])
 
 
 def _exact_int8_dot(x8: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
@@ -179,16 +207,12 @@ def int8_matmul_reference(x: torch.Tensor, w_q: torch.Tensor,
 # The kernels
 # ---------------------------------------------------------------------------
 
-# w8a8: gvllm_int8_gemv(x, w, scale, y, x8, xs, part, M, D, O, nsplit,
-#                       stream) -> cudaError_t
-INT8_GEMV = CudaKernel(
-    "int8_matmul.cu", "gvllm_int8_gemv",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-# weight-only: gvllm_int8_matmul(x, w, scale, y, part, M, D, O, nsplit,
-#                                stream)
-INT8_MATMUL = CudaKernel(
-    "int8_matmul.cu", "gvllm_int8_matmul",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+# gvllm_int8_gemv (w8a8) and gvllm_int8_matmul (weight-only): (x, w, ldw,
+# scale, y, M, D, O, stream) -> cudaError_t; ldw is w's row pitch in bytes
+_ARGTYPES = ([ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+             + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+INT8_GEMV = CudaKernel("int8_matmul.cu", "gvllm_int8_gemv", _ARGTYPES)
+INT8_MATMUL = CudaKernel("int8_matmul.cu", "gvllm_int8_matmul", _ARGTYPES)
 
 
 @functools.lru_cache(maxsize=None)
@@ -196,17 +220,54 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def _m_tile(M: int) -> int:
-    return 1 if M <= 1 else 2 if M <= 2 else 4 if M <= 4 else 6 if M <= 6 \
-        else 8
+class Int8MatmulPlan(NamedTuple):
+    """One launch of csrc/int8_matmul.cu: grid (tiles * cluster, passes)."""
+    rows: int               # x rows a pass, padded: 8, 16 or 32 (NP)
+    passes: int             # ceil(M / 32): each reads the weights once
+    tiles: int              # 128-column tiles
+    cluster: int            # blocks splitting D (C), summed in rank order
+    stages_per_block: int   # 64-row stages of a block's slice (spb)
+    stages: int             # the ring's stages
+    smem: int               # dynamic shared memory a block, bytes
 
 
-def _splits(M: int, D: int, O: int, sms: int) -> int:
-    """Split the D rows over enough blocks for two per SM; each split keeps
-    at least one pass of the block's 32 four-row groups."""
-    tiles = -(-O // _BLOCK_O) * -(-M // _m_tile(M))
-    want = -(-2 * sms // tiles)
-    return max(1, min(want, (D // 4) // _QUAD_LANES))
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def int8_matmul_plan(M: int, D: int, O: int,
+                     w8a8: bool) -> Optional[Int8MatmulPlan]:
+    """The launch plan of csrc/int8_matmul.cu (make_plan) for x [M, D] and
+    a [D, O] weight, or None where the kernel cannot take the shape: D % 8
+    != 0, w8a8 with O % 16 != 0, or a w8a8 slice of x (bf16 and int8) that
+    leaves no room for two stages in any cluster of up to 16 blocks.
+    Clusters of about 264 / (tiles * passes) blocks (one wave, two blocks an
+    SM), at most 8 unless shared memory needs more, no more than D's 64-row
+    stages; a block's slice of spb stages, as many of them in its ring as
+    fit in 112 KB."""
+    if M < 1 or D < 8 or D % 8 or O < 1 or (w8a8 and O % 16):
+        return None
+    NP = 8 if M <= 8 else 16 if M <= 16 else _MP
+    passes, tiles = -(-M // _MP), -(-O // _BO)
+    stage = _BK * _BO + (0 if w8a8 else NP * 128)
+    kst = -(-D // _BK)
+    top = min(kst, _CMAX)
+    c0 = min(max(min(_TARGET_BLOCKS // (tiles * passes), _CPORT), 1), top)
+    for c in range(c0, top + 1):
+        spb = -(-kst // c)
+        C = -(-kst // spb)
+        xb = NP * _round_up(spb * _BK, _XBOX) * 2 if w8a8 else 0
+        x8 = _round_up(NP * (spb * _BK + 32), 128) if w8a8 else 0
+        stat = ((_CMAX + 1) * _MP + _BO) * 4
+        n = min((_SMEM_TARGET - _ALIGN - xb - x8 - stat) // (stage + 16), spb)
+        if n < min(spb, 2):
+            continue
+        out = NP * _OUT_PITCH * 4
+        ring = n * stage if n * stage > out else _round_up(out, 128)
+        return Int8MatmulPlan(NP, passes, tiles, C, spb, n,
+                              _ALIGN + ring + xb + x8 + stat + 16 * n + 16)
+    return None
 
 
 def _check_launch_args(name, x, w_q, scale, w8a8=False):
@@ -222,18 +283,25 @@ def _check_launch_args(name, x, w_q, scale, w8a8=False):
                          f"[O]; got {tuple(x.shape)}, {tuple(w_q.shape)}, "
                          f"{tuple(scale.shape)}")
     M, D = x.shape
-    if w_q.shape[0] != D or scale.shape[0] != w_q.shape[1]:
+    O = w_q.shape[1]
+    if w_q.shape[0] != D or scale.shape[0] != O:
         raise ValueError(f"{name}: x {tuple(x.shape)}, w_q "
                          f"{tuple(w_q.shape)} and scale {tuple(scale.shape)} "
                          "do not match")
-    if M == 0 or D % 4:
-        raise ValueError(f"{name} kernel takes M >= 1 and D % 4 == 0; got "
-                         f"M={M}, D={D}")
-    if not (w_q.is_contiguous() and scale.is_contiguous()):
-        raise ValueError(f"{name} kernel takes contiguous w_q and scale")
-    if w8a8 and w_q.shape[1] % 16:
-        raise ValueError(f"{name} w8a8 kernel takes O % 16 == 0, got "
-                         f"{w_q.shape[1]}")
+    if w_q.stride(1) != 1 or w_q.stride(0) % 16 or w_q.data_ptr() % 16:
+        raise ValueError(f"{name} kernel takes w_q rows 16-byte aligned "
+                         "(stride (pitch, 1), pitch % 16 == 0: store a "
+                         "ragged O with empty_int8_weight); got strides "
+                         f"{w_q.stride()}")
+    if not scale.is_contiguous():
+        raise ValueError(f"{name} kernel takes contiguous scales")
+    if w8a8 and O % 16:
+        raise ValueError(f"{name} w8a8 kernel takes O % 16 == 0, got {O}")
+    if int8_matmul_plan(M, D, O, w8a8) is None:
+        raise ValueError(f"{name} kernel has no launch plan for M={M}, "
+                         f"D={D}, O={O}{' (w8a8)' if w8a8 else ''}: it takes "
+                         "M >= 1, D % 8 == 0 and, w8a8, a slice of x that "
+                         "fits beside two stages in a cluster of 16")
 
 
 def _launch(x, w_q, scale, w8a8):
@@ -242,22 +310,12 @@ def _launch(x, w_q, scale, w8a8):
         x = x.clone()
     M, D = x.shape
     O = w_q.shape[1]
-    nsplit = _splits(M, D, O, _sm_count(x.device.index or 0))
     y = torch.empty(M, O, dtype=x.dtype, device=x.device)
-    part = torch.empty(nsplit, M, O, dtype=torch.int32 if w8a8
-                       else torch.float32, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    if w8a8:
-        x8 = torch.empty(M, D, dtype=torch.int8, device=x.device)
-        xs = torch.empty(M, dtype=torch.float32, device=x.device)
-        INT8_GEMV(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                  y.data_ptr(), x8.data_ptr(), xs.data_ptr(),
-                  part.data_ptr(), M, D, O, nsplit, stream)
-        INT8_GEMV.launches += 1
-    else:
-        INT8_MATMUL(x.data_ptr(), w_q.data_ptr(), scale.data_ptr(),
-                    y.data_ptr(), part.data_ptr(), M, D, O, nsplit, stream)
-        INT8_MATMUL.launches += 1
+    kernel = INT8_GEMV if w8a8 else INT8_MATMUL
+    kernel(x.data_ptr(), w_q.data_ptr(), w_q.stride(0), scale.data_ptr(),
+           y.data_ptr(), M, D, O,
+           torch.cuda.current_stream(x.device).cuda_stream)
+    kernel.launches += 1
     return y
 
 
@@ -265,9 +323,10 @@ def int8_matmul(x: torch.Tensor, w_q: torch.Tensor, scale: torch.Tensor,
                 w8a8: bool = False) -> torch.Tensor:
     """x [M, D] @ w_q [D, O] × scale [O] → [M, O] in x's dtype, for any M
     below the GEMM switch and any O (the lm_head's ragged vocabulary
-    included): weight-only, or w8a8 (x quantized per row, O % 16 == 0).
-    CPU tensors run the plain version; CUDA tensors launch the branch's
-    kernel or raise."""
+    included, its rows 16-byte aligned: ``empty_int8_weight``):
+    weight-only, or w8a8 (x quantized per row, O % 16 == 0). CPU tensors
+    run the plain version; CUDA tensors launch the branch's kernel, once,
+    or raise."""
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_q, scale, w8a8)
     if x.device.type != "cuda":

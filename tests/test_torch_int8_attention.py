@@ -271,7 +271,7 @@ def _f32_to_bf16_bits(x):
 
 
 def i8x4_to_bf16(w):
-    """numpy mirror of csrc/int8_attention.cuh i8x4_to_bf16: the bytes of
+    """numpy mirror of csrc/int8_mma.cuh i8x4_to_bf16: the bytes of
     the uint32 words w as bf16 pairs (b0, b2), (b1, b3)."""
     magic = np.uint32(0x43004300)
     w = np.asarray(w, np.uint32)

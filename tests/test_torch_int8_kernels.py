@@ -94,8 +94,13 @@ def _stacked_weight(L, D, O, seed):
             qj, sj)
 
 
-@pytest.mark.parametrize("w8a8", [False, True], ids=["weight_only", "w8a8"])
-@pytest.mark.parametrize("M", [1, 6])
+# (M, w8a8): the weight-only branch at 255 rows is held, at ties, by
+# test_int8_gemv_255_rows_weight_only_equal_to_jax_but_at_ties
+@pytest.mark.parametrize(
+    "M,w8a8", [(1, False), (1, True), (6, False), (6, True), (30, False),
+               (30, True), (255, True)],
+    ids=["1-weight_only", "1-w8a8", "6-weight_only", "6-w8a8",
+         "30-weight_only", "30-w8a8", "255-w8a8"])
 def test_int8_gemv_matches_int8_matmul_layer(M, w8a8):
     D, O, layer = 64, 1024, 1
     qt, st, qj, sj = _stacked_weight(3, D, O, 10 + M)
@@ -113,8 +118,39 @@ def test_int8_gemv_matches_int8_matmul_layer(M, w8a8):
         _within_bf16_ulp(yt, yj)
 
 
-@pytest.mark.parametrize("M,O", [(1, 1024), (6, 1024), (40, 1024), (6, 1000)],
-                         ids=["M1", "M6", "M40", "ragged_O"])
+def test_int8_gemv_255_rows_weight_only_equal_to_jax_but_at_ties():
+    """K3's weight-only branch at the 255-row cap against the JAX kernel, on
+    the data the test above takes for each M: 261,120 outputs, each 64
+    exact products summed in fp32 on both sides, in another order. Every
+    output equals JAX's bf16 value, except where a bf16 rounding midpoint
+    lies within the two sums' fp32 rounding error of the exact value (the
+    sums then round to its two sides): there the two are adjacent bf16
+    values around that midpoint."""
+    M, D, O, layer = 255, 64, 1024, 1
+    qt, st, qj, sj = _stacked_weight(3, D, O, 10 + M)
+    xt, xj = _bf16_pair(_normal((M, D), 20 + M))
+    yj = np.asarray(jmm.int8_matmul_layer(xj, qj, sj, jnp.int32(layer),
+                                          w8a8=False), np.float32)
+    yt = _np(tmm.int8_matmul(xt, qt[layer], st[layer]))
+    x, w = xt.double().numpy(), qt[layer].double().numpy()
+    s = st[layer].double().numpy()
+    exact = (x @ w) * s
+    # |fl(sum) - sum| <= D u sum|terms| in any order, plus the product's and
+    # the sum's own rounding, u = 2^-24
+    err = (D * 2.0 ** -24 * (np.abs(x) @ np.abs(w))
+           + 2.0 ** -22 * np.abs(x @ w)) * s
+    lo, hi = np.minimum(yt, yj), np.maximum(yt, yj)
+    top = np.maximum(np.abs(lo), np.abs(hi))
+    ulp = np.exp2(np.floor(np.log2(np.where(top > 0, top, 1.0))) - 7)
+    differ = yt != yj
+    tie = (hi - lo <= ulp) & (np.abs(exact - (lo + hi) / 2) <= err)
+    assert np.all(~differ | tie), np.argwhere(differ & ~tie)[:5]
+
+
+@pytest.mark.parametrize("M,O", [(1, 1024), (6, 1024), (30, 1024), (40, 1024),
+                                 (255, 1024), (6, 1000), (30, 1000)],
+                         ids=["M1", "M6", "M30", "M40", "M255", "ragged_O",
+                              "ragged_O_M30"])
 def test_int8_matmul_matches_jax(M, O):
     """O = 1000 is not a multiple of block_o: JAX takes its XLA branch, the
     same function."""

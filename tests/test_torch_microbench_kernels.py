@@ -36,6 +36,7 @@ from grounded_video_llm_tpu_torch.microbench import decode as mb_decode
 from grounded_video_llm_tpu_torch.microbench import encoder_attn as mb_attn
 from grounded_video_llm_tpu_torch.microbench import flash_bwd as mb_bwd
 from grounded_video_llm_tpu_torch.microbench import int8_gemm as mb_gemm
+from grounded_video_llm_tpu_torch.microbench import int8_matmul_ab as mb_ab
 from grounded_video_llm_tpu_torch.microbench import iv2_block as mb_iv2
 from grounded_video_llm_tpu_torch.microbench import \
     static_scales as mb_static
@@ -297,7 +298,7 @@ def test_iv2_block_variants_compute_one_block():
 
 
 @pytest.mark.parametrize("module", [mb_gemm, mb_decode, mb_attn, mb_static,
-                                    mb_bwd, mb_iv2])
+                                    mb_bwd, mb_iv2, mb_ab])
 def test_microbench_mains_refuse_the_cpu(module, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

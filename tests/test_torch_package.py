@@ -257,7 +257,7 @@ def _gemv_args(M=2, D=64, O=128):
 
 @pytest.mark.parametrize("case", [
     "fp32_x", "fp16_scale", "uint8_w", "x_3d", "d_mismatch", "d_not_4",
-    "empty", "strided_w", "w8a8_ragged_o"])
+    "d_not_8", "empty", "strided_w", "unpadded_ragged_w", "w8a8_ragged_o"])
 def test_int8_matmul_checks_refuse_unsupported_inputs(case):
     x, w, s = _gemv_args()
     w8a8 = False
@@ -273,10 +273,14 @@ def test_int8_matmul_checks_refuse_unsupported_inputs(case):
         x, _, _ = _gemv_args(D=32)
     elif case == "d_not_4":
         x, w, s = _gemv_args(D=66)
+    elif case == "d_not_8":           # the kernel's TMA reads x rows
+        x, w, s = _gemv_args(D=68)
     elif case == "empty":
         x, w, s = _gemv_args(M=0)
     elif case == "strided_w":
         w = torch.zeros(64, 256, dtype=torch.int8)[:, ::2]
+    elif case == "unpadded_ragged_w":  # rows 120 bytes apart: no TMA
+        x, w, s = _gemv_args(O=120)
     elif case == "w8a8_ragged_o":
         x, w, s = _gemv_args(O=120)
         w8a8 = True
@@ -288,7 +292,7 @@ def test_int8_matmul_checks_accept_the_paths_shapes():
     for M, D, O in ((1, 3072, 9216), (6, 3072, 16384), (6, 8192, 3072),
                     (255, 3072, 32366)):
         x = torch.empty(M, D, dtype=torch.bfloat16, device="meta")
-        w = torch.empty(D, O, dtype=torch.int8, device="meta")
+        w = mm.empty_int8_weight((D, O), device="meta")   # as quantized
         s = torch.empty(O, device="meta")
         mm._check_launch_args("int8_matmul", x, w, s, O % 16 == 0)
 

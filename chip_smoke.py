@@ -12,8 +12,9 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    [sass] lines from cuobjdump: each library's wgmma (HGMMA bf16, IGMMA
    int8), TMA load (UTMALDG), bulk copy (UBLKCP) and mma.sync (HMMA, IMMA)
    counts, and one line for each instantiation of the 20 flash_fwd_kernels,
-   the 16 flash backward kernels (dq and dk/dv) and the 12 fused-block GEMM
-   kernels, each of which must run wgmma and TMA loads and no mma.sync,
+   the 16 flash backward kernels (dq and dk/dv), the 12 fused-block GEMM
+   kernels and the 6 of the same GEMM behind M3 and M3d, each of which must
+   run wgmma and TMA loads and no mma.sync, of M1's GEMV (int8 mma.sync),
    of the 8 int8-cache attention kernels (K4, K8: 4 head dims each),
    which must run bulk (or TMA) copies, and K8's tensor-core products, and
    of the 6 int8 decode product kernels (K3/K6: w8a8 and weight-only at 8,
@@ -63,9 +64,12 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    fused_quant_gemm_ls_residual for proj and fc2, at path D's 147,528
    rows (six videos in one encode) and at 300, each beside the unfused
    W8A8 chain, both graph-replayed); the microbenchmarks' kernels:
-   int8_gemm and int8_gemm_dynamic (M3, M3d: 8192x1408x6144, its
-   transpose, a ragged M = 300 and 300x1792x1408; M3 bit-equal, beside
-   torch._int_mm plus the rescale), i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections,
+   int8_gemm and int8_gemm_dynamic (M3, M3d, on K10's GEMM:
+   8192x1408x6144 and its transpose graph-replayed, each device kernel's
+   share, beside torch._int_mm plus the rescale, bf16 torch.matmul and
+   _int_mm alone; then ragged M, one row, K = 64, N = 384, K past 6,144, so
+   every tile width runs; M3 bit-equal, every case launched twice
+   bit-equal, the plan's device kernels a call), i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections,
    beside K3's w8a8 int8_gemv and _int_mm) and flash_variant (M2: full,
    offset, noexp, sumdot at [12, 16, 2049, 88], dh128, and every mode on a
    ragged case at each head dim, on unit normal q/k/v, beside SDPA; two
@@ -347,10 +351,12 @@ def sass_counts(text: str) -> dict:
 
 # the kernels whose SASS is held to a rule: (library, entry-name fragment,
 # groups of opcodes each of which must count one, opcodes that must not
-# appear). The flash kernels and the fused-block GEMM: wgmma and TMA loads,
-# no mma.sync; the int8-cache attention (K8, K4): bulk copies, and K8's
-# products on tensor cores; the int8 decode products (K3, K6): TMA loads
-# and mma.sync, int8 (IMMA) for w8a8, bf16 (HMMA) for weight-only
+# appear). The flash kernels and the int8 GEMM for large M (K10 in
+# libfused_block, M3 / M3d in libint8_gemm): wgmma and TMA loads, no
+# mma.sync; M1's GEMV: int8 mma.sync; the int8-cache attention (K8, K4):
+# bulk copies, and K8's products on tensor cores; the int8 decode products
+# (K3, K6): TMA loads and mma.sync, int8 (IMMA) for w8a8, bf16 (HMMA) for
+# weight-only
 _WGMMA_RULE = (("UTMALDG",),)
 SASS_REQUIRED = (
     ("libflash_fwd.so", "flash_fwd_kernel", (("HGMMA",),) + _WGMMA_RULE,
@@ -361,6 +367,9 @@ SASS_REQUIRED = (
      ("HMMA", "IMMA")),
     ("libfused_block.so", "gemm_kernel", (("IGMMA",),) + _WGMMA_RULE,
      ("HMMA", "IMMA")),
+    ("libint8_gemm.so", "gemm_kernel", (("IGMMA",),) + _WGMMA_RULE,
+     ("HMMA", "IMMA")),
+    ("libint8_gemm.so", "gv_gemv_kernel", (("IMMA",),), ("HGMMA", "IGMMA")),
     ("libverify_attention_int8.so", "attention_kernel",
      (("HMMA", "HGMMA"), ("UBLKCP", "UTMALDG")), ()),
     ("libdecode_attention_int8.so", "attention_kernel",
@@ -384,12 +393,12 @@ def sass_ok(lib: str, name: str, c: dict):
 def sass_phase(kernels) -> None:
     """One [sass] line per kernel library (its opcode totals), one per
     instantiation of the flash forward (K1/K2/M2), the flash backward's two
-    kernels (K7), the fused-block GEMM (K10), the int8-cache attention
-    (K4, K8) and the int8 decode products (K3, K6); fails unless each of
-    those passes its rule in SASS_REQUIRED (wgmma of its type and TMA loads
-    and no mma.sync; K8 mma.sync or wgmma and bulk or TMA copies, K4 bulk
-    or TMA copies; K3/K6 TMA loads and mma.sync of the branch's type) and
-    each rule finds a kernel."""
+    kernels (K7), the int8 GEMM for large M (K10, M3, M3d), M1's GEMV, the
+    int8-cache attention (K4, K8) and the int8 decode products (K3, K6);
+    fails unless each of those passes its rule in SASS_REQUIRED (wgmma of
+    its type and TMA loads and no mma.sync; M1 int8 mma.sync; K8 mma.sync
+    or wgmma and bulk or TMA copies, K4 bulk or TMA copies; K3/K6 TMA loads
+    and mma.sync of the branch's type) and each rule finds a kernel."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     libs = sorted({k.library_path() for k in kernels.values()})
     bad, seen = [], set()
@@ -1635,24 +1644,62 @@ def fused_phase(torch, fb, cfg, videos):
 # ---------------------------------------------------------------------------
 
 
+# M3 / M3d cases (M, K, N): microbench/int8_gemm's fc1 and the fc2
+# transpose (timed), then a ragged M, the old resident-rows K, one row, one
+# K step of 64 bytes, N = 384 (the tile falls back to 128 columns) and a K
+# past the rows kernel's register-held 6,144: each of the GEMM's tile widths
+# 256, 176 and 128 runs for both entries
+INT8_GEMM_CASES = ((8192, 1408, 6144), (8192, 6144, 1408), (300, 1408, 6144),
+                   (300, 1792, 1408), (1, 1408, 6144), (300, 64, 6144),
+                   (300, 1408, 384), (300, 6208, 1408))
+
+
+def kernel_split(torch, fn, calls: int = 10) -> dict:
+    """{device kernel name: ms per call} over `calls` calls of fn, from a
+    torch.profiler window: each kernel is charged from the end of the
+    kernel before it (or its own start, if later) to its own end, so the
+    shares add up to the calls' device time even where a kernel launched
+    with programmatic stream serialization starts, and waits, while the
+    one before drains."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = sorted((e.time_range.start, e.time_range.end, e.name)
+                    for e in prof.events()
+                    if e.device_type == torch.autograd.DeviceType.CUDA)
+    split, prev_end = {}, None
+    for start, end, name in events:
+        found = re.search(r"(\w+(?:<[^()]*>)?)\(", name)
+        name = found.group(1) if found else name
+        begin = start if prev_end is None else max(start, prev_end)
+        split[name] = split.get(name, 0.0) + (end - begin) / 1e3 / calls
+        prev_end = end if prev_end is None else max(prev_end, end)
+    return split
+
+
 def int8_gemm_phase(torch, ig):
     """M3 (int8_gemm) and M3d (int8_gemm_dynamic) against their plain
-    versions at microbench/int8_gemm's shapes, fc1 8192x1408x6144 and the
-    fc2 transpose, at a ragged M = 300 and at M3d's largest resident K
-    (300 x 1792 x 1408: 64 rows of 1,792 bytes in shared memory, one block
-    per SM; the transpose runs its streaming route). M3 must be bit-equal;
-    M3d within max |dy| / max |y| <= 2**-7 (its row scales and products are
-    the plain version's, so it is expected bit-equal). Beside each: the
-    library route (torch._int_mm plus the rescale, for M3d after
-    quantize_rows) and the bound. Family numbers are one pass of microbench/int8_gemm: the two big
-    shapes."""
+    versions at INT8_GEMM_CASES: M3 must be bit-equal, M3d within max |dy| /
+    max |y| <= 2**-7 (its row scales and products are the plain version's,
+    so it is expected bit-equal); each launched twice, bit-equal; one call
+    under torch.profiler must run int8_gemm_plan's device kernels (M3: the
+    transpose and the GEMM; M3d: the rows too). At the two timed shapes,
+    CUDA-graph replays of the wrapper, each device kernel's share (from the
+    profiler), and beside them the library route (torch._int_mm plus the
+    rescale, for M3d after quantize_rows), the yardsticks bf16 torch.matmul
+    and torch._int_mm alone at the same shape, and the bound. Family numbers
+    are one pass of microbench/int8_gemm: the two big shapes."""
     from grounded_video_llm_tpu_torch.ops.int8_matmul import quantize_rows
 
     m3, m3d = Family("int8_gemm"), Family("int8_gemm_dynamic")
     g = torch.Generator(device="cuda")
     g.manual_seed(60)
-    for M, K, N in ((8192, 1408, 6144), (8192, 6144, 1408), (300, 1408, 6144),
-                    (300, ig.RES_KMAX, 1408)):
+    for M, K, N in INT8_GEMM_CASES:
         timed = M > 300
         x = (torch.randn(M, K, generator=g, device="cuda") * 0.1).bfloat16()
         x8 = torch.randint(-127, 128, (M, K), generator=g, device="cuda",
@@ -1668,6 +1715,17 @@ def int8_gemm_phase(torch, ig):
             q, xs = quantize_rows(x)
             return (torch._int_mm(q, w).float() * xs * s).to(torch.bfloat16)
 
+        yardsticks = ""
+        if timed:
+            wb = (torch.randn(K, N, generator=g, device="cuda")
+                  * 0.02).bfloat16()
+            ops = 2.0 * M * K * N
+            bf16_ms = graph_ms(torch, lambda: torch.matmul(x, wb), 20, 10)
+            int_mm_ms = graph_ms(torch, lambda: torch._int_mm(x8, w), 20, 10)
+            yardsticks = (f" yardsticks: bf16 torch.matmul {bf16_ms:.4f} ms "
+                          f"({ops / bf16_ms / 1e9:.0f} TF/s), torch._int_mm "
+                          f"alone {int_mm_ms:.4f} ms")
+            del wb
         for fam, counter, kernel, plain, lib, nbytes in (
                 (m3, ig.INT8_GEMM, lambda: ig.int8_gemm(x8, w, s),
                  lambda: ig.int8_gemm_reference(x8, w, s), lib_static,
@@ -1676,38 +1734,47 @@ def int8_gemm_phase(torch, ig):
                  lambda: ig.int8_gemm_dynamic(x, w, s),
                  lambda: ig.int8_gemm_dynamic_reference(x, w, s),
                  lib_dynamic, 2 * M * K + K * N + 4 * N + 2 * M * N)):
+            plan = ig.int8_gemm_plan(M, K, N, fam is m3d)
             before = counter.launches
-            y, y_ref = kernel(), plain()
+            y, y2, y_ref = kernel(), kernel(), plain()
             torch.cuda.synchronize()
             err = gemv_error(torch, y, y_ref)
             equal = bool(torch.equal(y, y_ref))
-            ok = ((equal if fam is m3 else err <= BOUND_GEMV)
+            twice = bool(torch.equal(y, y2))
+            launched = device_kernels(torch, kernel)
+            ok = ((equal if fam is m3 else err <= BOUND_GEMV) and twice
+                  and len(launched) == plan.kernels
                   and y.dtype == torch.bfloat16
                   and bool(torch.isfinite(y).all())
-                  and counter.launches == before + 1)
+                  and counter.launches == before + 3)
             d_abs = float((y.float() - y_ref.float()).abs().max())
             fam.max_err = max(fam.max_err, d_abs)
-            route = ("" if fam is m3 else " resident-rows" if K <= ig.RES_KMAX
-                     else " streamed-rows")
-            line = (f"[kernel] {fam.name:<17}{route} M={M} K={K} N={N} bit-equal="
+            line = (f"[kernel] {fam.name:<17} M={M} K={K} N={N} plan "
+                    f"BN={plan.tile_n} grid={plan.grid} smem={plan.smem} "
+                    f"kernels={len(launched)}/{plan.kernels} bit-equal="
                     f"{equal} max|dy|={d_abs:.3e} max|dy|/max|y|={err:.3e} "
-                    f"(<= {'0' if fam is m3 else f'{BOUND_GEMV:.3e}'})")
+                    f"(<= {'0' if fam is m3 else f'{BOUND_GEMV:.3e}'}) "
+                    f"two-launches-bit-equal={twice}")
             if timed:
-                ops = 2.0 * M * K * N
-                ms = cuda_ms(torch, kernel, 20)
+                ms = graph_ms(torch, kernel, 20, 10)
                 plain_ms = cuda_ms(torch, plain, 3)
-                lib_ms = cuda_ms(torch, lib, 20)
+                lib_ms = graph_ms(torch, lib, 20, 10)
+                split = kernel_split(torch, kernel)
                 bms, by = bound_ms(nbytes, ops, INT8_OPS)
                 fam.add(1, ms, plain_ms, nbytes, ops, "int8", lib_ms)
-                line += (f" kernel_ms={ms:.4f} ({ops / ms / 1e9:.0f} TOP/s) "
-                         f"plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f} "
-                         f"(_int_mm + rescale"
+                line += (f" kernel_ms={ms:.4f} ({ops / ms / 1e9:.0f} TOP/s, "
+                         f"{bms / ms:.1%} of the bound) device kernels: "
+                         + ", ".join(f"{n} {t:.4f}" for n, t in split.items())
+                         + f" plain_ms={plain_ms:.4f} library_ms={lib_ms:.4f}"
+                         f" (_int_mm + rescale"
                          f"{' after quantize_rows' if fam is m3d else ''}) "
-                         f"bound_ms={bms:.4f} ({by})")
+                         f"bound_ms={bms:.4f} ({by}){yardsticks}")
             log(line + f" {'OK' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"{fam.name} M={M} K={K} N={N}: kernel "
-                                     "disagrees with the plain version")
+                                     "disagrees with the plain version or "
+                                     "with itself, or runs other kernels "
+                                     "than its plan")
         del x, x8, w, s
         torch.cuda.empty_cache()
     for fam in (m3, m3d):

@@ -7,10 +7,12 @@ card (port of scripts/microbench_int8_gemm.py):
   i8i8_dynamic  the port's dynamic_int8_matmul: per-row activation
                 quantization, torch._int_mm, rescale → bf16 (the serving
                 path)
-  m3_static     kernel M3 (ops/int8_gemm.int8_gemm): the int8 GEMM with the
-                per-column rescale in its epilogue → bf16
-  m3_dynamic    kernel M3d (int8_gemm_dynamic): the per-row quantization
-                inside the GEMM program, from bf16 x → bf16
+  m3_static     kernel M3 (ops/int8_gemm.int8_gemm): the weight transposed
+                K-major, then the int8 wgmma GEMM with the per-column rescale
+                in its epilogue → bf16
+  m3_dynamic    kernel M3d (int8_gemm_dynamic): the per-row quantization of
+                bf16 x into int8 scratch, then M3's two kernels with the row
+                scale in the epilogue (K10's GEMM without its extras) → bf16
 
 Shapes: the MLP's fc1 [M, 1408] x [1408, 6144] at M = 8,192 rows and the fc2
 transpose [M, 6144] x [6144, 1408]. R back-to-back launches between CUDA

@@ -43,10 +43,11 @@ from .cuda_build import CudaKernel
 from .int8_matmul import Int8Weight, _exact_int8_dot, quantize_rows
 
 EPILOGUES = {"none": 0, "gelu": 1, "qk_norm": 2}
-# csrc/fused_block.cu: K in multiples of the weight transpose's 64-byte
-# tile; output tiles of 256, 176 or 128 columns (N % 128 == 0 always fits);
-# qk_norm runs each K-wide third as one cluster of at most 8 tiles
-_BK, _BN = 64, 128
+# csrc/int8_wgmma.cuh, the GEMM K10 runs: K in multiples of the weight
+# transpose's 64-byte tile; output tiles of 256, 176 or 128 columns (N %
+# 128 == 0 always fits); qk_norm runs each K-wide third as one cluster of at
+# most 8 tiles
+_BK = 64
 _QK_TILES, _MAX_CLUSTER = (256, 176, 128), 8
 
 # gvllm_fused_norm_quant_gemm(x, norm_w, w, ws, bias, qn, out, x8, xs, wt,
@@ -70,6 +71,13 @@ def qk_norm_tile(D: int) -> Optional[int]:
         if D % bn == 0 and D // bn <= _MAX_CLUSTER:
             return bn
     return None
+
+
+def output_tile(O: int) -> Optional[int]:
+    """The GEMM's output tile width for O columns outside qk_norm
+    (int8_wgmma.cuh tile_n): 256 where O % 256 == 0, else 176, else 128;
+    None where none fits."""
+    return next((bn for bn in _QK_TILES if O % bn == 0), None)
 
 
 def erf_rational(x: torch.Tensor) -> torch.Tensor:
@@ -153,8 +161,8 @@ def _check_launch_args(name, x, w, vectors, residual=None, qk_norm=False):
     if x.shape[-1] != D or x.numel() == 0:
         raise ValueError(f"{name}: x {tuple(x.shape)} does not match the "
                          f"weight {tuple(w.q.shape)}")
-    if D % _BK or O % _BN:
-        raise ValueError(f"{name} kernel takes D % {_BK} == 0 and O % {_BN} "
+    if D % _BK or output_tile(O) is None:
+        raise ValueError(f"{name} kernel takes D % {_BK} == 0 and O % 128 "
                          f"== 0; got D={D}, O={O}")
     if x.numel() // D > 65535 * 128:
         raise ValueError(f"{name} kernel takes at most {65535 * 128} rows")

@@ -5,13 +5,18 @@ csrc/int8_gemm.cu) with their plain PyTorch versions.
                                (`_pl_kernel`): pre-quantized int8 x [M, K]
                                @ int8 w [K, N] → int32 → fp32 × s[N] → bf16
   int8_gemm_dynamic(x, w, s)   M3d, the same script's :165
-                               (`_pl_dyn_kernel`): bf16 x quantized per row
-                               inside the GEMM program (for K <= 1,792 once
-                               per block into shared memory); the function
-                               of dynamic_int8_matmul with bf16 output
+                               (`_pl_dyn_kernel`): bf16 x quantized per row,
+                               then the same product; the function of
+                               dynamic_int8_matmul with bf16 output
   i8i8_matmul(x, w, s)         M1, scripts/microbench_decode.py:85
                                (`i8i8_matmul`): the decode-shaped W8A8 GEMV,
                                x [M <= 16, K], on the int8 tensor cores
+
+M3 and M3d run the port's one int8 GEMM for large M (csrc/int8_wgmma.cuh,
+which K10 in ops/fused_block runs too): the weight transposed K-major into
+scratch, M3d's rows quantized into scratch, then int8 wgmma fed by TMA
+(``int8_gemm_plan`` mirrors the launch). The transposed weight is made
+again in every call, never cached.
 
 M1 computes what the script's docstring says: per-row int8 quantization,
 an int8 x int8 dot, then float(dot) * xs * s → bf16. The TPU prototype
@@ -27,31 +32,59 @@ the kernels do.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from .cuda_build import CudaKernel
+from .fused_block import output_tile
 from .int8_matmul import _exact_int8_dot, _sm_count, quantize_rows
 
-GEMM_BK, GEMM_BN = 64, 128      # K step and column tile of the M3 kernels
-GEMM_BM = 128                   # rows per block (M3, M3d with K > RES_KMAX)
-RES_BM, RES_KMAX = 64, 1792     # M3d with its int8 rows resident in shared
-                                # memory: rows per block, largest K
+# csrc/int8_wgmma.cuh: K in multiples of the weight transpose's 64-byte
+# tile; 128-row output tiles, the K steps of 128 bytes in a 4-stage ring
+GEMM_BK, GEMM_BM, GEMM_STEP, GEMM_STAGES = 64, 128, 128, 4
+GEMM_MAX_ROW_BLOCKS = 65535     # the grid's y dimension
 GEMV_ROWS = 16                  # M1's m tile
 GEMV_BN = 128                   # M1's columns per block
 
-# gvllm_int8_gemm(x8, w, s, y, M, K, N, stream) -> cudaError_t
+# gvllm_int8_gemm(x8, w, s, y, wt, M, K, N, stream) -> cudaError_t
 INT8_GEMM = CudaKernel("int8_gemm.cu", "gvllm_int8_gemm",
-                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                        + [ctypes.c_void_p])
-# gvllm_int8_gemm_dynamic(x, w, s, y, M, K, N, stream)
+# gvllm_int8_gemm_dynamic(x, w, s, y, x8, xs, wt, M, K, N, stream)
 INT8_GEMM_DYNAMIC = CudaKernel("int8_gemm.cu", "gvllm_int8_gemm_dynamic",
-                               [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                               [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                                + [ctypes.c_void_p])
 # gvllm_i8i8_gemv(x, w, s, y, x8, xs, part, M, K, N, kc, stream)
 I8I8_GEMV = CudaKernel("int8_gemm.cu", "gvllm_i8i8_gemv",
                        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
+
+
+class Int8GemmPlan(NamedTuple):
+    """One call of M3 (2 device kernels) or M3d (3) on csrc/int8_wgmma.cuh."""
+    tile_n: int                 # output tile width BN: 256, 176 or 128
+    grid: Tuple[int, int]       # the GEMM's (N / BN, ceil(M / 128))
+    smem: int                   # the GEMM's dynamic shared memory, bytes
+    scratch: int                # wt [N, K] (+ M3d's x8 [M, K], xs [M]), bytes
+    kernels: int                # device kernels a call
+
+
+def int8_gemm_plan(M: int, K: int, N: int,
+                   dynamic: bool) -> Optional[Int8GemmPlan]:
+    """The launch of M3 (dynamic=False) or M3d on x [M, K] and w [K, N]
+    (csrc/int8_gemm.cu over int8_wgmma.cuh's Tiles and launch_gemm), or
+    None where the kernels cannot take the shape: K not a positive multiple
+    of 64, N no multiple of 128, or more than 65,535 row blocks of 128."""
+    bn = output_tile(N)
+    rows = -(-M // GEMM_BM)
+    if M < 1 or K < GEMM_BK or K % GEMM_BK or bn is None \
+            or rows > GEMM_MAX_ROW_BLOCKS:
+        return None
+    smem = GEMM_STAGES * (GEMM_BM + bn) * GEMM_STEP + 128 + GEMM_BM * 4 + 1024
+    scratch = N * K + ((M * K + 4 * M) if dynamic else 0)
+    return Int8GemmPlan(bn, (N // bn, rows), smem, scratch,
+                        3 if dynamic else 2)
 
 
 # ---------------------------------------------------------------------------
@@ -105,12 +138,10 @@ def _check_gemm_args(name, x, w, s, x_dtype):
     _check_common(name, x, w, s, x_dtype)
     M, K = x.shape
     N = w.shape[1]
-    bm = (RES_BM if x_dtype == torch.bfloat16 and K <= RES_KMAX
-          else GEMM_BM)
-    if M < 1 or K % GEMM_BK or N % GEMM_BN or -(-M // bm) > 65535:
-        raise ValueError(f"{name} kernel takes 1 <= M <= {65535 * bm}, "
-                         f"K % {GEMM_BK} == 0 and N % {GEMM_BN} == 0; got "
-                         f"M={M}, K={K}, N={N}")
+    if int8_gemm_plan(M, K, N, x_dtype == torch.bfloat16) is None:
+        raise ValueError(f"{name} kernel takes 1 <= M <= "
+                         f"{GEMM_MAX_ROW_BLOCKS * GEMM_BM}, K % {GEMM_BK} == "
+                         f"0 and N % 128 == 0; got M={M}, K={K}, N={N}")
 
 
 def _check_gemv_args(x, w, s):
@@ -138,9 +169,16 @@ def _gemm(kernel, name, x, w, s, x_dtype):
     _check_gemm_args(name, x, w, s, x_dtype)
     M, K = x.shape
     N = w.shape[1]
-    y = torch.empty(M, N, dtype=torch.bfloat16, device=x.device)
-    kernel(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), M, K, N,
-           torch.cuda.current_stream(x.device).cuda_stream)
+    dev = x.device
+    y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
+    wt = torch.empty(N, K, dtype=torch.int8, device=dev)
+    rows = ()
+    if x_dtype == torch.bfloat16:
+        x8 = torch.empty(M, K, dtype=torch.int8, device=dev)
+        xs = torch.empty(M, dtype=torch.float32, device=dev)
+        rows = (x8.data_ptr(), xs.data_ptr())
+    kernel(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(), *rows,
+           wt.data_ptr(), M, K, N, torch.cuda.current_stream(dev).cuda_stream)
     kernel.launches += 1
     return y
 
@@ -159,8 +197,8 @@ def int8_gemm(x8: torch.Tensor, w: torch.Tensor,
 
 def int8_gemm_dynamic(x: torch.Tensor, w: torch.Tensor,
                       s: torch.Tensor) -> torch.Tensor:
-    """M3d: bf16 x [M, K], quantized per row inside the GEMM, @ int8 w
-    [K, N] × s [N] → bf16 [M, N]."""
+    """M3d: bf16 x [M, K], quantized per row, @ int8 w [K, N] × s [N] →
+    bf16 [M, N]."""
     if x.device.type == "cpu":
         return int8_gemm_dynamic_reference(x, w, s)
     if x.device.type != "cuda":

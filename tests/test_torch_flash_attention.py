@@ -179,8 +179,9 @@ def test_chip_smoke_reads_sass_opcodes():
 
 def test_chip_smoke_reads_int8_wgmma_and_holds_each_rule():
     """The parser counts int8 wgmma (IGMMA); the [sass] rules hold the flash
-    forward and backward to HGMMA, the fused-block GEMM to IGMMA, each with
-    TMA loads and without mma.sync, and name no other kernel."""
+    forward and backward to HGMMA, the int8 GEMM for large M (K10 in
+    libfused_block, M3 / M3d in libint8_gemm) to IGMMA, each with TMA loads
+    and without mma.sync, and name no other kernel."""
     spec = importlib.util.spec_from_file_location(
         "_chip_smoke", REPO / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -213,5 +214,9 @@ def test_chip_smoke_reads_int8_wgmma_and_holds_each_rule():
                       dict(gemm, HGMMA=2, IGMMA=0)) is False
     # kernels no rule names are only reported
     assert cs.sass_ok("libfused_block.so", "16row_quant_kernelE", gemm) is None
+    # the same GEMM behind M3 / M3d in libint8_gemm: held to the same rule,
+    # int8 wgmma and TMA loads, no mma.sync
     assert cs.sass_ok("libint8_gemm.so", "11gemm_kernelILi176ELi2EEE",
-                      gemm) is None
+                      gemm) is True
+    assert cs.sass_ok("libint8_gemm.so", "11gemm_kernelILi176ELi2EEE",
+                      dict(gemm, IMMA=8)) is False

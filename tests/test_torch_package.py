@@ -694,25 +694,20 @@ def test_int8_gemm_checks_refuse_unsupported_inputs(case):
 
 
 def test_int8_gemm_row_limit_follows_the_kernel_route():
-    """M3d with K <= RES_KMAX keeps 64 rows per block, so its grid's 65,535
-    row blocks hold half the rows of M3's and of M3d's streaming route."""
+    """M3 and M3d run one route, the shared int8 GEMM's 128-row blocks, so
+    both take up to 65,535 row blocks of 128 at every K (M3d kept 64 rows a
+    block for K <= 1,792 before, half the cap)."""
     def args(M, K, dt):
         return (torch.empty(M, K, dtype=dt, device="meta"),
                 torch.empty(K, 128, dtype=torch.int8, device="meta"),
                 torch.empty(128, device="meta"))
 
-    ig._check_gemm_args("int8_gemm", *args(65535 * 128, 1408, torch.int8),
-                        torch.int8)
-    ig._check_gemm_args("int8_gemm_dynamic",
-                        *args(65535 * 128, ig.RES_KMAX + 64, torch.bfloat16),
-                        torch.bfloat16)
-    ig._check_gemm_args("int8_gemm_dynamic",
-                        *args(65535 * 64, ig.RES_KMAX, torch.bfloat16),
-                        torch.bfloat16)
-    with pytest.raises(ValueError, match="M <= "):
-        ig._check_gemm_args("int8_gemm_dynamic",
-                            *args(65535 * 64 + 1, 1408, torch.bfloat16),
-                            torch.bfloat16)
+    for name, dt in (("int8_gemm", torch.int8),
+                     ("int8_gemm_dynamic", torch.bfloat16)):
+        for K in (64, 1408, 1792, 1856, 6144):
+            ig._check_gemm_args(name, *args(65535 * 128, K, dt), dt)
+            with pytest.raises(ValueError, match="M <= 8388480"):
+                ig._check_gemm_args(name, *args(65535 * 128 + 1, K, dt), dt)
 
 
 @pytest.mark.parametrize("case", [

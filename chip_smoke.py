@@ -14,10 +14,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    counts, and one line for each instantiation of the 20 flash_fwd_kernels,
    the 16 flash backward kernels (dq and dk/dv), the 12 fused-block GEMM
    kernels and the 6 of the same GEMM behind M3 and M3d, each of which must
-   run wgmma and TMA loads and no mma.sync, of M1's GEMV (int8 mma.sync),
-   of the 8 int8-cache attention kernels (K4, K8: 4 head dims each),
-   which must run bulk (or TMA) copies, and K8's tensor-core products, and
-   of the 6 int8 decode product kernels (K3/K6: w8a8 and weight-only at 8,
+   run wgmma and TMA loads and no mma.sync, of the 8 int8-cache attention
+   kernels (K4, K8: 4 head dims each), which must run bulk (or TMA)
+   copies, and K8's tensor-core products, and of the 6 int8 decode product
+   kernels (K3/K6, and M1 on K3's w8a8 ones: w8a8 and weight-only at 8,
    16 and 32 rows), which must run TMA loads and mma.sync (IMMA, HMMA);
 3. each kernel against its plain PyTorch version at the serving path's
    shapes, with its error against a bound and CUDA-event medians of the
@@ -43,8 +43,8 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    K3's weight-only branch): both at M 1, 6, 30 and 255 on the four
    Phi-3.5 projections, weight-only also at the same M on O 9216 and the
    lm_head's 32,366, and both off the kernel's tile grids; every case
-   launched twice, bit-equal; one call of each branch under
-   torch.profiler must be one device kernel; timed per decode step (M 6
+   launched twice, bit-equal; one call of each branch captured in a CUDA
+   graph must be one device kernel; timed per decode step (M 6
    w8a8, M 1 weight-only) and per verify pass (M 30, lm_head included)
    beside torch._int_mm and torch._weight_int8pack_mm; the int8 -> bf16
    conversion of K4 and K8 on all
@@ -69,8 +69,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    share, beside torch._int_mm plus the rescale, bf16 torch.matmul and
    _int_mm alone; then ragged M, one row, K = 64, N = 384, K past 6,144, so
    every tile width runs; M3 bit-equal, every case launched twice
-   bit-equal, the plan's device kernels a call), i8i8_gemv (M1: M 1, 6, 16 on the three Phi-3.5 projections,
-   beside K3's w8a8 int8_gemv and _int_mm) and flash_variant (M2: full,
+   bit-equal, the plan's device kernels a call), i8i8_gemv (M1 on K3's
+   w8a8 kernel: M 1, 6, 16 on the three Phi-3.5 projections, bit-equal,
+   launched twice bit-equal, one device kernel a call, beside K3's w8a8
+   int8_gemv and _int_mm) and flash_variant (M2: full,
    offset, noexp, sumdot at [12, 16, 2049, 88], dh128, and every mode on a
    ragged case at each head dim, on unit normal q/k/v, beside SDPA; two
    wrong softmaxes held to the same bars must fail them);
@@ -126,7 +128,20 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    encoder_attn, static_scales with one round, flash_bwd, iv2_block) once
    at its TPU script's shapes, counted like a path (the counts must equal
    those the modules' shapes, variants and repetitions give); their lines
-   are printed.
+   are printed;
+8. llama3 and vicuna, every Phi-3.5 tree and engine freed first: the
+   depth-cut references of phase 4 (bf16 and int8_full) for both; then
+   full-width llama3 (vlm_config("llama3", stage="inference"):
+   Meta-Llama-3-8B, 32 layers, 32 heads and 8 kv heads of 128; the same
+   encoders), seeded random bf16 weights, on the frames phase 5 resized:
+   one bf16 B=1 encode whole and with encoder_chunk_clips=4 (features
+   within relative L2 1e-6, each run's peak memory); K2, K3's w8a8 branch,
+   K4 (G = 4) and K6 (128,558 rows) at llama3's own shapes, timed beside
+   their plain versions, library calls and bounds; a bf16 B=1 request
+   (94 flash launches) and a mode A request (int8_full, int8 cache, B=6:
+   per step 128 w8a8 int8_gemv, 32 K4, 1 K5, 1 lm_head; 1 K6 a request),
+   their launch counts held to the config's, their phase split, prefill
+   length and peak memory printed, their tokens in the vocabulary.
 
 The last three lines are the card, one JSON object describing the kernels,
 and {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -135,6 +150,7 @@ with code 2 and prints no result.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import os
 import re
@@ -192,7 +208,7 @@ SOURCES = {
     "scatter_write_multi": f"{PKG}/csrc/cache_write.cu",
     "fused_norm_quant_gemm": f"{PKG}/csrc/fused_block.cu",
     "fused_quant_gemm_ls_residual": f"{PKG}/csrc/fused_block.cu",
-    "i8i8_gemv": f"{PKG}/csrc/int8_gemm.cu",
+    "i8i8_gemv": f"{PKG}/csrc/int8_matmul.cu",
     "flash_variant": f"{PKG}/csrc/flash_fwd.cu",
     "int8_gemm": f"{PKG}/csrc/int8_gemm.cu",
     "int8_gemm_dynamic": f"{PKG}/csrc/int8_gemm.cu",
@@ -353,10 +369,10 @@ def sass_counts(text: str) -> dict:
 # groups of opcodes each of which must count one, opcodes that must not
 # appear). The flash kernels and the int8 GEMM for large M (K10 in
 # libfused_block, M3 / M3d in libint8_gemm): wgmma and TMA loads, no
-# mma.sync; M1's GEMV: int8 mma.sync; the int8-cache attention (K8, K4):
-# bulk copies, and K8's products on tensor cores; the int8 decode products
-# (K3, K6): TMA loads and mma.sync, int8 (IMMA) for w8a8, bf16 (HMMA) for
-# weight-only
+# mma.sync; the int8-cache attention (K8, K4): bulk copies, and K8's
+# products on tensor cores; the int8 decode products (K3, K6, and M1 on
+# K3's w8a8 kernel): TMA loads and mma.sync, int8 (IMMA) for w8a8, bf16
+# (HMMA) for weight-only
 _WGMMA_RULE = (("UTMALDG",),)
 SASS_REQUIRED = (
     ("libflash_fwd.so", "flash_fwd_kernel", (("HGMMA",),) + _WGMMA_RULE,
@@ -369,7 +385,6 @@ SASS_REQUIRED = (
      ("HMMA", "IMMA")),
     ("libint8_gemm.so", "gemm_kernel", (("IGMMA",),) + _WGMMA_RULE,
      ("HMMA", "IMMA")),
-    ("libint8_gemm.so", "gv_gemv_kernel", (("IMMA",),), ("HGMMA", "IGMMA")),
     ("libverify_attention_int8.so", "attention_kernel",
      (("HMMA", "HGMMA"), ("UBLKCP", "UTMALDG")), ()),
     ("libdecode_attention_int8.so", "attention_kernel",
@@ -393,10 +408,10 @@ def sass_ok(lib: str, name: str, c: dict):
 def sass_phase(kernels) -> None:
     """One [sass] line per kernel library (its opcode totals), one per
     instantiation of the flash forward (K1/K2/M2), the flash backward's two
-    kernels (K7), the int8 GEMM for large M (K10, M3, M3d), M1's GEMV, the
-    int8-cache attention (K4, K8) and the int8 decode products (K3, K6);
-    fails unless each of those passes its rule in SASS_REQUIRED (wgmma of
-    its type and TMA loads and no mma.sync; M1 int8 mma.sync; K8 mma.sync
+    kernels (K7), the int8 GEMM for large M (K10, M3, M3d), the
+    int8-cache attention (K4, K8) and the int8 decode products (K3, K6 and
+    M1); fails unless each of those passes its rule in SASS_REQUIRED (wgmma
+    of its type and TMA loads and no mma.sync; K8 mma.sync
     or wgmma and bulk or TMA copies, K4 bulk or TMA copies; K3/K6 TMA loads
     and mma.sync of the branch's type) and each rule finds a kernel."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -970,18 +985,83 @@ def gemv_library_ms(torch, x, w, s, layers, w8a8):
         return None, f"_weight_int8pack_mm: {str(e).splitlines()[0][:100]}"
 
 
+class _KernelNodeParams(ctypes.Structure):
+    """CUDA_KERNEL_NODE_PARAMS_v2 of cuda.h (CUDA 12)."""
+    _fields_ = [("func", ctypes.c_void_p), ("grid", ctypes.c_uint * 3),
+                ("block", ctypes.c_uint * 3), ("smem", ctypes.c_uint),
+                ("params", ctypes.c_void_p), ("extra", ctypes.c_void_p),
+                ("kern", ctypes.c_void_p), ("ctx", ctypes.c_void_p)]
+
+
+def graph_kernels(torch, fn) -> list:
+    """The device operations of one call of fn: the nodes of a CUDA graph
+    captured from the call, kernels by their mangled names
+    (cuFuncGetName), other nodes as "<node type N>". Exact however the
+    kernels overlap."""
+    cu = ctypes.CDLL("libcuda.so.1")
+
+    def check(rc, what):
+        if rc:
+            raise RuntimeError(f"{what} failed: CUresult {rc}")
+
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    raw = ctypes.c_void_p(graph.raw_cuda_graph())
+    n = ctypes.c_size_t(0)
+    check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
+    nodes = (ctypes.c_void_p * n.value)()
+    check(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)), "cuGraphGetNodes")
+    names = []
+    for node in nodes:
+        kind = ctypes.c_int()
+        check(cu.cuGraphNodeGetType(ctypes.c_void_p(node),
+                                    ctypes.byref(kind)), "cuGraphNodeGetType")
+        if kind.value != 0:                     # CU_GRAPH_NODE_TYPE_KERNEL
+            names.append(f"<node type {kind.value}>")
+            continue
+        p = _KernelNodeParams()
+        check(cu.cuGraphKernelNodeGetParams_v2(ctypes.c_void_p(node),
+                                               ctypes.byref(p)),
+              "cuGraphKernelNodeGetParams")
+        name = ctypes.c_char_p()
+        if p.func:
+            check(cu.cuFuncGetName(ctypes.byref(name),
+                                   ctypes.c_void_p(p.func)), "cuFuncGetName")
+        else:
+            check(cu.cuKernelGetName(ctypes.byref(name),
+                                     ctypes.c_void_p(p.kern)),
+                  "cuKernelGetName")
+        names.append(name.value.decode())
+    del graph
+    torch.cuda.empty_cache()
+    return names
+
+
 def device_kernels(torch, fn):
-    """Names of the device kernels one call of fn runs, from a
-    torch.profiler window around it."""
+    """Names of the device kernels one call of fn runs: graph_kernels, the
+    nodes of a CUDA graph captured from one call. One torch.profiler
+    window around one more call is printed beside them where it lists
+    another number: on an H100 such windows have come back short (every
+    one of three in a row, on M3's transpose + GEMM chain), so they are no
+    count. Returns the names and the number of calls of fn made (one
+    captured, one profiled), for the callers' launch counts."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = graph_kernels(torch, fn)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
+    seen = [e.name for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
+    if len(seen) != len(names):
+        log(f"[profiler] one call: the captured graph holds {len(names)} "
+            f"kernels {[short_entry(n) for n in names]}, a torch.profiler "
+            f"window listed {len(seen)} {seen}")
+    return names, 2
 
 
 def check_gemv(torch, mm, name, M, D, O, *, layers=1, w8a8=False,
@@ -1059,8 +1139,8 @@ def gemv_phase(torch, mm, cfg):
     step) and 30 (path D's verify pass), weight-only at M 1 (a decode step
     of modes B and C); weight-only at the same M on O 9216 and the
     vocabulary (timed: the lm_head at M 6 and 30); GEMV_EDGE_CASES; one
-    torch.profiler window over a call of each branch, which must hold
-    exactly one device kernel. The families' numbers are mode A's per step
+    call of each branch captured in a CUDA graph, which must hold exactly
+    one device kernel. The families' numbers are mode A's per step
     (the 128 w8a8 projections; the lm_head)."""
     L = cfg.llm
     D, V = L.hidden_size, L.padded_vocab_size
@@ -1114,11 +1194,12 @@ def gemv_phase(torch, mm, cfg):
     for w8a8, (d, o) in ((True, shapes["qkv"]), (False, (D, V))):
         w = int8_weight(torch, mm, (d, o), g)
         s = torch.rand(o, generator=g, device="cuda") + 1e-4
-        names = device_kernels(torch, lambda: mm.int8_matmul(x, w, s, w8a8))
+        names, _ = device_kernels(torch,
+                                  lambda: mm.int8_matmul(x, w, s, w8a8))
         ok = len(names) == 1 and "int8_mm_kernel" in names[0]
         log(f"[kernel] {'int8_gemv' if w8a8 else 'int8_matmul'} one call "
-            f"under torch.profiler: {len(names)} device kernel(s) {names} "
-            f"{'OK' if ok else 'FAIL'}")
+            f"captured in a CUDA graph: {len(names)} device kernel(s) "
+            f"{[short_entry(n) for n in names]} {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError("int8_matmul must run as one device kernel "
                                  f"a call, saw {names}")
@@ -1273,7 +1354,6 @@ def check_conversion(torch, cuda_build) -> None:
     """The int8 -> bf16 conversion K4 and K8 run (i8x4_to_bf16, through its
     own C entry) on every byte value at each of the four positions of a
     word: equal to torch's conversion."""
-    import ctypes
     conv = cuda_build.CudaKernel(
         "decode_attention_int8.cu", "gvllm_int8_to_bf16",
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
@@ -1640,7 +1720,7 @@ def fused_phase(torch, fb, cfg, videos):
 
 
 # ---------------------------------------------------------------------------
-# M3, M3d: the microbenchmarks' int8 GEMMs; M1: the tensor-core int8 GEMV
+# M3, M3d: the microbenchmarks' int8 GEMMs; M1: their int8 GEMV on K3
 # ---------------------------------------------------------------------------
 
 
@@ -1687,8 +1767,8 @@ def int8_gemm_phase(torch, ig):
     versions at INT8_GEMM_CASES: M3 must be bit-equal, M3d within max |dy| /
     max |y| <= 2**-7 (its row scales and products are the plain version's,
     so it is expected bit-equal); each launched twice, bit-equal; one call
-    under torch.profiler must run int8_gemm_plan's device kernels (M3: the
-    transpose and the GEMM; M3d: the rows too). At the two timed shapes,
+    captured in a CUDA graph must hold int8_gemm_plan's device kernels (M3:
+    the transpose and the GEMM; M3d: the rows too). At the two timed shapes,
     CUDA-graph replays of the wrapper, each device kernel's share (from the
     profiler), and beside them the library route (torch._int_mm plus the
     rescale, for M3d after quantize_rows), the yardsticks bf16 torch.matmul
@@ -1741,12 +1821,12 @@ def int8_gemm_phase(torch, ig):
             err = gemv_error(torch, y, y_ref)
             equal = bool(torch.equal(y, y_ref))
             twice = bool(torch.equal(y, y2))
-            launched = device_kernels(torch, kernel)
+            launched, calls = device_kernels(torch, kernel)
             ok = ((equal if fam is m3 else err <= BOUND_GEMV) and twice
                   and len(launched) == plan.kernels
                   and y.dtype == torch.bfloat16
                   and bool(torch.isfinite(y).all())
-                  and counter.launches == before + 3)
+                  and counter.launches == before + 2 + calls)
             d_abs = float((y.float() - y_ref.float()).abs().max())
             fam.max_err = max(fam.max_err, d_abs)
             line = (f"[kernel] {fam.name:<17} M={M} K={K} N={N} plan "
@@ -1786,14 +1866,16 @@ def int8_gemm_phase(torch, ig):
 
 
 def i8i8_phase(torch, ig, mm, cfg):
-    """M1 (i8i8_matmul) against its plain version at M = 1, 6 and 16 on the
-    three Phi-3.5 projections of microbench/decode (qkv, gate_up, down),
-    max |dy| / max |y| <= 2**-7. At M = 6 it is timed by CUDA-graph replay
-    over enough weight copies to pass the L2 (streamed from device memory,
-    as in a decode step), beside K3's w8a8 int8_gemv and torch._int_mm on
-    the same copies (17 rows: _int_mm takes more than 16). Family numbers
-    are one pass of microbench/decode's M1 lines: the three projections at
-    M = 6."""
+    """M1 (i8i8_matmul, served on K3's w8a8 kernel) against its plain
+    version at M = 1, 6 and 16 on the three Phi-3.5 projections of
+    microbench/decode (qkv, gate_up, down): bit-equal (K3's w8a8 branch is
+    bit-equal to the same function), launched twice bit-equal, each launch
+    counted by M1's own binding, one device kernel a call (captured in a
+    CUDA graph). At M = 6 it is timed by CUDA-graph replay over enough
+    weight copies to pass the L2 (streamed from device memory, as in a
+    decode step), beside K3's w8a8 int8_gemv and torch._int_mm on the same
+    copies (17 rows: _int_mm takes more than 16). Family numbers are one
+    pass of microbench/decode's M1 lines: the three projections at M = 6."""
     L = cfg.llm
     D, I = L.hidden_size, L.intermediate_size
     fam = Family("i8i8_gemv")
@@ -1808,19 +1890,31 @@ def i8i8_phase(torch, ig, mm, cfg):
         for M in (1, 6, 16):
             x = torch.randn(M, d, generator=g, device="cuda").bfloat16()
             before = ig.I8I8_GEMV.launches
+            k3_before = mm.INT8_GEMV.launches
             y = ig.i8i8_matmul(x, w[0], s[0])
+            y2 = ig.i8i8_matmul(x, w[0], s[0])
             y_ref = ig.i8i8_matmul_reference(x, w[0], s[0])
             torch.cuda.synchronize()
             err = gemv_error(torch, y, y_ref)
             d_abs = float((y.float() - y_ref.float()).abs().max())
-            ok = (err <= BOUND_GEMV and y.dtype == torch.bfloat16
+            exact = bool(torch.equal(y, y_ref))
+            twice = bool(torch.equal(y, y2))
+            names, calls = device_kernels(
+                torch, lambda: ig.i8i8_matmul(x, w[0], s[0]))
+            one = len(names) == 1 and "int8_mm_kernel" in names[0]
+            ok = (exact and twice and one and y.dtype == torch.bfloat16
                   and bool(torch.isfinite(y).all())
-                  and ig.I8I8_GEMV.launches == before + 1)
+                  and ig.I8I8_GEMV.launches == before + 2 + calls
+                  and mm.INT8_GEMV.launches == k3_before)
             fam.max_err = max(fam.max_err, d_abs)
-            line = (f"[kernel] i8i8_gemv {pname:<7} M={M} D={d} O={o} "
-                    f"bit-equal={bool(torch.equal(y, y_ref))} max|dy|="
-                    f"{d_abs:.3e} max|dy|/max|y|={err:.3e} "
-                    f"(<= {BOUND_GEMV:.3e})")
+            plan = mm.int8_matmul_plan(M, d, o, True)
+            line = (f"[kernel] i8i8_gemv {pname:<7} M={M} D={d} O={o} on K3's "
+                    f"w8a8 kernel, plan C={plan.cluster} stages="
+                    f"{plan.stages}/{plan.stages_per_block} smem={plan.smem} "
+                    f"bit-equal={exact} max|dy|={d_abs:.3e} "
+                    f"max|dy|/max|y|={err:.3e} (bit-equal required) "
+                    f"two-launches-bit-equal={twice} device kernels a call "
+                    f"{len(names)} {[short_entry(n) for n in names]}")
             if M == 6:
                 def run(fn):
                     return lambda: [fn(i) for i in range(C)]
@@ -1846,13 +1940,16 @@ def i8i8_phase(torch, ig, mm, cfg):
             log(line + f" {'OK' if ok else 'FAIL'}")
             if not ok:
                 raise AssertionError(f"i8i8_gemv {pname} M={M}: kernel "
-                                     "disagrees with the plain version")
+                                     "disagrees with the plain version or "
+                                     "with itself, or is not one launch of "
+                                     "K3's w8a8 kernel")
         del w, s
         torch.cuda.empty_cache()
     bms, by = fam.bound()
     log(f"[kernel] i8i8_gemv per microbench/decode pass (3 projections at "
         f"M=6): kernel {fam.ms:.4f} ms, plain {fam.plain_ms:.4f} ms, _int_mm "
-        f"{fam.library_ms:.4f} ms, bound {bms:.4f} ms ({by})")
+        f"{fam.library_ms:.4f} ms, bound {bms:.4f} ms ({by}), "
+        f"{100 * bms / fam.ms:.1f}% of the bound reached")
     return fam
 
 
@@ -2094,7 +2191,8 @@ def small_reference(torch, cfg_full, seed, quantize):
     ok = max(errs) <= bound
     what = (f"{quantize} + int8 cache, card kernels vs host plain versions"
             if quantize else "card bf16 vs host fp32")
-    log(f"[small-ref] depth-cut full width (CLIP 2 of 3 layers, IV2 2 "
+    log(f"[small-ref] {cfg_full.llm_name} depth-cut full width (CLIP 2 of "
+        f"3 layers, IV2 2 "
         f"blocks, LLM 2 layers, 1 segment), {what}, rel L2: "
         f"video features {errs[0]:.3e}, prefill logits {errs[1]:.3e}, "
         f"decode-step logits {errs[2]:.3e} (<= {bound}) "
@@ -2837,6 +2935,191 @@ def microbench_path(torch, kernels, cfg, zero):
     return got
 
 
+def expect_counts(zero, nl, flash_n, w8a8_per_step, quant_cache,
+                  k6_per_step):
+    """A serving path's launch counts as a function of its timings (decode
+    steps s): flash_n flash_fwd a request; per step w8a8_per_step w8a8
+    int8_gemv, nl decode_attention_int8 and one scatter_write with the int8
+    cache, k6_per_step weight-only int8_matmul (plus one a request, the
+    prefill's lm_head) where it runs."""
+    def fn(t):
+        s = t["decode_steps"]
+        return dict(zero, flash_fwd=flash_n, int8_gemv=w8a8_per_step * s,
+                    decode_attention_int8=nl * s if quant_cache else 0,
+                    scatter_write=s if quant_cache else 0,
+                    int8_matmul=(1 + k6_per_step * s) if k6_per_step else 0)
+    return fn
+
+
+def encode_chunk_check(torch, vlm, params, cfg, temporal, spatial,
+                       chunk=4):
+    """One bf16 B=1 encode at full width twice, whole and with
+    encoder_chunk_clips=chunk (InternVideo2 over the 12 clips chunk at a
+    time): the same kernels on the same clips, so the features must agree
+    within relative L2 1e-6; each run's time and the peak device memory it
+    added are printed."""
+    from grounded_video_llm_tpu_torch.core.config import replace
+
+    sp = torch.from_numpy(spatial[None]).cuda()
+    tp = torch.from_numpy(temporal[None]).cuda()
+    out = {}
+    for name, c in (("whole", cfg),
+                    (f"encoder_chunk_clips={chunk}",
+                     replace(cfg, encoder_chunk_clips=chunk))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            out[name] = vlm.encode_video(params, c, sp, tp)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        log(f"[encode-chunk] {cfg.llm_name} bf16 B=1 encode, {name}: "
+            f"{ms:.1f} ms, peak device memory above the weights "
+            f"{peak:.3f} GiB")
+    a, b = out.values()
+    err = rel_err(torch, b, a)
+    ok = (err <= 1e-6 and a.shape == b.shape
+          and bool(torch.isfinite(b).all()))
+    log(f"[encode-chunk] features {tuple(b.shape)} chunked vs whole: rel L2 "
+        f"{err:.3e} (<= 1e-06) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the clip-chunked encode disagrees with the "
+                             "whole one")
+
+
+def llama3_kernel_phase(torch, fa, mm, da, cw, cfg, S_pre, max_len):
+    """The serving kernels at full-width llama3's own shapes (readings;
+    each case is still held to its kernel's bar): K2 at its prefill [1,
+    S_pre, 32, 128] with 8 kv heads beside SDPA; K3's w8a8 branch at M = 6
+    on the four projections over 32 layers (a mode A step) beside
+    torch._int_mm; K4 at B = 6, G = 4 over max_len slots and 32 layers; K5
+    on mode A's four cache buffers [32, 6, 8, max_len, 128] (write_phase:
+    bit-equal, same storage, every other byte untouched); K6 on the
+    128,558-row vocabulary beside torch._weight_int8pack_mm."""
+    L = cfg.llm
+    nl, D = L.num_layers, L.hidden_size
+    fams = []
+    r = check_flash(torch, fa, "llama3_prefill", B=1, Sq=S_pre,
+                    H=L.num_heads, D=L.head_dim, Hkv=L.num_kv_heads,
+                    causal=True, pads=(0,), seed=200)
+    k2 = Family("flash_fwd")
+    k2.add(nl, r["ms"], r["plain_ms"], r["bytes"], r["flops"], "bf16",
+           r["library_ms"])
+    fams.append((k2, f"llama3 prefill (32 launches at S={S_pre})"))
+    shapes = {"qkv": (D, L.q_dim + 2 * L.kv_dim), "o": (L.q_dim, D),
+              "gate_up": (D, 2 * L.intermediate_size),
+              "down": (L.intermediate_size, D)}
+    k3 = Family("int8_gemv")
+    for j, (pname, (d, o)) in enumerate(shapes.items()):
+        r = check_gemv(torch, mm, f"int8_gemv llama3 {pname}", 6, d, o,
+                       layers=nl, w8a8=True, timed=True, seed=210 + j)
+        k3.add(nl, r["ms"], r["plain_ms"], r["bytes"], r["ops"], "int8",
+               r["library_ms"])
+    fams.append((k3, "llama3 mode A step (128 launches at M=6)"))
+    r = check_attention(torch, da, "llama3_b6", 6, L.num_heads,
+                        L.num_kv_heads, L.head_dim, max_len, layers=nl,
+                        timed=True, seed=220)
+    k4 = Family("decode_attention_int8")
+    k4.add(nl, r["ms"], r["plain_ms"], r["bytes"], r["ops"])
+    fams.append((k4, f"llama3 mode A step (32 launches, B=6, G=4, "
+                 f"{max_len} slots)"))
+    fams.append((write_phase(torch, cw, cfg, max_len),
+                 f"llama3 mode A step (1 launch, B=6, {max_len} slots)"))
+    r = check_gemv(torch, mm, "int8_matmul llama3 lm_head", 6, D,
+                   L.padded_vocab_size, layers=LM_HEAD_COPIES, timed=True,
+                   seed=230)
+    k6 = Family("int8_matmul")
+    k6.add(1, r["ms"], r["plain_ms"], r["bytes"], r["ops"],
+           library_ms=r["library_ms"])
+    fams.append((k6, f"llama3 lm_head at M=6 ({L.padded_vocab_size} rows)"))
+    for fam, what in fams:
+        bms, by = fam.bound()
+        lib = (f"{fam.library_ms:.4f} ms" if fam.library_ms is not None
+               else "none")
+        log(f"[kernel] {fam.name} per {what}: kernel {fam.ms:.4f} ms, plain "
+            f"{fam.plain_ms:.4f} ms, library {lib}, bound {bms:.4f} ms "
+            f"({by}), {100 * bms / fam.ms:.1f}% of the bound reached")
+
+
+def llama3_path(torch, kernels, zero, generate, temporal, spatial,
+                resize_ms):
+    """Full-width llama3 (vlm_config("llama3", stage="inference"):
+    Meta-Llama-3-8B, 32 layers, 32 heads, 8 kv heads of 128; CLIP ViT-L/14
+    and InternVideo2-1B as in the Phi-3.5 paths), seeded random bf16
+    weights, on the frames the Phi-3.5 paths resized: the chunked encode
+    check, the kernels at llama3's shapes, then a bf16 B=1 request and a
+    mode A request (int8_full, int8 cache, B=6), their launch counts held
+    to the config's, their tokens in the vocabulary and their texts
+    parsed. Returns the summed launch counts."""
+    from grounded_video_llm_tpu_torch.cli.model_loading import (
+        build_params, build_tokenizer)
+    from grounded_video_llm_tpu_torch.core.config import (GenerateConfig,
+                                                          vlm_config)
+    from grounded_video_llm_tpu_torch.models import vlm
+    from grounded_video_llm_tpu_torch.ops import cache_write as cw
+    from grounded_video_llm_tpu_torch.ops import decode_attention_int8 as da
+    from grounded_video_llm_tpu_torch.ops import flash_attention as fa
+    from grounded_video_llm_tpu_torch.ops import int8_matmul as mm
+    from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
+
+    cfg = vlm_config("llama3", stage="inference")
+    L = cfg.llm
+    tok = build_tokenizer(cfg)
+    t0 = time.perf_counter()
+    params = build_params(cfg, "cuda", torch.bfloat16, seed=SEED)
+    torch.cuda.synchronize()
+    log(f"[params] full-width llama3 bf16 built on the card in "
+        f"{time.perf_counter() - t0:.2f} s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    encode_chunk_check(torch, vlm, params, cfg, temporal, spatial)
+
+    gen_cfg = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False)
+    gen_int8 = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+                              quantize_cache=True)
+    bf16 = InferenceEngine(params, cfg, tok, gen_cfg, seed=SEED)
+    S_pre = (len(bf16.tokenize_prompt(bf16.build_prompt(
+        MODES[0][1], MODES[0][0], 96.0))) - 1 + cfg.num_video_tokens)
+    batch6 = [x for pair in zip(MODES, MODES_2) for x in pair]
+    S_pre6 = (max(len(bf16.tokenize_prompt(bf16.build_prompt(p, m, 96.0)))
+                  for m, p in batch6) - 1 + cfg.num_video_tokens)
+    llama3_kernel_phase(torch, fa, mm, da, cw, cfg, S_pre,
+                        -(-(S_pre6 + MAX_NEW_TOKENS) // 128) * 128)
+
+    per_req = (cfg.clip.num_layers + cfg.clip.feature_layer + 1
+               + cfg.video.num_blocks_used + L.num_layers)
+    n_vocab = L.vocab_size + L.num_extra_tokens
+    launches = dict(zero)
+    full = InferenceEngine(params, cfg, tok, gen_int8, seed=SEED,
+                           quantize="int8_full")
+    for name, engine, batch, g, want in (
+            ("llama3 bf16 B=1", bf16, [MODES[0]], gen_cfg,
+             expect_counts(zero, L.num_layers, per_req, 0, False, 0)),
+            ("llama3 A int8_full int8-cache B=6", full, batch6, gen_int8,
+             expect_counts(zero, L.num_layers, per_req, 4 * L.num_layers,
+                           True, 1))):
+        got = run_path(torch, kernels, name, generate(engine, batch, g), want)
+        launches = {k: launches[k] + got[k] for k in launches}
+        t = engine.last_timings
+        tokens = engine.last_tokens[0]
+        in_range = bool(((tokens >= 0) & (tokens < n_vocab)).all())
+        steps = max(t["decode_steps"], 1)
+        S = t["prompt_len"] - 1 + cfg.num_video_tokens
+        log(f"[path] {name}: prefill length {S} tokens; latency preprocess "
+            f"{resize_ms:.1f} ms (the shared resize, run once for every "
+            f"path) + encode {t['encode'] * 1e3:.1f} + prefill "
+            f"{t['prefill'] * 1e3:.1f} + decode {t['decode'] * 1e3:.1f} ms "
+            f"({t['decode'] * 1e3 / steps:.2f} ms/step over "
+            f"{t['decode_steps']} steps); tokens {tuple(tokens.shape)} in "
+            f"[0, {n_vocab}): {in_range} {'OK' if in_range else 'FAIL'}")
+        if not in_range:
+            raise AssertionError(f"{name}: tokens outside the vocabulary")
+    del full, bf16, params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def train_path(torch, kernels, params, tok, temporal, spatial):
     """The training path: vlm_config("phi3.5", stage="grounded") at full
     width on the given bf16 weights with LoRA r=128 attached (B != 0), the
@@ -3099,8 +3382,8 @@ def main() -> int:
     frames = synthetic_video(SEED, cfg.num_frames)
     t0 = time.perf_counter()
     temporal, spatial = bf16.preprocess_frames(frames)
-    log(f"[path] host resize of the 96 frames, once: "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    resize_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[path] host resize of the 96 frames, once: {resize_ms:.1f} ms")
 
     # ---- 4. small references
     for quantize in (None, "int8", "int8_full"):
@@ -3130,16 +3413,8 @@ def main() -> int:
             return engine.last_timings
         return fn
 
-    def expect(flash_n, w8a8_per_step, quant_cache, k6_per_step):
-        def fn(t):
-            s = t["decode_steps"]
-            return dict(zero, flash_fwd=flash_n,
-                        int8_gemv=w8a8_per_step * s,
-                        decode_attention_int8=nl * s if quant_cache else 0,
-                        scatter_write=s if quant_cache else 0,
-                        int8_matmul=(1 + k6_per_step * s) if k6_per_step
-                        else 0)
-        return fn
+    def expect(*args):
+        return expect_counts(zero, nl, *args)
 
     got = run_path(torch, kernels, "bf16 B=1", generate(bf16, [MODES[0]],
                                                          gen_cfg),
@@ -3231,6 +3506,21 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     got = microbench_path(torch, kernels, cfg, zero)
+    launches = {k: launches[k] + got[k] for k in launches}
+
+    # ---- 8. llama3 and vicuna: depth-cut references, then full-width
+    # llama3 on the same frames, every Phi-3.5 tree and engine freed
+    torch.cuda.synchronize()
+    log(f"[main] Phi-3.5 freed: "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, peak "
+        f"since the last path {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        " GiB")
+    for name in ("llama3", "vicuna"):
+        for quantize in (None, "int8_full"):
+            small_reference(torch, vlm_config(name, stage="inference"), SEED,
+                            quantize)
+    got = llama3_path(torch, kernels, zero, generate, temporal, spatial,
+                      resize_ms)
     launches = {k: launches[k] + got[k] for k in launches}
     log(f"[main] launches over every path: {launches}")
     missing = [n for n, c in launches.items() if c == 0]

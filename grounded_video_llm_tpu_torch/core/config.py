@@ -277,10 +277,10 @@ class VLMConfig:
     max_txt_len: int = 2048
     spatial_image_size: int = 336
     temporal_image_size: int = 224
-    # Serve-side HBM control: run the temporal encoder over clip chunks of
-    # this size via lax.map (transients scale with the chunk, not B*num_segs;
-    # unlocks batch 8 on one v5e where whole-batch encode transients OOM).
-    # None → single whole-batch encode.
+    # Device-memory cap for serving: models/vlm.encode_video runs
+    # InternVideo2 in a loop over chunks of this many clips (where it is
+    # below B*num_segs and divides it), so the encoder's activations scale
+    # with the chunk, not with B*num_segs. None → one whole-batch encode.
     encoder_chunk_clips: Optional[int] = None
     clip: CLIPVisionConfig = field(default_factory=CLIPVisionConfig)
     video: InternVideo2Config = field(default_factory=InternVideo2Config)

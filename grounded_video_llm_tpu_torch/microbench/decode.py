@@ -4,9 +4,11 @@
   gemv_int8   the weight-only int8 GEMV the port ships (ops/int8_matmul,
               kernel K6's function)
   gemv_w8a8   the w8a8 int8 GEMV the port ships for int8_full decode (K3's
-              w8a8 branch: per-row int8 x, __dp4a on the CUDA cores)
-  gemv_i8i8   kernel M1 (ops/int8_gemm.i8i8_matmul): per-row int8 x, int8 x
-              int8 on the tensor cores, fp32 rescale (the TPU prototype)
+              w8a8 branch: per-row int8 x, int8 mma.sync on the tensor
+              cores, the weights streamed by TMA)
+  gemv_i8i8   kernel M1 (ops/int8_gemm.i8i8_matmul, the TPU prototype's
+              function): served on K3's w8a8 kernel through its own
+              binding, so its time is gemv_w8a8's at the same rows
   attn_bf16   the port's decode_attention over a bf16 cache (twice the
               bytes; plain PyTorch, as the JAX package leaves it to XLA)
   attn_int8   kernel K4 (ops/decode_attention_int8) over the int8 cache

@@ -1,17 +1,20 @@
-"""K3/K6 (``ops/int8_matmul.int8_matmul``), M3/M3d (``ops/int8_gemm``) and
-K10 (``ops/fused_block``) of this checkout against the same wrappers of
+"""K3/K6 (``ops/int8_matmul.int8_matmul``), M1/M3/M3d (``ops/int8_gemm``)
+and K10 (``ops/fused_block``) of this checkout against the same wrappers of
 another checkout of the repository, on one card, in one process: both built
 from their own sources, each call checked against the other (w8a8 and M3
 bit-equal, weight-only, M3d and K10 within 2**-7 of the larger output), then
 timed in turns (other, this, this, other) by CUDA-graph replays. K3/K6 over
 weight copies past the L2: Phi-3.5's four projections over 32 layers at M=6
 (w8a8, a mode A step), M=1 (weight-only, a mode B/C step) and M=30 (w8a8, a
-path D verify pass), and the lm_head over 4 copies at M=6 and M=30. M3 and
-M3d at microbench/int8_gemm's shapes, fc1 8192 x 1408 x 6144 and the fc2
-transpose, and K10's four GEMMs (qkv with qk_norm, fc1 with GELU, proj and
-fc2 with LayerScale and residual) at path D's 147,528 rows, with this / other
-ratios: the int8 GEMM for large M (csrc/int8_wgmma.cuh) that M3, M3d and K10
-share, against another revision of it.
+path D verify pass), and the lm_head over 4 copies at M=6 and M=30. M1 at
+microbench/decode's three projections at M=6 over its weight copies (one
+pass, summed; within 2**-7, as M1's contract allowed before it ran K3's
+bit-equal kernel). M3 and M3d at microbench/int8_gemm's shapes, fc1
+8192 x 1408 x 6144 and the fc2 transpose, and K10's four GEMMs (qkv with
+qk_norm, fc1 with GELU, proj and fc2 with LayerScale and residual) at path
+D's 147,528 rows, with this / other ratios: the int8 GEMM for large M
+(csrc/int8_wgmma.cuh) that M3, M3d and K10 share, against another revision
+of it.
 
     git archive <rev> | tar -x -C build/other      # build/ is gitignored
     python3 -m grounded_video_llm_tpu_torch.microbench.int8_matmul_ab build/other
@@ -31,6 +34,7 @@ from ..core.config import vlm_config
 from ..ops import fused_block as fb
 from ..ops import int8_gemm as ig
 from ..ops import int8_matmul as mm
+from . import decode as mb_decode
 from . import int8_gemm as mb_gemm
 from .timing import card, device_ms, require_cuda
 
@@ -105,6 +109,46 @@ def turns(label, calls, reps, bar, name) -> None:
           f"{ms['this'][1]:.4f} ms ({ratio:.3f}x), max|dy|/max|y| "
           f"{err:.2e} | {name}", flush=True)
     torch.cuda.empty_cache()
+
+
+def m1_ab(other_ig, name, g, dev) -> None:
+    """M1 (i8i8_matmul) of both checkouts in turns at microbench/decode's
+    projections and batch, each call reading the next weight copy; the
+    per-call times and one pass (the three projections) summed."""
+    total = {"other": 0.0, "this": 0.0}
+    M = 6
+    for d, o, tag in mb_decode.PROJECTIONS:
+        C = mb_decode.copies(d * o)
+        w = torch.randint(-127, 128, (C, d, o), generator=g, device=dev,
+                          dtype=torch.int8)
+        s = torch.rand(C, o, generator=g, device=dev) * 1e-3 + 1e-4
+        x = (torch.randn(M, d, generator=g, device=dev) * 0.1).bfloat16()
+        fns = {who: (lambda f=mod.i8i8_matmul: [f(x, w[i], s[i])
+                                                 for i in range(C)])
+               for who, mod in (("other", other_ig), ("this", ig))}
+        y0, y1 = other_ig.i8i8_matmul(x, w[0], s[0]), ig.i8i8_matmul(
+            x, w[0], s[0])
+        err = float((y0.float() - y1.float()).abs().max()
+                    / y0.float().abs().max().clamp_min(1e-30))
+        if err > 2 ** -7:
+            raise AssertionError(f"i8i8_matmul {tag}: the two checkouts "
+                                 f"disagree ({err:.3e})")
+        ms = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            ms[who].append(device_ms(fns[who], REPS, graph=True) / C)
+        for who in total:
+            total[who] += min(ms[who])
+        bound = (d * o + 4 * o + 2 * M * d + 2 * M * o) / HBM_BPS * 1e3
+        print(f"[m1_ab] i8i8_matmul {tag} M={M} D={d} O={o} over {C} "
+              f"copies: other {ms['other'][0]:.4f} / {ms['other'][1]:.4f} "
+              f"ms, this {ms['this'][0]:.4f} / {ms['this'][1]:.4f} ms, bound "
+              f"{bound:.4f} ms, max|dy|/max|y| {err:.2e} | {name}",
+              flush=True)
+        del w, s, x, fns
+        torch.cuda.empty_cache()
+    print(f"[m1_ab] i8i8_matmul pass (3 projections) M={M}: other "
+          f"{total['other']:.4f} ms, this {total['this']:.4f} ms "
+          f"({total['this'] / total['other']:.3f}x) | {name}", flush=True)
 
 
 def gemm_ab(other_ig, other_fb, other_mm, cfg, name, g, dev) -> None:
@@ -206,9 +250,10 @@ def main(argv=None) -> int:
               f"{total['other']:.4f} ms, this {total['this']:.4f} ms "
               f"({total['this'] / total['other']:.3f}x) | {name}",
               flush=True)
-    gemm_ab(importlib.import_module("gvllm_other.ops.int8_gemm"),
-            importlib.import_module("gvllm_other.ops.fused_block"), other,
-            vlm_config("phi3.5", stage="inference"), name, g, dev)
+    other_ig = importlib.import_module("gvllm_other.ops.int8_gemm")
+    m1_ab(other_ig, name, g, dev)
+    gemm_ab(other_ig, importlib.import_module("gvllm_other.ops.fused_block"),
+            other, vlm_config("phi3.5", stage="inference"), name, g, dev)
     return 0
 
 

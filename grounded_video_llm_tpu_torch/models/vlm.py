@@ -5,18 +5,18 @@ grounded_video_llm_tpu/models/vlm.py).
     spatial [B,12,336,336,3] → CLIP penultimate (CLS dropped) → [B*12,576,C]
       phi3.5: 2x2 patch merge → +sub_GN newline column → mm_projector
               → [B,12,156,H]
+      llama3 / vicuna: 24x24 → 8x8 mean pool → mm_projector → [B,12,64,H]
     temporal [B,96,224,224,3] → 12 clips of 8 → InternVideo2 (early exit, CLS
-      dropped) → per-frame 16x16 → 4x4 mean pool → video_projector
-      → [B,12,128,H]
+      dropped; in chunks of cfg.encoder_chunk_clips clips where set) →
+      per-frame 16x16 → 4x4 mean pool → video_projector → [B,12,128,H]
     fuse: per segment [image | segment | newline], newline =
-      mm_projector(glb_GN)
+      mm_projector(glb_GN) (phi3.5) or the stored image_newline (llama3,
+      vicuna)
   splice_multimodal: the single IMAGE_TOKEN_INDEX slot is replaced by the
     video tokens as one static-shape gather; text-only rows append the video
     tokens at the end with attention 0.
   forward_loss: encode (frozen encoders under no_grad) → splice → LLM →
     sequence-chunked cross entropy.
-
-Not ported yet: the llama3/vicuna image_newline fusion.
 """
 
 from __future__ import annotations
@@ -46,13 +46,15 @@ class Batch(NamedTuple):
 
 def init_params(cfg: VLMConfig, *, generator: torch.Generator, device,
                 dtype=torch.float32):
-    if cfg.llm_name != "phi3.5":
-        raise NotImplementedError(
-            f"vlm.init_params: {cfg.llm_name} (image_newline fusion) is not "
-            "ported yet; phi3.5 is")
     H = cfg.llm.hidden_size
     C = cfg.clip.hidden_size
     kw = dict(generator=generator, device=device, dtype=dtype)
+    if cfg.llm_name == "phi3.5":
+        # glb_GN [4C], sub_GN [4C]
+        extras = {"glb_GN": normal((4 * C,), 0.02, **kw),
+                  "sub_GN": normal((4 * C,), 0.02, **kw)}
+    else:
+        extras = {"image_newline": normal((H,), 0.02, **kw)}
     return {
         "clip": clip_vit.init_params(cfg.clip, **kw),
         "video_encoder": internvideo2.init_params(cfg.video, **kw),
@@ -60,9 +62,7 @@ def init_params(cfg: VLMConfig, *, generator: torch.Generator, device,
         "video_projector": projectors.init_video_projector(
             H, cfg.video.embed_dim, **kw),
         "llm": llm_mod.init_params(cfg.llm, **kw),
-        # glb_GN [4C], sub_GN [4C]
-        "extras": {"glb_GN": normal((4 * C,), 0.02, **kw),
-                   "sub_GN": normal((4 * C,), 0.02, **kw)},
+        "extras": extras,
     }
 
 
@@ -118,10 +118,13 @@ def encode_video(params, cfg: VLMConfig, spatial_pixels: torch.Tensor,
     freeze_encoders: both encoders run under torch.no_grad(), the JAX
     package's stop_gradient at their outputs; both are frozen in every
     training stage, so their backward is never needed. The fusion,
-    sub_GN / glb_GN and the projectors stay in the graph."""
-    if cfg.llm_name != "phi3.5":
-        raise NotImplementedError(
-            f"encode_video: {cfg.llm_name} fusion is not ported yet")
+    sub_GN / glb_GN / image_newline and the projectors stay in the graph.
+
+    cfg.encoder_chunk_clips, where set below B*num_segs and dividing it,
+    runs InternVideo2 over that many clips at a time, one call after the
+    other: the encoder's activations then scale with the chunk, not with
+    B*num_segs. The clips are independent until fusion, so the features
+    are the same."""
     enc_dtype = params["clip"]["embeddings"]["patch_kernel"].dtype
     spatial_pixels = _maybe_normalize(
         spatial_pixels, OPENAI_DATASET_MEAN, OPENAI_DATASET_STD, enc_dtype)
@@ -135,15 +138,26 @@ def encode_video(params, cfg: VLMConfig, spatial_pixels: torch.Tensor,
     sp = spatial_pixels.reshape(B * S_segs, *spatial_pixels.shape[2:])
     with frozen:
         image_feats = clip_vit.features(params["clip"], cfg.clip, sp)
-    x = merge_2x2_phi3(image_feats)                       # [B*12,12,12,4C]
-    x = add_newline_phi3(x, params["extras"]["sub_GN"])   # [B*12,156,4C]
-    x = x.reshape(B, S_segs, *x.shape[1:])
+    if cfg.llm_name == "phi3.5":
+        x = merge_2x2_phi3(image_feats)                     # [B*12,12,12,4C]
+        x = add_newline_phi3(x, params["extras"]["sub_GN"])  # [B*12,156,4C]
+        x = x.reshape(B, S_segs, *x.shape[1:])
+    else:
+        x = image_feats.reshape(B, S_segs, *image_feats.shape[1:])
+        x = _pool_grid(x, 24, 8)                            # [B,12,64,C]
     image_feats = projectors.mlp_project(params["mm_projector"], x)
 
     # ---- temporal stream
     tp = temporal_pixels.reshape(B * S_segs, fps, *temporal_pixels.shape[2:])
+    n = B * S_segs
+    chunk = cfg.encoder_chunk_clips
+    if not (chunk and n > chunk and n % chunk == 0):
+        chunk = n
     with frozen:
-        seg = internvideo2.features(params["video_encoder"], cfg.video, tp)
+        parts = [internvideo2.features(params["video_encoder"], cfg.video,
+                                       tp[i:i + chunk])
+                 for i in range(0, n, chunk)]
+    seg = parts[0] if len(parts) == 1 else torch.cat(parts)
     seg = seg[:, 1:, :]                                   # drop CLS
     seg = seg.reshape(B * S_segs, fps, cfg.video.patches_per_frame, -1)
     seg = _pool_grid(seg, 16, 4)                          # [B*12,fps,16,C]
@@ -152,8 +166,11 @@ def encode_video(params, cfg: VLMConfig, spatial_pixels: torch.Tensor,
 
     # ---- newline + fuse
     H = cfg.llm.hidden_size
-    nl = projectors.mlp_project(params["mm_projector"],
-                                params["extras"]["glb_GN"][None, :])
+    if cfg.llm_name == "phi3.5":
+        nl = projectors.mlp_project(params["mm_projector"],
+                                    params["extras"]["glb_GN"][None, :])
+    else:
+        nl = params["extras"]["image_newline"]
     newline = nl.reshape(1, 1, 1, H).expand(B, S_segs, 1, H)
     newline = newline.to(image_feats.dtype)
     video = torch.cat([image_feats, seg_feats, newline], dim=2)

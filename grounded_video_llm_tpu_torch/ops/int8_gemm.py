@@ -10,7 +10,8 @@ csrc/int8_gemm.cu) with their plain PyTorch versions.
                                dynamic_int8_matmul with bf16 output
   i8i8_matmul(x, w, s)         M1, scripts/microbench_decode.py:85
                                (`i8i8_matmul`): the decode-shaped W8A8 GEMV,
-                               x [M <= 16, K], on the int8 tensor cores
+                               x [M <= 16, K], on the int8 tensor cores,
+                               served on K3's w8a8 kernel
 
 M3 and M3d run the port's one int8 GEMM for large M (csrc/int8_wgmma.cuh,
 which K10 in ops/fused_block runs too): the weight transposed K-major into
@@ -21,7 +22,12 @@ again in every call, never cached.
 M1 computes what the script's docstring says: per-row int8 quantization,
 an int8 x int8 dot, then float(dot) * xs * s → bf16. The TPU prototype
 multiplies every output by a zeros placeholder (`:69-70`, `:90`, `:97`) and
-returns zeros; the port does not reproduce that fault.
+returns zeros; the port does not reproduce that fault. That is the function
+of K3's w8a8 branch (ops/int8_matmul.int8_matmul(w8a8=True)) in the same
+rounding order, so M1 launches that kernel (csrc/int8_matmul.cu,
+``gvllm_int8_gemv``: one launch a call, the weights streamed by TMA, int8
+mma.sync) through a binding of its own, ``I8I8_GEMV``, whose ``launches``
+count M1's calls apart from K3's.
 
 CPU tensors run the plain version; CUDA tensors launch the kernel (counted
 in its ``launches``) or raise. The plain versions sum the int8 products
@@ -36,16 +42,16 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from . import int8_matmul as mm
 from .cuda_build import CudaKernel
 from .fused_block import output_tile
-from .int8_matmul import _exact_int8_dot, _sm_count, quantize_rows
+from .int8_matmul import _ARGTYPES, _exact_int8_dot, quantize_rows
 
 # csrc/int8_wgmma.cuh: K in multiples of the weight transpose's 64-byte
 # tile; 128-row output tiles, the K steps of 128 bytes in a 4-stage ring
 GEMM_BK, GEMM_BM, GEMM_STEP, GEMM_STAGES = 64, 128, 128, 4
 GEMM_MAX_ROW_BLOCKS = 65535     # the grid's y dimension
-GEMV_ROWS = 16                  # M1's m tile
-GEMV_BN = 128                   # M1's columns per block
+GEMV_ROWS = 16                  # M1's rows: the microbenchmark's m tile
 
 # gvllm_int8_gemm(x8, w, s, y, wt, M, K, N, stream) -> cudaError_t
 INT8_GEMM = CudaKernel("int8_gemm.cu", "gvllm_int8_gemm",
@@ -55,10 +61,9 @@ INT8_GEMM = CudaKernel("int8_gemm.cu", "gvllm_int8_gemm",
 INT8_GEMM_DYNAMIC = CudaKernel("int8_gemm.cu", "gvllm_int8_gemm_dynamic",
                                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                                + [ctypes.c_void_p])
-# gvllm_i8i8_gemv(x, w, s, y, x8, xs, part, M, K, N, kc, stream)
-I8I8_GEMV = CudaKernel("int8_gemm.cu", "gvllm_i8i8_gemv",
-                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
+# M1 on K3's w8a8 entry: gvllm_int8_gemv(x, w, ldw, scale, y, M, D, O,
+# stream) of csrc/int8_matmul.cu, bound again so M1 keeps its own counter
+I8I8_GEMV = CudaKernel("int8_matmul.cu", "gvllm_int8_gemv", _ARGTYPES)
 
 
 class Int8GemmPlan(NamedTuple):
@@ -145,15 +150,15 @@ def _check_gemm_args(name, x, w, s, x_dtype):
 
 
 def _check_gemv_args(x, w, s):
-    _check_common("i8i8_matmul", x, w, s, torch.bfloat16)
+    """What K3's w8a8 launch refuses, then M1's own contract: M <= 16 and
+    K % 32 == 0."""
+    mm._check_launch_args("i8i8_matmul", x, w, s, True)
     M, K = x.shape
-    N = w.shape[1]
     if not 1 <= M <= GEMV_ROWS:
         raise ValueError(f"i8i8_matmul kernel takes 1 <= M <= {GEMV_ROWS} "
                          f"rows (one m16 tile), got {M}")
-    if K % 32 or N % 16:
-        raise ValueError(f"i8i8_matmul kernel takes K % 32 == 0 and "
-                         f"N % 16 == 0, got K={K}, N={N}")
+    if K % 32:
+        raise ValueError(f"i8i8_matmul kernel takes K % 32 == 0, got {K}")
 
 
 def _no_kernel(name, device):
@@ -207,35 +212,14 @@ def int8_gemm_dynamic(x: torch.Tensor, w: torch.Tensor,
                  torch.bfloat16)
 
 
-def gemv_chunk(K: int, N: int, sms: int) -> int:
-    """M1's K chunk per split (a multiple of 128): enough blocks for about
-    four per SM over ceil(N / 128) column blocks."""
-    col_blocks = -(-N // GEMV_BN)
-    nsplit = max(1, -(-4 * sms // col_blocks))
-    per_split = -(-K // nsplit)
-    return -(-per_split // 128) * 128
-
-
 def i8i8_matmul(x: torch.Tensor, w: torch.Tensor,
                 s: torch.Tensor) -> torch.Tensor:
     """M1: bf16 x [M <= 16, K] → per-row int8 → int8 x int8 tensor-core
-    GEMV → float(dot) * xs * s → bf16 [M, N] (N % 16 == 0)."""
+    GEMV → float(dot) * xs * s → bf16 [M, N] (N % 16 == 0), one launch of
+    K3's w8a8 kernel."""
     if x.device.type == "cpu":
         return i8i8_matmul_reference(x, w, s)
     if x.device.type != "cuda":
         raise _no_kernel("i8i8_matmul", x.device)
     _check_gemv_args(x, w, s)
-    M, K = x.shape
-    N = w.shape[1]
-    kc = gemv_chunk(K, N, _sm_count(x.device.index or 0))
-    nsplit = -(-K // kc)
-    dev = x.device
-    y = torch.empty(M, N, dtype=torch.bfloat16, device=dev)
-    x8 = torch.empty(GEMV_ROWS, K, dtype=torch.int8, device=dev)
-    xs = torch.empty(GEMV_ROWS, dtype=torch.float32, device=dev)
-    part = torch.empty(nsplit, GEMV_ROWS, N, dtype=torch.int32, device=dev)
-    I8I8_GEMV(x.data_ptr(), w.data_ptr(), s.data_ptr(), y.data_ptr(),
-              x8.data_ptr(), xs.data_ptr(), part.data_ptr(), M, K, N, kc,
-              torch.cuda.current_stream(dev).cuda_stream)
-    I8I8_GEMV.launches += 1
-    return y
+    return mm._launch(x, w, s, True, kernel=I8I8_GEMV)

@@ -304,14 +304,16 @@ def _check_launch_args(name, x, w_q, scale, w8a8=False):
                          "fits beside two stages in a cluster of 16")
 
 
-def _launch(x, w_q, scale, w8a8):
+def _launch(x, w_q, scale, w8a8, kernel=None):
+    """One launch of the branch's kernel; ``kernel`` names another binding
+    of the same C entry, whose counter then takes the launch."""
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
     M, D = x.shape
     O = w_q.shape[1]
     y = torch.empty(M, O, dtype=x.dtype, device=x.device)
-    kernel = INT8_GEMV if w8a8 else INT8_MATMUL
+    kernel = kernel or (INT8_GEMV if w8a8 else INT8_MATMUL)
     kernel(x.data_ptr(), w_q.data_ptr(), w_q.stride(0), scale.data_ptr(),
            y.data_ptr(), M, D, O,
            torch.cuda.current_stream(x.device).cuda_stream)

@@ -148,7 +148,8 @@ def test_dynamic_reference_is_k10_ls_residual_without_bias(M, K, N):
 
 def test_one_gemm_serves_k10_m3_and_m3d():
     """Both libraries include the one int8 GEMM; the mma.sync GEMM M3 and
-    M3d ran before is gone, M1's GEMV stays on mma.sync."""
+    M3d ran before is gone, and so are M1's three kernels (M1 runs K3's
+    w8a8 kernel in int8_matmul.cu)."""
     head = (CSRC / "int8_wgmma.cuh").read_text()
     assert "gemm_kernel(const __grid_constant__ CUtensorMap map_a" in head
     assert "EPI_STATIC" in head and "wgmma.mma_async" in head
@@ -159,9 +160,12 @@ def test_one_gemm_serves_k10_m3_and_m3d():
     gemm = (CSRC / "int8_gemm.cu").read_text()
     for gone in ("GemmArgs", "gemm_dyn_resident_kernel", "RES_KMAX", "LDS"):
         assert gone not in gemm, gone
-    kernels = re.findall(
-        r"__global__ void __launch_bounds__\([^)]*\)\s*(\w+)", gemm)
-    assert kernels == ["gv_quant_kernel", "gv_gemv_kernel", "gv_finish_kernel"]
+    # M1's three kernels are gone: it runs K3's w8a8 kernel
+    assert "__global__" not in gemm
+    for gone in ("gv_quant_kernel", "gv_gemv_kernel", "gv_finish_kernel",
+                 "gvllm_i8i8_gemv", "mma_s8", "transpose4x4", "GV_"):
+        assert gone not in gemm, gone
+    assert ig.I8I8_GEMV.source.name == "int8_matmul.cu"
     assert "launch_gemm<EPI_STATIC>" in gemm
     assert "launch_gemm<EPI_NONE>" in gemm
     assert "fused_block.cu" not in str(ig.INT8_GEMM.source)
@@ -171,7 +175,8 @@ def test_chip_smoke_gemm_cases_reach_every_tile_width_and_rule():
     """chip_smoke runs CASES, where both entries take each of the tile
     widths 256, 176 and 128, one row, K = 64 and a K past the rows kernel's
     register-held 6,144; its [sass] rules hold libint8_gemm's GEMM to int8
-    wgmma and TMA loads without mma.sync, and M1's GEMV to int8 mma.sync."""
+    wgmma and TMA loads without mma.sync, and M1's kernel, K3's w8a8
+    instantiation, to TMA loads and int8 mma.sync."""
     cs = _chip_smoke()
     assert cs.INT8_GEMM_CASES == CASES
     assert CASES[:2] == ((8192, 1408, 6144), (8192, 6144, 1408))
@@ -187,10 +192,13 @@ def test_chip_smoke_gemm_cases_reach_every_tile_width_and_rule():
     assert cs.sass_ok("libint8_gemm.so", name, ok | {"IMMA": 1}) is False
     assert cs.sass_ok("libint8_gemm.so", name, ok | {"HMMA": 1}) is False
     assert cs.sass_ok("libint8_gemm.so", name, ok | {"UTMALDG": 0}) is False
-    gv = dict.fromkeys(cs.SASS_OPS, 0) | {"IMMA": 4}
-    assert cs.sass_ok("libint8_gemm.so", "14gv_gemv_kernelE", gv) is True
-    assert cs.sass_ok("libint8_gemm.so", "14gv_gemv_kernelE",
+    # M1's kernel is K3's w8a8 instantiation, held by libint8_matmul's rule
+    gv = dict.fromkeys(cs.SASS_OPS, 0) | {"IMMA": 4, "UTMALDG": 2}
+    assert cs.sass_ok("libint8_matmul.so", "14int8_mm_kernelILb1ELi16EEE",
+                      gv) is True
+    assert cs.sass_ok("libint8_matmul.so", "14int8_mm_kernelILb1ELi16EEE",
                       gv | {"IMMA": 0}) is False
+    assert not any("gv_gemv" in frag for _, frag, *_ in cs.SASS_REQUIRED)
     assert cs.sass_ok("libint8_gemm.so", "16transpose_kernelE", gv) is None
 
 

@@ -106,8 +106,11 @@ def test_kernel_module_imports_without_nvcc():
         "gvllm_decode_attention_int8", "gvllm_scatter_write",
         "gvllm_scatter_write_multi", "gvllm_verify_attention_int8",
         "gvllm_fused_norm_quant_gemm", "gvllm_fused_quant_gemm_ls_residual",
-        "gvllm_flash_variant", "gvllm_int8_gemm", "gvllm_int8_gemm_dynamic",
-        "gvllm_i8i8_gemv"}
+        "gvllm_flash_variant", "gvllm_int8_gemm", "gvllm_int8_gemm_dynamic"}
+    # M1 binds K3's w8a8 entry again, with a counter of its own
+    assert ig.I8I8_GEMV is not mm.INT8_GEMV
+    assert (ig.I8I8_GEMV.source, ig.I8I8_GEMV.symbol) == (
+        mm.INT8_GEMV.source, mm.INT8_GEMV.symbol)
     if (shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc")
             or any(k.library_path().exists() for k in kernels)):
         pytest.skip("nvcc or a built library present: the no-nvcc build "
@@ -743,9 +746,10 @@ def test_microbench_kernel_checks_accept_their_shapes():
                 torch.empty(N, device="meta"))
     q = torch.empty(12, 16, 2049, 88, dtype=torch.bfloat16, device="meta")
     fa._check_variant_args(q, q, q)
-    for chunk in (ig.gemv_chunk(3072, 9216, 132), ig.gemv_chunk(8192, 3072, 132),
-                  ig.gemv_chunk(64, 16, 132)):
-        assert chunk % 128 == 0 and chunk >= 128
+    # M1 runs K3's w8a8 kernel: its plan takes every microbenchmark case
+    for M in (1, 6, 16):
+        for K, N in ((3072, 9216), (3072, 16384), (8192, 3072)):
+            assert mm.int8_matmul_plan(M, K, N, True) is not None
 
 
 @pytest.mark.parametrize("case", ["fp32_q", "shape_k", "head_dim_80",

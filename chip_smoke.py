@@ -141,7 +141,28 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    (94 flash launches) and a mode A request (int8_full, int8 cache, B=6:
    per step 128 w8a8 int8_gemv, 32 K4, 1 K5, 1 lm_head; 1 K6 a request),
    their launch counts held to the config's, their phase split, prefill
-   length and peak memory printed, their tokens in the vocabulary.
+   length and peak memory printed, their tokens in the vocabulary. Before
+   them: the depth-cut training reference of phase 4 for llama3; K2 and K7
+   at llama3's grounded training shape [1, 6411, 32, 128] with 8 kv heads
+   (the spliced length printed), held to their plain versions, K7 launched
+   twice bit-equal, graph-timed beside SDPA's fastest causal forward and
+   backward (enable_gqa or K/V expanded, named) and the bound; and the
+   reference-format round trip: a full-width llama3 tree (LLM 2 of 32
+   layers, CLIP 2 of 24, InternVideo2 2 of 40 blocks; width, vocabulary
+   and the q/k/v split kept) written in the weights-day layout by
+   models/export.write_weight_dumps and read back by build_params
+   (weight_root, video_encoder_path, stage_ckpt) onto the card, every leaf
+   bit-equal to the bf16 source, bytes and seconds printed;
+9. llama3 grounded training on phase 8's full-width bf16 weights (the
+   training path of phase 6 for vlm_config("llama3", stage="grounded"):
+   LoRA r=128 with B != 0, two steps of two microbatches, the same checks
+   and launch counts, s/sample, the model-FLOP share, peak memory); then
+   the trained strategy's export_reference_checkpoint read by
+   build_params(stage_ckpt=) over the seeded frozen tree: projectors,
+   embed and lm_head bit-equal to the trained ones, every other leaf to
+   the run's; one bf16 B=1 request on that tree (94 flash launches, tokens
+   in the vocabulary). The checkpoint files are written under
+   build/chip_smoke_checkpoints/ and removed after each check.
 
 The last three lines are the card, one JSON object describing the kernels,
 and {"ok": true, "device": {...}}. Without a CUDA device the script exits
@@ -703,43 +724,70 @@ def flash_bwd_plain(torch, fa, q, k, v, bias, o, lse, do, scale, causal,
 
 
 def sdpa_backward_ms(torch, q, k, v, keep, do, scale, reps):
-    """Library yardstick: scaled_dot_product_attention forward + backward
-    (torch.autograd.grad) minus its forward, both timed as K7 is, by
-    replays of a CUDA graph of GRAPH_CALLS calls. keep: the mask as the
-    boolean [B, 1, Sq, Sk] attn_mask SDPA takes, or None for is_causal=True
-    with no mask, timed on each backend that takes it, the fastest kept.
-    → (ms, backend)."""
+    """Library yardstick for K7: scaled_dot_product_attention forward +
+    backward minus its forward (sdpa_ms). → (ms, label)."""
+    return sdpa_ms(torch, q, k, v, keep, do, scale, reps, forward=False)
+
+
+def sdpa_forward_ms(torch, q, k, v, scale, reps):
+    """Library yardstick for K2: the causal scaled_dot_product_attention
+    forward alone (sdpa_ms). → (ms, label)."""
+    return sdpa_ms(torch, q, k, v, None, None, scale, reps, forward=True)
+
+
+def sdpa_ms(torch, q, k, v, keep, do, scale, reps, forward):
+    """scaled_dot_product_attention timed in either direction as K2 and K7
+    are, by replays of a CUDA graph of GRAPH_CALLS calls: the forward alone
+    (forward=True), or forward + backward (torch.autograd.grad) minus the
+    forward. keep: the mask as the boolean [B, 1, Sq, Sk] attn_mask SDPA
+    takes, or None for is_causal=True with no mask, timed on each backend
+    that takes it, the fastest kept. With fewer kv heads than query heads
+    each backend is tried with enable_gqa and with K/V expanded to every
+    query head inside the timed call (their gradients summed back by the
+    expansion's backward), and the label says which ran. → (ms, label)."""
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     F = torch.nn.functional
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
-    dot = do.transpose(1, 2)
-    gqa = q.shape[2] != k.shape[2]
+    dot = None if forward else do.transpose(1, 2)
+    G = q.shape[2] // k.shape[2]
+    routes = (("enable_gqa", True), ("expanded K/V", False)) if G > 1 else (
+        ("", False),)
     backends = ((SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION,
                  SDPBackend.MATH) if keep is not None else
                 (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
                  SDPBackend.CUDNN_ATTENTION))
     times = []
     for backend in backends:
-        try:
-            with sdpa_kernel([backend]):
-                def fwd():
-                    return F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=keep, scale=scale,
-                        is_causal=keep is None, enable_gqa=gqa)
+        for how, gqa in routes:
+            try:
+                with sdpa_kernel([backend]):
+                    def fwd(gqa=gqa):
+                        kx, vx = kt, vt
+                        if G > 1 and not gqa:
+                            kx = kt.repeat_interleave(G, dim=1)
+                            vx = vt.repeat_interleave(G, dim=1)
+                        return F.scaled_dot_product_attention(
+                            qt, kx, vx, attn_mask=keep, scale=scale,
+                            is_causal=keep is None, enable_gqa=gqa)
 
-                def fwd_bwd():
-                    out = fwd()
-                    return torch.autograd.grad(out, (qt, kt, vt), dot)
+                    def fwd_bwd():
+                        out = fwd()
+                        return torch.autograd.grad(out, (qt, kt, vt), dot)
 
-                fwd_bwd()
-                ms = (graph_ms(torch, fwd_bwd, reps, GRAPH_CALLS)
-                      - graph_ms(torch, fwd, reps, GRAPH_CALLS))
-        except RuntimeError:
-            continue
-        times.append((ms, backend.name))
-        if keep is not None:
+                    if forward:
+                        with torch.no_grad():
+                            fwd()
+                            ms = graph_ms(torch, fwd, reps, GRAPH_CALLS)
+                    else:
+                        fwd_bwd()
+                        ms = (graph_ms(torch, fwd_bwd, reps, GRAPH_CALLS)
+                              - graph_ms(torch, fwd, reps, GRAPH_CALLS))
+            except RuntimeError:
+                continue
+            times.append((ms, backend.name + (f" {how}" if how else "")))
+        if keep is not None and times:
             break
     if not times:
         return float("nan"), "none"
@@ -2535,8 +2583,8 @@ def small_reference_quant_ab(torch, cfg_full, seed):
 # ---------------------------------------------------------------------------
 
 
-def grounded_text(seed: int, rounds: int) -> str:
-    """A grounded conversation rendered by the Phi-3.5 template: the video
+def grounded_text(seed: int, rounds: int, llm_name: str = "phi3.5") -> str:
+    """A grounded conversation rendered by the LLM's template: the video
     placeholder in the first question, every answer a time interval in
     quantized <n> tokens, the grounding mark the dataset adds."""
     from grounded_video_llm_tpu_torch.text import codec
@@ -2556,15 +2604,16 @@ def grounded_text(seed: int, rounds: int) -> str:
         conv.append({"from": "human",
                      "value": ("<image>\n" if r == 0 else "") + query})
         conv.append({"from": "gpt", "value": f"From <{a}> to <{b}>."})
-    return get_template("phi3.5").encode(
+    return get_template(llm_name).encode(
         codec.mark_grounding_conversations(conv))
 
 
-def train_samples(temporal, spatial, n: int, rounds: int, seed: int):
+def train_samples(temporal, spatial, n: int, rounds: int, seed: int,
+                  llm_name: str = "phi3.5"):
     """n grounded samples over one resized video (uint8 pixels, normalized
     on the card by encode_video)."""
     return [{"video_ids": f"synthetic{i}", "text_inputs":
-             grounded_text(seed + i, rounds),
+             grounded_text(seed + i, rounds, llm_name),
              "temporal_pixel_values": temporal,
              "spatial_pixel_values": spatial} for i in range(n)]
 
@@ -2646,13 +2695,13 @@ def small_reference_train(torch, cfg_full, seed):
     params["llm"] = lora_mod.attach_lora(params["llm"], lora)
     temporal, spatial = dual_stream_resize_host(
         synthetic_video(seed + 2, n_frames), 1)
-    sample = train_samples(temporal, spatial, 1, 6, seed)[0]
+    sample = train_samples(temporal, spatial, 1, 6, seed, cfg.llm_name)[0]
     out = {}
     for dev, p in (("cpu", to_host(params, torch.float32)),
                    ("cuda", params)):
         opt, _ = make_optimizer(STAGE_PRESETS["grounded"], 10, p)
         set_trainable(p, opt)
-        batch = collate([sample], tok, get_template("phi3.5"),
+        batch = collate([sample], tok, get_template(cfg.llm_name),
                         max_txt_len=cfg.max_txt_len, device=dev)
         names = [n for n, _ in tree_items(p) if opt.trainable(n)]
         flat = dict(tree_items(p))
@@ -2670,8 +2719,9 @@ def small_reference_train(torch, cfg_full, seed):
     worst = max(errs, key=errs.get)
     ok = loss_err <= BOUND_TRAIN_LOSS and errs[worst] <= BOUND_TRAIN_GRAD
     spliced = out["cpu"][3] - 1 + cfg.num_video_tokens
-    log(f"[small-ref] train: depth-cut full width (CLIP 2 of 3 layers, IV2 2 "
-        f"blocks, LLM 2 layers, LoRA r=128 with B != 0, 1 segment, spliced "
+    log(f"[small-ref] train {cfg.llm_name}: depth-cut full width (CLIP 2 of "
+        f"3 layers, IV2 2 blocks, LLM 2 layers, LoRA r=128 with B != 0, 1 "
+        f"segment, spliced "
         f"length {spliced}), card bf16 kernels vs host fp32 plain versions: "
         f"loss {float(out['cuda'][0]):.5f} vs {float(out['cpu'][0]):.5f} "
         f"rel {loss_err:.3e} (<= {BOUND_TRAIN_LOSS}); gradient rel L2 over "
@@ -2679,7 +2729,7 @@ def small_reference_train(torch, cfg_full, seed):
         f"median {float(np.median(list(errs.values()))):.3e} (<= "
         f"{BOUND_TRAIN_GRAD}); host {out['cpu'][2]:.1f} s, card "
         f"{out['cuda'][2]:.2f} s {'OK' if ok else 'FAIL'}")
-    log("[small-ref] train gradients: " + ", ".join(
+    log(f"[small-ref] train {cfg.llm_name} gradients: " + ", ".join(
         f"{n} {e:.2e}" for n, e in sorted(errs.items())))
     if not ok:
         raise AssertionError("training on the card disagrees with the host "
@@ -3052,7 +3102,7 @@ def llama3_path(torch, kernels, zero, generate, temporal, spatial,
     check, the kernels at llama3's shapes, then a bf16 B=1 request and a
     mode A request (int8_full, int8 cache, B=6), their launch counts held
     to the config's, their tokens in the vocabulary and their texts
-    parsed. Returns the summed launch counts."""
+    parsed. → (the summed launch counts, the bf16 params)."""
     from grounded_video_llm_tpu_torch.cli.model_loading import (
         build_params, build_tokenizer)
     from grounded_video_llm_tpu_torch.core.config import (GenerateConfig,
@@ -3115,13 +3165,176 @@ def llama3_path(torch, kernels, zero, generate, temporal, spatial,
             f"[0, {n_vocab}): {in_range} {'OK' if in_range else 'FAIL'}")
         if not in_range:
             raise AssertionError(f"{name}: tokens outside the vocabulary")
-    del full, bf16, params
+    del full, bf16
     torch.cuda.empty_cache()
-    return launches
+    return launches, params
 
 
-def train_path(torch, kernels, params, tok, temporal, spatial):
-    """The training path: vlm_config("phi3.5", stage="grounded") at full
+def llama3_train_kernel_phase(torch, fa, cfg):
+    """K2 and K7 at full-width llama3's grounded training shape: [1, S, 32,
+    128] with 8 kv heads (G = 4), causal, S the spliced length of a sample
+    at max_txt_len (4,096 text tokens, the video slot one of them, plus
+    2,316 video tokens). K2 with every key kept, K7 right-padded as collate
+    pads; each held to its plain version at the existing bars (K7: two
+    launches bit-equal), graph-replay timed beside SDPA's fastest causal
+    forward and backward at the same shape (enable_gqa or K/V expanded,
+    whichever is faster, named) and the bound: 2 products over the visible
+    pairs for K2, 5 for K7."""
+    L = cfg.llm
+    S = cfg.max_txt_len - 1 + cfg.num_video_tokens
+    log(f"[kernel] llama3 grounded training shape: S = {cfg.max_txt_len} "
+        f"text - 1 + {cfg.num_video_tokens} video = {S} tokens, "
+        f"{L.num_heads} heads and {L.num_kv_heads} kv heads of {L.head_dim}")
+    r2 = check_flash(torch, fa, "llama3_train_causal", 1, S, L.num_heads,
+                     L.head_dim, Hkv=L.num_kv_heads, causal=True, pads=(0,),
+                     seed=240)
+    r7 = check_flash_bwd(torch, fa, "llama3_train_causal", 1, S, L.num_heads,
+                         L.head_dim, Hkv=L.num_kv_heads, pads=(37,),
+                         seed=241, timed=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(242)
+    q = torch.randn(1, S, L.num_heads, L.head_dim, generator=g,
+                    device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(1, S, L.num_kv_heads, L.head_dim, generator=g,
+                        device="cuda").to(torch.bfloat16) for _ in range(2))
+    fwd_ms, fwd_how = sdpa_forward_ms(torch, q, k, v, L.head_dim ** -0.5,
+                                      10)
+    del q, k, v
+    torch.cuda.empty_cache()
+    for name, r, lib, how, per_mb in (
+            ("flash_fwd (K2)", r2, fwd_ms, fwd_how, 2 * L.num_layers),
+            ("flash_bwd (K7)", r7, r7["library_ms"], "the check's fastest",
+             L.num_layers)):
+        bms, by = bound_ms(r["bytes"], r["flops"], BF16_OPS)
+        log(f"[kernel] llama3 train {name} [1, {S}, {L.num_heads}, "
+            f"{L.head_dim}] Hkv {L.num_kv_heads}: kernel {r['ms']:.4f} ms "
+            f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s), plain "
+            f"{r['plain_ms']:.4f} ms, SDPA {lib:.4f} ms ({how}), bound "
+            f"{bms:.4f} ms ({by}), {100 * bms / r['ms']:.1f}% of the bound "
+            f"reached; x{per_mb} a microbatch: {per_mb * r['ms']:.2f} ms")
+
+
+def roundtrip_phase(torch, workdir):
+    """The reference formats at full llama3 width: a vlm_config("llama3",
+    stage="grounded") tree, depth cut (LLM 2 of 32 layers, CLIP 2 of 24,
+    InternVideo2 2 of 40 blocks; width, the 128,558-row vocabulary and
+    the q/k/v split kept), seeded random bf16 on the card, written by
+    models/export.write_weight_dumps in the weights-day layout (float32,
+    as the reference ships), then read back by build_params(weight_root=,
+    video_encoder_path=, stage_ckpt=) onto the card: every leaf must be
+    bit-equal to its source. Prints the bytes written and the seconds
+    spent writing and reading."""
+    from grounded_video_llm_tpu_torch.cli.model_loading import build_params
+    from grounded_video_llm_tpu_torch.core.config import replace, vlm_config
+    from grounded_video_llm_tpu_torch.models.export import write_weight_dumps
+    from grounded_video_llm_tpu_torch.train.optimizer import tree_items
+
+    full = vlm_config("llama3", stage="grounded")
+    cfg = replace(full, llm=replace(full.llm, num_layers=2),
+                  clip=replace(full.clip, num_layers=2),
+                  video=replace(full.video, depth=2, num_blocks_used=2))
+    src = build_params(cfg, "cuda", torch.bfloat16, seed=SEED + 5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    paths = write_weight_dumps(src, cfg, workdir)
+    write_s = time.perf_counter() - t0
+    sizes = {}
+    for root, _, files in os.walk(workdir):
+        for f in files:
+            sizes[f] = os.path.getsize(os.path.join(root, f))
+    t0 = time.perf_counter()
+    got = build_params(cfg, "cuda", torch.bfloat16, seed=SEED + 6,
+                       weight_root=paths["weight_root"],
+                       video_encoder_path=paths["video_encoder"],
+                       stage_ckpt=paths["stage_ckpt"])
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    want, have = dict(tree_items(src)), dict(tree_items(got))
+    bad = sorted(p for p, t in want.items()
+                 if p not in have or have[p].dtype != t.dtype
+                 or not torch.equal(have[p], t))
+    ok = not bad and set(want) == set(have)
+    log(f"[roundtrip] llama3 full width (hidden {cfg.llm.hidden_size}, "
+        f"vocabulary {cfg.llm.padded_vocab_size}, q/k/v "
+        f"{cfg.llm.q_dim}/{cfg.llm.kv_dim}/{cfg.llm.kv_dim}), depth cut: LLM "
+        f"2 of 32 layers, CLIP 2 of 24, InternVideo2 2 of 40 blocks; "
+        f"{sum(sizes.values())} bytes in {len(sizes)} files ("
+        + ", ".join(f"{f} {n}" for f, n in sorted(sizes.items()))
+        + f"); written in {write_s:.2f} s, read onto the card by "
+        f"build_params in {read_s:.2f} s; {len(want)} leaves bit-equal to "
+        f"the bf16 source: {ok} {'OK' if ok else 'FAIL'}")
+    del src, got
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not ok:
+        raise AssertionError(f"reference-format round trip: {bad[:8]} differ")
+
+
+def trained_reload_path(torch, kernels, zero, generate, strat, tok, workdir):
+    """The trained llama3 strategy's reference-format export
+    (export_reference_checkpoint, trainable only: projectors, embed and
+    lm_head), read by build_params(stage_ckpt=) over the seeded frozen tree
+    the run started from: the projectors, embed and lm_head must be
+    bit-equal to the trained ones and every other non-LoRA leaf to the
+    run's; then one bf16 B=1 request on the loaded tree, its K1/K2 launch
+    counts the config's and its tokens in the vocabulary. → launches."""
+    from grounded_video_llm_tpu_torch.cli.model_loading import build_params
+    from grounded_video_llm_tpu_torch.core.config import (GenerateConfig,
+                                                          vlm_config)
+    from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
+    from grounded_video_llm_tpu_torch.train.optimizer import tree_items
+
+    os.makedirs(workdir, exist_ok=True)
+    path = os.path.join(workdir, "grounded_llava_next_video_llama3_"
+                        "mix_grounded.pth")
+    t0 = time.perf_counter()
+    strat.export_reference_checkpoint(path)
+    write_s = time.perf_counter() - t0
+    trained = {p: t for p, t in tree_items(strat.state.params)
+               if "/lora/" not in p}
+    cfg = vlm_config("llama3", stage="inference")
+    t0 = time.perf_counter()
+    loaded = build_params(cfg, "cuda", torch.bfloat16, seed=SEED,
+                          stage_ckpt=path)
+    torch.cuda.synchronize()
+    read_s = time.perf_counter() - t0
+    have = dict(tree_items(loaded))
+    read = ("mm_projector/", "video_projector/", "llm/embed", "llm/lm_head")
+    bad = sorted(p for p, t in trained.items()
+                 if not torch.equal(have[p], t.detach()))
+    n_read = sum(p.startswith(read) for p in trained)
+    ok = not bad and set(have) == set(trained)
+    log(f"[reload] trained llama3 export {os.path.getsize(path)} bytes "
+        f"written in {write_s:.2f} s, read by build_params(stage_ckpt=) in "
+        f"{read_s:.2f} s: {n_read} leaves read (projectors, embed, lm_head) "
+        f"and {len(trained) - n_read} seeded frozen leaves bit-equal to the "
+        f"trained run's: {ok} {'OK' if ok else 'FAIL'}")
+    del trained
+    shutil.rmtree(workdir, ignore_errors=True)
+    if not ok:
+        raise AssertionError(f"reloaded trained export differs: {bad[:8]}")
+    L = cfg.llm
+    gen_cfg = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False)
+    engine = InferenceEngine(loaded, cfg, tok, gen_cfg, seed=SEED)
+    per_req = (cfg.clip.num_layers + cfg.clip.feature_layer + 1
+               + cfg.video.num_blocks_used + L.num_layers)
+    got = run_path(torch, kernels, "llama3 bf16 B=1 from the trained export",
+                   generate(engine, [MODES[0]], gen_cfg),
+                   expect_counts(zero, L.num_layers, per_req, 0, False, 0))
+    tokens = engine.last_tokens[0]
+    n_vocab = L.padded_vocab_size
+    in_range = bool(((tokens >= 0) & (tokens < n_vocab)).all())
+    log(f"[reload] served tokens {tuple(tokens.shape)} in [0, {n_vocab}): "
+        f"{in_range} {'OK' if in_range else 'FAIL'}")
+    if not in_range:
+        raise AssertionError("reloaded export: tokens outside the vocabulary")
+    del engine, loaded
+    torch.cuda.empty_cache()
+    return got
+
+
+def train_path(torch, kernels, cfg, params, tok, temporal, spatial):
+    """The training path: cfg (vlm_config(<llm>, stage="grounded")) at full
     width on the given bf16 weights with LoRA r=128 attached (B != 0), the
     grounded preset with a global batch
     of 2 in microbatches of 1 (grad_accum 2), LoRA dropout 0.05, remat on,
@@ -3130,12 +3343,12 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
     read just after. Raises unless loss and grad_norm are finite, the first
     step changed nothing (lr 0), the second moved every trainable leaf,
     every frozen leaf is bit-equal to its value before, and the launch
-    counts are the config's. → (launches, per-step records)."""
+    counts are the config's. → (launches, per-step records, the
+    strategy)."""
     import dataclasses
     import tempfile
 
-    from grounded_video_llm_tpu_torch.core.config import (STAGE_PRESETS,
-                                                          vlm_config)
+    from grounded_video_llm_tpu_torch.core.config import STAGE_PRESETS
     from grounded_video_llm_tpu_torch.data.collate import collate
     from grounded_video_llm_tpu_torch.models import vlm
     from grounded_video_llm_tpu_torch.text.templates import get_template
@@ -3143,7 +3356,7 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
     from grounded_video_llm_tpu_torch.train.optimizer import tree_items
     from grounded_video_llm_tpu_torch.train.strategy import TrainingStrategy
 
-    cfg = vlm_config("phi3.5", stage="grounded")
+    name = cfg.llm_name
     # adapters as a run mid-stage has them: B != 0. At B = 0 (a fresh
     # attach) dL/dA is 0 until B has moved, so A could not move in step 2.
     g = torch.Generator(device="cuda")
@@ -3156,7 +3369,7 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
     orig = STAGE_PRESETS["grounded"]
     STAGE_PRESETS["grounded"] = dataclasses.replace(
         orig, global_batch_size=2, per_device_batch_size=1, epochs=1)
-    samples = train_samples(temporal, spatial, 4, 40, SEED)
+    samples = train_samples(temporal, spatial, 4, 40, SEED, name)
     run_dir = tempfile.mkdtemp(prefix="chip_smoke_train_")
     try:
         strat = TrainingStrategy(cfg, "grounded", params, tok,
@@ -3177,7 +3390,7 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
             rec = dict(m, step=step, seconds=now - clock["t"],
                        peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
             steps.append(rec)
-            log(f"[path] train step {step}: loss={m['loss']:.5f} grad_norm="
+            log(f"[path] train {name} step {step}: loss={m['loss']:.5f} grad_norm="
                 f"{m['grad_norm']:.4f} step_s={rec['seconds']:.3f} "
                 f"s_per_sample={rec['seconds'] / 2:.3f} "
                 f"peak_device_memory={rec['peak_gib']:.2f} GiB")
@@ -3191,7 +3404,7 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
             if step == 2:
                 frozen_moved = sorted(changed - trainable)
                 still = sorted(trainable - changed)
-                log(f"[path] train after step 2: {len(changed)} of "
+                log(f"[path] train {name} after step 2: {len(changed)} of "
                     f"{len(trainable)} trainable leaves moved, "
                     f"{len(before) - len(trainable)} frozen leaves "
                     f"bit-equal: {not frozen_moved}")
@@ -3215,7 +3428,8 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
                   "flash_bwd": nl}
         microbatches = 2 * strat.grad_accum
         want = {n: microbatches * per_mb.get(n, 0) for n in kernels}
-        log(f"[path] train grounded B=1 accum=2: launches {got} expected "
+        log(f"[path] train {name} grounded B=1 accum=2: launches {got} "
+            f"expected "
             f"{want} (per microbatch flash_fwd = CLIP "
             f"{cfg.clip.num_layers + cfg.clip.feature_layer + 1} + IV2 "
             f"{cfg.video.num_blocks_used} + LLM {nl} + remat recompute {nl},"
@@ -3225,7 +3439,7 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
                                  f"{got}, expected 2 steps and {want}")
 
         # phase split of one more microbatch (outside the counted run)
-        mb = collate(samples[:1], tok, get_template("phi3.5"),
+        mb = collate(samples[:1], tok, get_template(name),
                      max_txt_len=cfg.max_txt_len, device="cuda")
         S_text = mb.input_ids.shape[1]
         names = [n for n, _ in tree_items(tp) if strat.optimizer.trainable(n)]
@@ -3251,7 +3465,8 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
         # loader's first batch and the first allocations
         step_s = steps[-1]["seconds"]
         per_sample = step_s / 2
-        log(f"[path] train phases of one microbatch (S_text={S_text}, spliced"
+        log(f"[path] train {name} phases of one microbatch (S_text={S_text},"
+            f" spliced"
             f" {S_text - 1 + cfg.num_video_tokens}): encode_s={enc_s:.3f} "
             f"forward_loss_s={fwd_s:.3f} (encode included) backward_s="
             f"{bwd_s:.3f}; step 2 {step_s:.3f} s = 2 microbatches "
@@ -3260,7 +3475,7 @@ def train_path(torch, kernels, params, tok, temporal, spatial):
             f"{flops / 1e12:.1f} (bench_train.py formula), step 2 "
             f"{per_sample:.3f} s per sample = {flops / per_sample / 1e12:.1f}"
             f" TFLOP/s = {flops / per_sample / BF16_OPS:.3f} of 989 TFLOP/s")
-        return got, steps
+        return got, steps, strat
     finally:
         STAGE_PRESETS["grounded"] = orig
         import shutil
@@ -3499,7 +3714,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 6. the training path, on the same bf16 weights
-    got, _ = train_path(torch, kernels, params, tok, temporal, spatial)
+    got = train_path(torch, kernels, vlm_config("phi3.5", stage="grounded"),
+                     params, tok, temporal, spatial)[0]
     launches = {k: launches[k] + got[k] for k in launches}
 
     # ---- 7. the microbenchmarks: the path of M1, M2, M3 and M3d
@@ -3519,9 +3735,33 @@ def main() -> int:
         for quantize in (None, "int8_full"):
             small_reference(torch, vlm_config(name, stage="inference"), SEED,
                             quantize)
-    got = llama3_path(torch, kernels, zero, generate, temporal, spatial,
-                      resize_ms)
+    small_reference_train(torch, vlm_config("llama3", stage="inference"),
+                          SEED)
+    llama3_train_kernel_phase(torch, fa, vlm_config("llama3",
+                                                    stage="grounded"))
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "chip_smoke_checkpoints")
+    roundtrip_phase(torch, os.path.join(scratch, "roundtrip"))
+    got, params = llama3_path(torch, kernels, zero, generate, temporal,
+                              spatial, resize_ms)
     launches = {k: launches[k] + got[k] for k in launches}
+
+    # ---- 9. llama3 grounded training on the same weights, then its
+    # reference-format export read back and served
+    got, _, strat = train_path(torch, kernels,
+                               vlm_config("llama3", stage="grounded"),
+                               params, build_tokenizer(
+                                   vlm_config("llama3", stage="grounded")),
+                               temporal, spatial)
+    launches = {k: launches[k] + got[k] for k in launches}
+    del params
+    got = trained_reload_path(torch, kernels, zero, generate, strat,
+                              build_tokenizer(vlm_config("llama3",
+                                                         stage="inference")),
+                              os.path.join(scratch, "trained"))
+    launches = {k: launches[k] + got[k] for k in launches}
+    del strat
+    torch.cuda.empty_cache()
     log(f"[main] launches over every path: {launches}")
     missing = [n for n, c in launches.items() if c == 0]
     if missing:

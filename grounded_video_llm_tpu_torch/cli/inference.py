@@ -12,9 +12,10 @@ generations:
         --device cpu --video_path clip.mp4 --max_new_tokens 8
 
 It runs on one device (cuda by default; --debug_tiny on the CPU needs
---device cpu). Weights are seeded random at the config's width: loading the
-reference checkpoints (--tokenizer_path aside) is not ported yet, and the
-weight-path arguments are refused.
+--device cpu). --pretrained_vision_proj_llm_path (the weight dumps' dir),
+--pretrained_video_path (the InternVideo2 .pt) and --ckpt_path (a stage
+checkpoint) load through cli/model_loading.build_params; what they do not
+give is seeded random at the config's width.
 """
 
 from __future__ import annotations
@@ -90,11 +91,6 @@ def main(argv=None):
     from ..serve.engine import InferenceEngine
     from .model_loading import build_params, build_tokenizer
 
-    if (args.pretrained_video_path or args.pretrained_vision_proj_llm_path
-            or args.ckpt_path):
-        raise NotImplementedError("loading the reference checkpoints is not "
-                                  "ported yet; the port serves seeded "
-                                  "random weights")
     if args.debug_tiny:
         cfg = micro_vlm_config(args.llm)
     else:
@@ -102,9 +98,12 @@ def main(argv=None):
                          num_frames=args.num_frames, num_segs=args.num_segs,
                          max_txt_len=args.max_txt_len)
     device = torch.device(args.device)
-    params = build_params(cfg, device,
-                          torch.float32 if args.debug_tiny else torch.bfloat16,
-                          seed=args.seed)
+    params = build_params(
+        cfg, device, torch.float32 if args.debug_tiny else torch.bfloat16,
+        seed=args.seed,
+        weight_root=args.pretrained_vision_proj_llm_path or None,
+        video_encoder_path=args.pretrained_video_path or None,
+        stage_ckpt=args.ckpt_path or None)
     tokenizer = build_tokenizer(cfg, args.tokenizer_path or None)
     gen_cfg = GenerateConfig(max_new_tokens=args.max_new_tokens,
                              do_sample=args.do_sample,

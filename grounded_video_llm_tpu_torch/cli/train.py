@@ -9,9 +9,13 @@ with the same arguments plus --device).
         --anno_path anno.json --data_dir videos/
 
 It trains on one device (cuda by default; --debug_tiny on the CPU needs
---device cpu). Weights are seeded random at the config's width: loading
-the reference checkpoints (--pretrained_*), the reference-format .pth
-export and multi-GPU sharding are not ported yet.
+--device cpu). --pretrained_vision_proj_llm_path (the weight dumps' dir),
+--pretrained_video_path (the InternVideo2 .pt) and --pretrained_proj (an
+earlier stage's checkpoint) load through cli/model_loading.build_params;
+what they do not give is seeded random. After the final checkpoint the run
+writes the reference-format export {save_dir}/{stage}_{model}_{llm}_
+{dataset}.pth (the root train.py's name). Multi-GPU sharding is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -72,11 +76,6 @@ def main(argv=None):
     from ..train.strategy import TrainingStrategy
     from .model_loading import build_params, build_tokenizer
 
-    if (args.pretrained_video_path or args.pretrained_vision_proj_llm_path
-            or args.pretrained_proj):
-        raise NotImplementedError("loading the reference checkpoints is not "
-                                  "ported yet; the port trains seeded "
-                                  "random weights")
     if args.debug_tiny:
         cfg = micro_vlm_config(args.llm)
         args.num_frames, args.num_segs = cfg.num_frames, cfg.num_segs
@@ -84,9 +83,12 @@ def main(argv=None):
         cfg = vlm_config(args.llm, stage=args.stage,
                          num_frames=args.num_frames, num_segs=args.num_segs)
     device = torch.device(args.device)
-    params = build_params(cfg, device,
-                          torch.float32 if args.debug_tiny else torch.bfloat16,
-                          seed=args.seed)
+    params = build_params(
+        cfg, device, torch.float32 if args.debug_tiny else torch.bfloat16,
+        seed=args.seed,
+        weight_root=args.pretrained_vision_proj_llm_path or None,
+        video_encoder_path=args.pretrained_video_path or None,
+        stage_ckpt=args.pretrained_proj or None)
     tokenizer = build_tokenizer(cfg, args.tokenizer_path or None,
                                 expand=STAGE_PRESETS[args.stage].expand_vocab)
     dataset = DATASETS[args.dataset](
@@ -113,7 +115,11 @@ def main(argv=None):
     strategy.run_training(dataset,
                           resume_from=args.resume_ckpt if args.resume
                           else None)
-    return strategy.save_checkpoint("final")
+    path = strategy.save_checkpoint("final")
+    strategy.export_reference_checkpoint(
+        f"{args.save_dir}/{args.stage}_{args.model}_{args.llm}_"
+        f"{args.dataset}.pth")
+    return path
 
 
 if __name__ == "__main__":

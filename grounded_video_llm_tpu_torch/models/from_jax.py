@@ -13,6 +13,14 @@ A training tree maps as well: the LoRA subtree
 tree) and a vocabulary expanded by ``train/vocab.expand_vocab`` on a config
 without the extra rows.
 
+A partial tree maps too when a seed is given (cli/model_loading.build_params
+places what it read from the reference's files this way): the entries it
+lacks are the seeded random init (models/vlm.init_params), and the entries
+it has are never drawn at random first. A stacked leaf may come as a
+``models/convert.Stacked``, placed one slice at a time; a dense leaf is
+made float32 first and then cast to ``dtype`` (round to nearest even, as
+the JAX package's loader rounds).
+
 A serving-int8 tree (the JAX ``serve/quantize.py``) maps exactly: each
 ``{"q", "scale"}`` pair becomes an ``Int8Weight`` (values and scales copied
 bit for bit, whatever ``dtype`` says), the ``"w8a8": None`` marker its
@@ -24,7 +32,7 @@ embedding pair an ``Int8Embedding``. Any other entry of such a pair, and an
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,6 +40,7 @@ import torch
 from ..core.config import NUM_SPECIAL_TOKENS, VLMConfig, replace
 from ..ops.int8_matmul import Int8Embedding, Int8Weight, empty_int8_weight
 from . import vlm
+from .convert import Stacked
 
 _EMBED = ("llm", "embed")
 
@@ -94,58 +103,97 @@ def _int8_from_jax(path, pair: dict, shape, device):
 
 
 def _vocab_config(np_tree, cfg: VLMConfig) -> VLMConfig:
-    """cfg, or cfg with NUM_SPECIAL_TOKENS extra rows when the tree's
-    embedding was expanded from a config that had none."""
+    """cfg with as many extra vocabulary rows as the tree's embedding has
+    over the base vocabulary, where that is 0 or NUM_SPECIAL_TOKENS: a tree
+    expanded by train/vocab.expand_vocab on a config without the extra rows,
+    a stage checkpoint's expanded embedding, or a base LLM dump read for a
+    stage whose config has them (the training strategy expands it)."""
     embed = np_tree.get("llm", {}).get("embed")
     if embed is None or _is_int8_pair(embed):
         return cfg
-    rows = np.asarray(embed).shape[0]
-    if (cfg.llm.num_extra_tokens == 0
-            and rows == cfg.llm.vocab_size + NUM_SPECIAL_TOKENS):
-        return replace(cfg, llm=replace(cfg.llm,
-                                        num_extra_tokens=NUM_SPECIAL_TOKENS))
+    extra = _shape(embed)[0] - cfg.llm.vocab_size
+    if extra in (0, NUM_SPECIAL_TOKENS) and extra != cfg.llm.num_extra_tokens:
+        return replace(cfg, llm=replace(cfg.llm, num_extra_tokens=extra))
     return cfg
 
 
+def _shape(leaf) -> tuple:
+    return tuple(leaf.shape) if isinstance(leaf, Stacked) else tuple(
+        np.shape(leaf))
+
+
+def _dense_from_numpy(leaf, device, dtype) -> torch.Tensor:
+    def place(arr):
+        return torch.from_numpy(np.array(arr, dtype=np.float32)).to(
+            device=device, dtype=dtype)
+
+    if not isinstance(leaf, Stacked):
+        return place(leaf)
+    out = torch.empty(leaf.shape, device=device, dtype=dtype)
+    for i in range(len(leaf)):
+        out[i] = place(leaf.slice(i))
+    return out
+
+
+def _present(np_tree) -> frozenset:
+    """The pieces a partial tree brings whole: top-level entries, and the
+    LLM's top-level entries."""
+    out = set()
+    for k, v in np_tree.items():
+        if k == "llm" and isinstance(v, dict):
+            out.update(("llm", kk) for kk in v)
+        else:
+            out.add((k,))
+    return frozenset(out)
+
+
 def params_from_jax(np_tree, cfg: VLMConfig, device,
-                    dtype=torch.float32) -> dict:
+                    dtype=torch.float32, seed: Optional[int] = None) -> dict:
     """np_tree: the JAX ``vlm.init_params`` pytree (serving-quantized or
     not) with numpy leaves (e.g. ``jax.tree_util.tree_map(np.asarray,
     params)``) → this package's params on ``device``, dense tensors in
-    ``dtype``. Every leaf is used exactly once."""
+    ``dtype``. Every leaf is used exactly once. With a seed, leaves the tree
+    lacks are the seeded random init instead of an error."""
     cfg = _vocab_config(np_tree, cfg)
-    expected = vlm.init_params(cfg, generator=None, device="meta",
-                               dtype=dtype)
+    if seed is None:
+        expected = vlm.init_params(cfg, generator=None, device="meta",
+                                   dtype=dtype)
+    else:
+        generator = torch.Generator(device=device)
+        generator.manual_seed(seed)
+        expected = vlm.init_params(cfg, generator=generator, device=device,
+                                   dtype=dtype, skip=_present(np_tree))
     lora = np_tree.get("llm", {}).get("layers", {}).get("lora")
     if lora is not None:
         from ..train.lora import attach_lora, init_lora
 
-        rank = np.asarray(lora["qkv"]["a"]).shape[-1]
+        rank = _shape(lora["qkv"]["a"])[-1]
         expected["llm"] = attach_lora(expected["llm"], init_lora(
             cfg.llm, generator=None, device="meta", rank=rank, dtype=dtype))
     want = _flatten(expected)
     have = _flatten(np_tree)
-    missing = sorted(set(want) - set(have))
+    missing = sorted(p for p in set(want) - set(have)
+                     if seed is None or want[p].is_meta)
     extra = sorted(set(have) - set(want))
     if missing or extra:
         raise ValueError(f"params_from_jax: missing {missing}, "
                          f"unexpected {extra}")
     used = 0
     for path, meta in want.items():
+        if path not in have:
+            continue
         shape = tuple(meta.shape)
         src = have[path]
         if _is_int8_pair(src):
             value = _int8_from_jax(path, src, shape, device)
         else:
-            arr = np.asarray(src)
-            if tuple(arr.shape) != shape:
+            if _shape(src) != shape:
                 raise ValueError(f"params_from_jax: {'/'.join(path)} has "
-                                 f"shape {arr.shape}, expected {shape}")
-            value = torch.from_numpy(np.array(arr, dtype=np.float32)).to(
-                device=device, dtype=dtype)
+                                 f"shape {_shape(src)}, expected {shape}")
+            value = _dense_from_numpy(src, device, dtype)
         _set(expected, path, value)
         used += 1
-    if used != len(have) or used != len(want):
+    if used != len(have):
         raise ValueError(f"params_from_jax: used {used} of {len(have)} JAX "
                          f"leaves for {len(want)} parameters")
     return expected

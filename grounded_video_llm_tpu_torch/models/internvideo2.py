@@ -25,6 +25,9 @@ switch raises on them (the JAX fused route drops them silently).
 
 ``features_absmax`` is the calibration pass: the same blocks, each asked
 for the per-channel absmax of its four GEMM inputs.
+
+``init_clip_projector`` / ``clip_projector`` are the CLIP-teacher
+attention-pooling head, off the VLM path (models/convert reads its tree).
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ from ..ops.attention import mha
 from ..ops.fused_block import (fused_norm_quant_gemm,
                                fused_quant_gemm_ls_residual, qk_norm_tile)
 from ..ops.int8_matmul import Int8Weight, matmul_any
-from ..ops.normalization import layer_scale, rms_norm
+from ..ops.normalization import layer_norm, layer_scale, rms_norm
 from .param_utils import layer_slice, truncated_normal
 
 
@@ -148,6 +151,55 @@ def init_params(cfg: InternVideo2Config, *, generator: torch.Generator,
             "ls2": full(cfg.layerscale_init),
         },
     }
+
+
+def init_clip_projector(cfg: InternVideo2Config, *,
+                        generator: torch.Generator, device,
+                        out_dim: int = 768, dtype=torch.float32):
+    """CLIP-teacher attention-pooling head (reference internvideo2.py:338-435:
+    CrossAttention + AttentionPoolingBlock, qkv_bias=True, out_dim=768).
+    Off the VLM runtime path: the full architecture (contrastive or
+    retrieval use of the encoder), whose tree
+    models/convert.convert_clip_projector_head reads."""
+    D = cfg.embed_dim
+    kw = dict(generator=generator, device=device, dtype=dtype)
+
+    def zeros(n):
+        return torch.zeros(n, device=device, dtype=dtype)
+
+    def ln():
+        return {"scale": torch.ones(D, device=device, dtype=dtype),
+                "bias": zeros(D)}
+
+    return {
+        "norm_q": ln(), "norm_k": ln(), "norm_v": ln(),
+        "q": {"kernel": truncated_normal((D, D), 0.02, **kw), "bias": zeros(D)},
+        "k": {"kernel": truncated_normal((D, D), 0.02, **kw), "bias": zeros(D)},
+        "v": {"kernel": truncated_normal((D, D), 0.02, **kw), "bias": zeros(D)},
+        "proj": {"kernel": truncated_normal((D, out_dim), 0.02, **kw),
+                 "bias": zeros(out_dim)},
+    }
+
+
+def clip_projector(params, cfg: InternVideo2Config,
+                   x: torch.Tensor) -> torch.Tensor:
+    """Attention pooling: the mean token cross-attends the sequence →
+    [B, out_dim] (reference AttentionPoolingBlock.forward)."""
+    B, S, D = x.shape
+    H = cfg.num_heads
+    Dh = D // H
+    xq = x.mean(dim=1, keepdim=True)
+    q_in = layer_norm(xq, params["norm_q"]["scale"], params["norm_q"]["bias"])
+    k_in = layer_norm(x, params["norm_k"]["scale"], params["norm_k"]["bias"])
+    v_in = layer_norm(x, params["norm_v"]["scale"], params["norm_v"]["bias"])
+    q = (q_in @ params["q"]["kernel"] + params["q"]["bias"]).reshape(
+        B, 1, H, Dh)
+    k = (k_in @ params["k"]["kernel"] + params["k"]["bias"]).reshape(
+        B, S, H, Dh)
+    v = (v_in @ params["v"]["kernel"] + params["v"]["bias"]).reshape(
+        B, S, H, Dh)
+    pooled = mha(q, k, v, causal=False).reshape(B, D)
+    return pooled @ params["proj"]["kernel"] + params["proj"]["bias"]
 
 
 # ---------------------------------------------------------------------------

@@ -46,7 +46,7 @@ from ..ops.int8_matmul import (INT8_GEMM_MIN_ROWS, Int8Embedding, Int8Weight,
                                dynamic_int8_matmul, int8_matmul)
 from ..ops.normalization import rms_norm
 from ..ops.rope import apply_rope, llm_rope_tables
-from .param_utils import layer_slice, normal
+from .param_utils import child_generator, layer_slice, normal
 
 
 class KVCache(NamedTuple):
@@ -96,33 +96,42 @@ class QuantKVCache(NamedTuple):
         return self.k.shape[3]
 
 
-def init_params(cfg: LLMConfig, *, generator: torch.Generator, device,
-                dtype=torch.float32):
+def init_params(cfg: LLMConfig, *, generator: Optional[torch.Generator],
+                device, dtype=torch.float32, skip=frozenset()):
+    """The seeded random LLM: embed, layers and lm_head each draw from their
+    own generator, seeded from ``generator`` in that order; skip: top-level
+    paths (("embed",), ("lm_head",), ...) left on the meta device."""
     D = cfg.hidden_size
     I = cfg.intermediate_size
     L = cfg.num_layers
     V = cfg.padded_vocab_size
     qkv_out = cfg.q_dim + 2 * cfg.kv_dim
-    kw = dict(generator=generator, device=device, dtype=dtype)
 
-    def init(shape):
-        return normal(shape, 0.02, **kw)
+    def entry(name, make):
+        g = child_generator(generator, device)
+        if (name,) in skip:
+            return make(None, "meta")
+        return make(g, device)
 
-    def ones(*shape):
-        return torch.ones(*shape, device=device, dtype=dtype)
+    def init(shape, g, dev):
+        return normal(shape, 0.02, generator=g, device=dev, dtype=dtype)
+
+    def ones(*shape, dev):
+        return torch.ones(*shape, device=dev, dtype=dtype)
 
     return {
-        "embed": init((V, D)),
-        "layers": {
-            "input_norm_w": ones(L, D),
-            "qkv_kernel": init((L, D, qkv_out)),
-            "o_kernel": init((L, cfg.q_dim, D)),
-            "post_norm_w": ones(L, D),
-            "gate_up_kernel": init((L, D, 2 * I)),
-            "down_kernel": init((L, I, D)),
-        },
-        "final_norm_w": ones(D),
-        "lm_head": init((D, V)),
+        "embed": entry("embed", lambda g, dev: init((V, D), g, dev)),
+        "layers": entry("layers", lambda g, dev: {
+            "input_norm_w": ones(L, D, dev=dev),
+            "qkv_kernel": init((L, D, qkv_out), g, dev),
+            "o_kernel": init((L, cfg.q_dim, D), g, dev),
+            "post_norm_w": ones(L, D, dev=dev),
+            "gate_up_kernel": init((L, D, 2 * I), g, dev),
+            "down_kernel": init((L, I, D), g, dev),
+        }),
+        "final_norm_w": entry("final_norm_w",
+                              lambda g, dev: ones(D, dev=dev)),
+        "lm_head": entry("lm_head", lambda g, dev: init((D, V), g, dev)),
     }
 
 

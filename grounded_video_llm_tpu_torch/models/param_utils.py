@@ -52,6 +52,19 @@ def lecun_normal(shape, *, generator, device, dtype):
                             generator=generator, device=device, dtype=dtype)
 
 
+def child_generator(generator, device):
+    """A new generator on ``device`` seeded by one draw from ``generator``
+    (None for None): each piece of a tree draws from its own, so skipping
+    one leaves the others' values as they were."""
+    if generator is None:
+        return None
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device))
+    child = torch.Generator(device=device)
+    child.manual_seed(seed)
+    return child
+
+
 def layer_slice(tree, i: int):
     """Layer i of a tree of stacked [L, ...] tensors or int8 weights, as
     views."""

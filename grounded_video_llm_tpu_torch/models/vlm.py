@@ -31,7 +31,7 @@ from ..ops.preprocess import (INTERNVIDEO_MEAN, INTERNVIDEO_STD,
                               OPENAI_DATASET_MEAN, OPENAI_DATASET_STD)
 from ..text.templates import IGNORE_INDEX, IMAGE_TOKEN_INDEX
 from . import clip_vit, internvideo2, llm as llm_mod, projectors
-from .param_utils import normal
+from .param_utils import child_generator, normal
 
 
 class Batch(NamedTuple):
@@ -44,25 +44,46 @@ class Batch(NamedTuple):
     is_text: torch.Tensor          # [B] bool, text-only sample
 
 
-def init_params(cfg: VLMConfig, *, generator: torch.Generator, device,
-                dtype=torch.float32):
+def init_params(cfg: VLMConfig, *, generator: Optional[torch.Generator],
+                device, dtype=torch.float32, skip=frozenset()):
+    """The seeded random tree. Each piece (and each top-level entry of the
+    LLM) draws from its own generator, seeded from ``generator`` in a fixed
+    order, so a piece's values do not depend on which others are drawn.
+    skip: paths — ("clip",), ("llm", "embed"), ... — left on the meta
+    device (shapes only, nothing drawn), for pieces a caller fills from
+    files."""
     H = cfg.llm.hidden_size
     C = cfg.clip.hidden_size
-    kw = dict(generator=generator, device=device, dtype=dtype)
-    if cfg.llm_name == "phi3.5":
-        # glb_GN [4C], sub_GN [4C]
-        extras = {"glb_GN": normal((4 * C,), 0.02, **kw),
-                  "sub_GN": normal((4 * C,), 0.02, **kw)}
-    else:
-        extras = {"image_newline": normal((H,), 0.02, **kw)}
+
+    def piece(name, make):
+        g = child_generator(generator, device)
+        if (name,) in skip:
+            return make(generator=None, device="meta", dtype=dtype)
+        return make(generator=g, device=device, dtype=dtype)
+
+    def extras(**kw):
+        if cfg.llm_name == "phi3.5":
+            # glb_GN [4C], sub_GN [4C]
+            return {"glb_GN": normal((4 * C,), 0.02, **kw),
+                    "sub_GN": normal((4 * C,), 0.02, **kw)}
+        return {"image_newline": normal((H,), 0.02, **kw)}
+
+    llm_skip = frozenset(p[1:] for p in skip if p[0] == "llm" and len(p) > 1)
     return {
-        "clip": clip_vit.init_params(cfg.clip, **kw),
-        "video_encoder": internvideo2.init_params(cfg.video, **kw),
-        "mm_projector": projectors.init_mm_projector(cfg.llm_name, H, C, **kw),
-        "video_projector": projectors.init_video_projector(
-            H, cfg.video.embed_dim, **kw),
-        "llm": llm_mod.init_params(cfg.llm, **kw),
-        "extras": extras,
+        "clip": piece("clip", lambda **kw: clip_vit.init_params(cfg.clip,
+                                                                **kw)),
+        "video_encoder": piece("video_encoder",
+                               lambda **kw: internvideo2.init_params(
+                                   cfg.video, **kw)),
+        "mm_projector": piece("mm_projector",
+                              lambda **kw: projectors.init_mm_projector(
+                                  cfg.llm_name, H, C, **kw)),
+        "video_projector": piece("video_projector",
+                                 lambda **kw: projectors.init_video_projector(
+                                     H, cfg.video.embed_dim, **kw)),
+        "llm": piece("llm", lambda **kw: llm_mod.init_params(
+            cfg.llm, skip=llm_skip, **kw)),
+        "extras": piece("extras", extras),
     }
 
 

@@ -6,10 +6,11 @@ checkpoint and resume (port of grounded_video_llm_tpu/train/strategy.py).
                   optimizer, the train step
   run_training  — epoch loop over the resumable loader, the NaN abort,
                   metrics (JSONL, optional wandb), the loss curve
-  save/resume   — torch.save of params, optimizer state and step, and the
-                  loader's JSON snapshot
+  save/resume   — core/checkpoint's save_pytree of params, optimizer
+                  state and step, and the loader's JSON snapshot
+  export        — the reference's split-by-module .pth (models/export)
 
-Not ported yet: the reference-format .pth export and multi-GPU sharding.
+Not ported yet: multi-GPU sharding.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from ..core import checkpoint as ckpt
 from ..core.config import NUM_SPECIAL_TOKENS, STAGE_PRESETS, VLMConfig
 from ..data.collate import collate
 from ..data.loader import DataLoader
@@ -176,41 +178,35 @@ class TrainingStrategy:
 
     def save_checkpoint(self, tag: str = "latest",
                         loader: Optional[DataLoader] = None) -> str:
-        """params, optimizer state and step in one torch.save file; the
-        loader's resume state beside it as JSON."""
+        """params, optimizer state and step in one file; the loader's
+        resume state beside it as JSON."""
         path = os.path.join(self.run_dir, f"state_{tag}.pt")
-        torch.save({"params": self.state.params,
-                    "opt_state": self.state.opt_state,
-                    "step": self.state.step}, path)
+        ckpt.save_pytree(path, {"params": self.state.params,
+                                "opt_state": self.state.opt_state,
+                                "step": self.state.step})
         if loader is not None:
-            import json
-
-            with open(os.path.join(self.run_dir, f"loader_{tag}.json"),
-                      "w") as f:
-                json.dump(loader.state_dict(), f)
+            ckpt.save_json(os.path.join(self.run_dir, f"loader_{tag}.json"),
+                           loader.state_dict())
         return path
 
-    @torch.no_grad()
     def load_resume(self, path: str, loader: DataLoader) -> None:
         """Restore a save_checkpoint bundle into this strategy's tensors
-        (shapes must match) and the loader's position."""
-        saved = torch.load(path, map_location=self.device, weights_only=True)
-        have = dict(tree_items(self.state.params))
-        got = dict(tree_items(saved["params"]))
-        if set(have) != set(got):
-            raise ValueError(f"load_resume: parameter paths differ: "
-                             f"{sorted(set(have) ^ set(got))}")
-        for p, t in have.items():
-            t.copy_(got[p])
-        for key in ("mu", "nu"):
-            for p, t in self.state.opt_state[key].items():
-                t.copy_(saved["opt_state"][key][p])
-        self.state.opt_state["count"] = int(saved["opt_state"]["count"])
-        self.state.step = int(saved["step"])
+        (paths and shapes must match) and the loader's position."""
+        restored = ckpt.load_pytree(path, template={
+            "params": self.state.params, "opt_state": self.state.opt_state,
+            "step": self.state.step}, map_location=self.device)
+        self.state.opt_state["count"] = int(restored["opt_state"]["count"])
+        self.state.step = int(restored["step"])
         loader_json = os.path.join(os.path.dirname(path),
                                    "loader_latest.json")
         if os.path.exists(loader_json):
-            import json
+            loader.load_state_dict(ckpt.load_json(loader_json))
 
-            with open(loader_json) as f:
-                loader.load_state_dict(json.load(f))
+    def export_reference_checkpoint(self, path: str,
+                                    trainable_only: bool = True) -> None:
+        """Trainable-only split-by-module export in the reference's .pth
+        layout (fsdp.py:116-127) for cross-framework weight exchange."""
+        from ..models import export as export_mod
+
+        export_mod.export_vlm_to_reference(self.state.params, self.cfg, path,
+                                           trainable_only=trainable_only)

@@ -461,7 +461,8 @@ def test_engine_generate_spec_equals_lockstep(micro):
 
 def test_cli_inference_debug_tiny_int8_full_spec(tmp_path, capsys):
     """cli/inference.py end to end on the CPU: micro dims, int8_full,
-    speculative decoding, on a small mp4 written with cv2."""
+    speculative decoding, on a small mp4 written with cv2; then bf16 from a
+    stage checkpoint written by the port's exporter (--ckpt_path)."""
     cv2 = pytest.importorskip("cv2")
     from grounded_video_llm_tpu_torch.cli import inference
 
@@ -480,6 +481,38 @@ def test_cli_inference_debug_tiny_int8_full_spec(tmp_path, capsys):
     assert set(results) == {"grounding", "qa", "referring"}
     for mode in results:
         assert f"[{mode}] raw:" in out and f"[{mode}] parsed:" in out
-    with pytest.raises(NotImplementedError):
-        inference.main(["--debug_tiny", "--device", "cpu", "--ckpt_path",
-                        "x.pth", "--video_path", str(path)])
+    # a stage checkpoint through --ckpt_path: its projectors, embed and
+    # lm_head are what the engine serves
+    from unittest import mock
+
+    from grounded_video_llm_tpu_torch.cli.model_loading import build_params
+    from grounded_video_llm_tpu_torch.core.config import \
+        micro_vlm_config as tmicro
+    from grounded_video_llm_tpu_torch.models.export import \
+        export_vlm_to_reference
+    from grounded_video_llm_tpu_torch.serve import engine as engine_mod
+
+    cfg = tmicro("phi3.5")
+    trained = build_params(cfg, "cpu", torch.float32, seed=77)
+    stage = str(tmp_path / "grounded_llava_next_video_phi3.5_mix.pth")
+    export_vlm_to_reference(trained, cfg, stage, trainable_only=False)
+    served = []
+    real = engine_mod.InferenceEngine.__init__
+
+    def spy(self, params, *a, **kw):
+        served.append(params)
+        real(self, params, *a, **kw)
+
+    with mock.patch.object(engine_mod.InferenceEngine, "__init__", spy):
+        results = inference.main(["--debug_tiny", "--device", "cpu",
+                                  "--ckpt_path", stage, "--max_new_tokens",
+                                  "4", "--no-do_sample", "--video_path",
+                                  str(path)])
+    assert set(results) == {"grounding", "qa", "referring"}
+    (params,) = served
+    for key in ("embed", "lm_head"):
+        assert torch.equal(params["llm"][key], trained["llm"][key])
+    assert torch.equal(params["mm_projector"]["fc1"]["kernel"],
+                       trained["mm_projector"]["fc1"]["kernel"])
+    assert not torch.equal(params["llm"]["layers"]["qkv_kernel"],
+                           trained["llm"]["layers"]["qkv_kernel"])

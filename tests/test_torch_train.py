@@ -1,5 +1,5 @@
 """The port's training path against the JAX package on the CPU, fp32, micro
-config, weights carried across by params_from_jax: forward_loss with LoRA
+config (Phi-3.5 and Llama-3), weights carried across by params_from_jax: forward_loss with LoRA
 (remat off, per layer, grouped), the gradients of every trainable leaf, two
 grounded-preset optimizer steps with grad_accum 2 against make_train_step
 and make_host_accum_step, the optimizer groups, expand_vocab and merge_lora;
@@ -74,9 +74,9 @@ def _batch(cfg, B=1, S=12, accum=None, seed=0):
             tvlm.Batch(*(torch.from_numpy(a.copy()) for a in arrays)))
 
 
-@pytest.fixture(scope="module")
-def model():
-    cfg = micro_vlm_config("phi3.5")
+@pytest.fixture(scope="module", params=["phi3.5", "llama3"])
+def model(request):
+    cfg = micro_vlm_config(request.param)
     jp = _jax_params(cfg)
     return cfg, jp
 
@@ -434,14 +434,9 @@ def test_weight_bridge_carries_an_expanded_vocab_and_refuses_bad_lora():
         _torch_params(bad, cfg)
 
 
-def test_cli_train_debug_tiny_on_the_cpu(tmp_path):
-    """cli/train.py --debug_tiny --device cpu: a grounded run over two
-    annotated samples of a written video, one optimizer step, a final
-    checkpoint."""
+def _grounded_run_files(tmp_path):
+    """A small mp4 (cv2) and a grounded annotation of two samples on it."""
     cv2 = pytest.importorskip("cv2")
-    from grounded_video_llm_tpu_torch.cli import train as cli
-    from grounded_video_llm_tpu_torch.core import config as tcfg
-
     path = tmp_path / "clip.mp4"
     w = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 10,
                         (80, 60))
@@ -455,19 +450,72 @@ def test_cli_train_debug_tiny_on_the_cpu(tmp_path):
             {"from": "human", "value": "<image>\nWhen does it happen?"},
             {"from": "gpt", "value": "From <0.5> to <2.0>."}]}
         for i in range(2)]))
+    return ["--debug_tiny", "--device", "cpu", "--stage", "grounded",
+            "--dataset", "mix_grounded", "--anno_path", str(anno),
+            "--data_dir", str(tmp_path), "--global_batch_size", "2",
+            "--per_device_batch_size", "1", "--epoch", "1"]
+
+
+def _run_train_cli(argv):
+    from grounded_video_llm_tpu_torch.cli import train as cli
+    from grounded_video_llm_tpu_torch.core import config as tcfg
+
     orig = tcfg.STAGE_PRESETS["grounded"]
     try:
-        out = cli.main(["--debug_tiny", "--device", "cpu", "--stage",
-                        "grounded", "--dataset", "mix_grounded",
-                        "--anno_path", str(anno), "--data_dir",
-                        str(tmp_path), "--global_batch_size", "2",
-                        "--per_device_batch_size", "1", "--epoch", "1",
-                        "--save_dir", str(tmp_path / "run")])
+        return cli.main(argv)
     finally:
         tcfg.STAGE_PRESETS["grounded"] = orig
+
+
+def test_cli_train_debug_tiny_on_the_cpu(tmp_path):
+    """cli/train.py --debug_tiny --device cpu: a grounded run over two
+    annotated samples of a written video, one optimizer step, a final
+    checkpoint."""
+    out = _run_train_cli(_grounded_run_files(tmp_path)
+                         + ["--save_dir", str(tmp_path / "run")])
     saved = torch.load(out, weights_only=True)
     assert saved["step"] == 1 and saved["opt_state"]["count"] == 1
     assert "lora" in saved["params"]["llm"]["layers"]
+
+
+def test_cli_train_loads_reference_files_and_exports(tmp_path):
+    """cli/train.py with --pretrained_vision_proj_llm_path,
+    --pretrained_video_path and --pretrained_proj on files the port's
+    exporter wrote: the run starts from them (the frozen pieces equal the
+    files'), and after the final
+    checkpoint it writes the reference-format export at the root train.py's
+    name, which the JAX package reads."""
+    from grounded_video_llm_tpu.core.checkpoint import import_reference_pth
+    from grounded_video_llm_tpu_torch.cli.model_loading import build_params
+    from grounded_video_llm_tpu_torch.core.config import \
+        micro_vlm_config as tmicro
+    from grounded_video_llm_tpu_torch.models.export import write_weight_dumps
+
+    cfg = tmicro("phi3.5")
+    src = build_params(cfg, "cpu", torch.float32, seed=123)
+    paths = write_weight_dumps(src, cfg, str(tmp_path / "ckpt"))
+    run = tmp_path / "run"
+    out = _run_train_cli(_grounded_run_files(tmp_path) + [
+        "--save_dir", str(run),
+        "--pretrained_vision_proj_llm_path", paths["weight_root"],
+        "--pretrained_video_path", paths["video_encoder"],
+        "--pretrained_proj", paths["stage_ckpt"]])
+    saved = torch.load(out, weights_only=True)["params"]
+    for key in ("clip", "video_encoder", "extras"):
+        for (p, a), (_, b) in zip(topt.tree_items(saved[key]),
+                                  topt.tree_items(src[key])):
+            assert torch.equal(a, b), p
+    assert torch.equal(saved["llm"]["layers"]["qkv_kernel"],
+                       src["llm"]["layers"]["qkv_kernel"])
+    export = run / "grounded_llava_next_video_phi3.5_mix_grounded.pth"
+    mods = import_reference_pth(str(export))
+    assert set(mods) == {"multi_modal_projector", "video_projecter",
+                         "language_model"}
+    np.testing.assert_array_equal(mods["language_model"]["lm_head.weight"].T,
+                                  saved["llm"]["lm_head"].detach().numpy())
+    np.testing.assert_array_equal(mods["video_projecter"]["up_proj.weight"].T,
+                                  saved["video_projector"]["fc1"]["kernel"]
+                                  .detach().numpy())
 
 
 @pytest.mark.parametrize("chunk", [4, 1024])

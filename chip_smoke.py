@@ -85,7 +85,9 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    plain versions on the inputs verify_step gave them in every layer (K8
    within its bar, the written caches and committed slots bit-equal),
    logits against the host and against 5 sequential decode steps (their
-   committed caches printed); a two-block
+   committed caches printed); prefix-KV serving (LLM 2 layers, bf16
+   and int8_full): build_prefix_kv, prefill_continue into the three
+   caches, decode_step_shared and verify_step_shared, card vs host; a two-block
    fused W8A8 InternVideo2 trunk card vs host; a two-block W8A8 trunk with
    static activation scales calibrated on the card, card vs host;
    serve/quant_ab (bf16 vs int8_full with static scales) on the depth-cut
@@ -107,7 +109,20 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
         features;
      E  path A's batch with static_scales=True: one calibration on the
         first request's pixels (39 more K1 launches), x_scale on fc2 and
-        proj of every block, otherwise path A's launch counts, no K10.
+        proj of every block, otherwise path A's launch counts, no K10;
+     F  feature-cached and prefix-KV serving in path A's configuration:
+        12 queries over two videos (the resized frames and the same pixels
+        reversed in time, behind two placeholder files under
+        build/chip_smoke_videos/, the host having no decoder) in batches
+        of 6, through run_stream_cached twice (2 encodes, then 0, equal
+        tokens), run_stream_prefix through the cascade (one prefix per
+        video: K2; per step K3 w8a8, K5 on the tail, K6) and
+        run_stream_prefix with spec_draft_len=4 (per pass K3 at 30 rows,
+        K9 on the tail, K6); each call counted like a path; then the
+        prefix route's first-step logits held to the full prefill's (at
+        most ROUTE_FLOOR_RATIO times the full route's own re-batching
+        drift, and on the bf16 tree at most 1e-1), and one cascade decode
+        step timed beside its eager attention.
    Each path runs with every launch count set to 0 just before it; its
    counts are read just after and held against the counts the config
    implies. Phase times, peak device memory, and a shape/finiteness check of
@@ -2758,7 +2773,8 @@ def run_path(torch, kernels, name, fn, expect_fn):
     steps = max(t[key], 1)
     log(f"[path] {name}: prompt_tokens={t['prompt_len']} "
         f"new_tokens={t['new_tokens']} {key}={t[key]} "
-        f"encode_ms={t['encode'] * 1e3:.1f} prefill_ms={t['prefill'] * 1e3:.1f}"
+        f"encode_ms={t.get('encode', 0.0) * 1e3:.1f} "
+        f"prefill_ms={t['prefill'] * 1e3:.1f}"
         f" decode_ms={t['decode'] * 1e3:.1f} decode_ms_per_"
         f"{'step' if key == 'decode_steps' else 'pass'}="
         f"{t['decode'] * 1e3 / steps:.2f} peak_device_memory={peak:.2f} GiB")
@@ -2903,6 +2919,439 @@ def static_path(torch, kernels, params, cfg, tok, gen, batch, prompts,
     del eng, feats
     torch.cuda.empty_cache()
     return got
+
+
+PREFIX_QUERIES = 12    # path F: queries over two videos
+# path F: the prefix route's first-step logits may move from the full
+# prefill's by at most this multiple of the full route's own drift when its
+# queries run alone (the rounding floor of a 32-layer comparison, measured
+# in the same run)
+ROUTE_FLOOR_RATIO = 2.0
+
+
+def prefix_steps(torch, lp, cfg, data, dev, next_tok=None, prefix=None,
+                 plain=False):
+    """The prefix-KV steps of small_reference_prefix on one tree: the prefix
+    K/V (build_prefix_kv, or the given (k, v, mask)), prefill_continue into
+    each of the three caches, then on the shared cache one
+    decode_step_shared (of next_tok, else the prefill's argmax), one
+    verify_step_shared of the candidates and a commit on the tail → (five
+    logits and the committed tail lengths, the prefix, next_tok). plain
+    adds the logits of decode_step on the bf16 and the int8 single cache
+    (PLAIN_STAGES), after the tail lengths."""
+    from grounded_video_llm_tpu_torch.models import llm
+    from grounded_video_llm_tpu_torch.serve.generate import build_prefix_kv
+
+    L, hint, S_v = cfg.llm, data["hint"], data["cands"].shape[1]
+    dt = llm.embed_dtype(lp["embed"])
+    with torch.inference_mode():
+        if prefix is None:
+            pre = data["pre"].to(dev)
+            prefix = build_prefix_kv({"llm": lp}, cfg, pre,
+                                     torch.ones_like(pre),
+                                     data["feats"].to(dev, dt), hint)
+        k, v, pm = (x.to(dev) for x in prefix)
+        emb = llm.embed_lookup(lp["embed"], data["post"].to(dev), dt)
+        m = data["post_mask"].to(dev)
+        res, single = [], []
+        for kind in ("bf16", "int8", "shared"):
+            logits, cache, valid, pos = llm.prefill_continue(
+                lp, L, emb, m, k, v, pm, hint,
+                quantize_cache=kind != "bf16",
+                tail_len=128 if kind == "shared" else None)
+            res.append(logits)
+            single.append((cache, valid))
+        if next_tok is None:
+            next_tok = logits.argmax(-1).cpu()
+        cur = llm.embed_lookup(lp["embed"], next_tok.to(dev), dt)[:, None]
+        lg, cache, valid = llm.decode_step_shared(
+            lp, L, cur, cache, valid, pos, rope_hint=hint)
+        res.append(lg)
+        positions = (pos + 1)[:, None] + torch.arange(S_v, device=dev)
+        lg, cache = llm.verify_step_shared(
+            lp, L, llm.embed_lookup(lp["embed"], data["cands"].to(dev), dt),
+            cache, valid, positions, rope_hint=hint)
+        res.append(lg)
+        tail, valid = llm.commit_verify(
+            cache.tail, valid, torch.tensor([S_v, 2], device=dev), S_v)
+        res.append(tail.length)
+        if plain:
+            res += [llm.decode_step(lp, L, cur, c, vd, pos)[0]
+                    for c, vd in single[:2]]
+    return res, prefix, next_tok
+
+
+PREFIX_STAGES = ("prefill bf16 cache", "prefill int8 cache",
+                 "prefill shared cache", "decode_step_shared",
+                 "verify_step_shared")
+PLAIN_STAGES = ("decode_step bf16 cache", "decode_step int8 cache")
+
+
+def small_reference_prefix(torch, cfg_full, seed, quantize):
+    """Prefix-KV serving on a depth-cut full-width LLM (2 layers; a prefix
+    of 40 text and 600 video tokens, B = 2 left-padded questions of up to
+    32 tokens): prefix_steps, card (kernels: K2 for the prefix, K5 and K9
+    on the tail, K3/K6 under int8) against host (plain versions): quantize
+    None, bf16 card vs fp32 host within BOUND_SMALL; "int8_full", the same
+    int8 weights on both within BOUND_SMALL_W8A8. On the bf16 tree the card
+    is also held within BOUND_SMALL to the same bf16 tree on the host, and
+    two readings say where its gap to the fp32 host comes from: that bf16
+    host against the fp32 host (no kernel: bf16 activations move the int8
+    cache's codes), and the fp32 host fed the card's bf16 prefix K/V
+    against the card."""
+    from grounded_video_llm_tpu_torch.core.config import replace
+    from grounded_video_llm_tpu_torch.models import llm
+    from grounded_video_llm_tpu_torch.ops import cache_write as cw
+    from grounded_video_llm_tpu_torch.ops import flash_attention as fa
+    from grounded_video_llm_tpu_torch.serve.quantize import \
+        quantize_llm_for_serving
+
+    cfg = replace(cfg_full, llm=replace(cfg_full.llm, num_layers=2))
+    L = cfg.llm
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    lp = llm.init_params(L, generator=g, device="cuda", dtype=torch.bfloat16)
+    if quantize:
+        lp = quantize_llm_for_serving(lp, w8a8=True)
+    B, St, NV, Sq, S_v, new = 2, 40, 600, 32, SPEC_DRAFT_LEN + 1, 8
+    Sp = St + NV
+    rng = np.random.default_rng(seed)
+    data = dict(hint=-(-(Sp + Sq + new + S_v) // 128) * 128,
+                pre=torch.from_numpy(rng.integers(3, L.vocab_size, (1, St))),
+                post=torch.from_numpy(rng.integers(3, L.vocab_size, (B, Sq))),
+                post_mask=torch.ones(B, Sq, dtype=torch.long))
+    data["post_mask"][1, :11] = 0                      # left padding
+    data["feats"] = torch.from_numpy(rng.normal(size=(1, NV, L.hidden_size))
+                                     .astype(np.float32) * 0.05)
+    data["cands"] = torch.from_numpy(rng.integers(3, L.vocab_size, (B, S_v)))
+    host = to_host(lp, None if quantize else torch.float32)
+    ref, _, next_tok = prefix_steps(torch, host, cfg, data, "cpu",
+                                    plain=not quantize)
+    counts = (fa.FLASH_FWD.launches, cw.SCATTER_WRITE.launches,
+              cw.SCATTER_WRITE_MULTI.launches)
+    card, card_prefix, _ = prefix_steps(torch, lp, cfg, data, "cuda",
+                                        next_tok)
+    torch.cuda.synchronize()
+    launched = [fa.FLASH_FWD.launches - counts[0],
+                cw.SCATTER_WRITE.launches - counts[1],
+                cw.SCATTER_WRITE_MULTI.launches - counts[2]]
+    n_stages = len(PREFIX_STAGES)
+    errs = [rel_err(torch, card[i], ref[i]) for i in range(n_stages)]
+    same_len = bool(torch.equal(card[n_stages].cpu(), ref[n_stages]))
+    bound = BOUND_SMALL_W8A8 if quantize else BOUND_SMALL
+    ok = (max(errs) <= bound and same_len
+          and launched == [L.num_layers, 1, 1])
+    what = ("int8_full, the same int8 weights on both" if quantize
+            else "card bf16 vs host fp32")
+    log(f"[small-ref] prefix {cfg_full.llm_name} depth-cut full width (LLM 2"
+        f" layers, prefix {St} text + {NV} video tokens, B={B} questions of "
+        f"{Sq} with a left-padded row, S={S_v} candidates), {what}; card "
+        f"launches K2 / K5 / K9 {launched} (want [{L.num_layers}, 1, 1]); "
+        f"rel L2 " + ", ".join(f"{n} {e:.3e}"
+                               for n, e in zip(PREFIX_STAGES, errs))
+        + f" (<= {bound}); committed tail lengths equal {same_len} "
+        f"{'OK' if ok else 'FAIL'}")
+    if not quantize:
+        # where the gap to the fp32 host comes from: the same steps with no
+        # kernel (host bf16 against host fp32, with decode_step on the bf16
+        # and the int8 single cache beside the cascade's) and the fp32 host
+        # fed the card's prefix K/V, readings; the card against the bf16
+        # host, the same precision, also within BOUND_SMALL
+        host_bf16, _, _ = prefix_steps(torch, to_host(lp), cfg, data, "cpu",
+                                       next_tok, plain=True)
+        fed, _, _ = prefix_steps(torch, host, cfg, data, "cpu", next_tok,
+                                 card_prefix)
+        stages = PREFIX_STAGES + ("tail lengths",) + PLAIN_STAGES
+        for what, a, b, held in (
+                ("host bf16 vs host fp32 (no kernel)", host_bf16, ref, False),
+                ("card bf16 vs host bf16", card, host_bf16, True),
+                ("host fp32 fed the card's prefix K/V vs card", fed, card,
+                 False)):
+            errs = {n: rel_err(torch, a[i], b[i])
+                    for i, n in enumerate(stages[:len(a)])
+                    if n != "tail lengths"}
+            ok_here = max(errs.values()) <= BOUND_SMALL
+            ok = ok and (ok_here or not held)
+            log(f"[small-ref] prefix {cfg_full.llm_name} "
+                f"{'held' if held else 'reading'}, {what}: rel L2 "
+                + ", ".join(f"{n} {e:.3e}" for n, e in errs.items())
+                + (f" (<= {BOUND_SMALL}) {'OK' if ok_here else 'FAIL'}"
+                   if held else ""))
+    if not ok:
+        raise AssertionError("prefix-KV serving: card disagrees with the "
+                             "host reference")
+    del lp, card, card_prefix
+    torch.cuda.empty_cache()
+
+
+def route_logits(torch, eng, cfg, feats, prompts, question_len):
+    """First-step logits of one batch of prompts on one video's features
+    [NV, H], through the engine's tree: the full prefill at B = len(prompts)
+    ("full"), each prompt alone ("alone"), and the prefix route
+    (build_prefix_kv, then prefill_continue of the questions left-padded to
+    question_len into the cascade cache; "prefix", with that cache, its
+    tail mask, next positions and LongRoPE hint)."""
+    from grounded_video_llm_tpu_torch.models import llm, vlm
+    from grounded_video_llm_tpu_torch.serve.generate import build_prefix_kv
+    from grounded_video_llm_tpu_torch.text.templates import IMAGE_TOKEN_INDEX
+
+    lp, L = eng.params["llm"], cfg.llm
+    feats = feats.cuda()
+
+    def full(ps):
+        ids, am = (torch.from_numpy(a).long().cuda()
+                   for a in eng._batch_ids(ps))
+        embeds, _, m = vlm.splice_multimodal(
+            ids, None, am, feats[None].expand(len(ps), *feats.shape),
+            lp["embed"])
+        max_len = -(-(embeds.shape[1] + MAX_NEW_TOKENS) // 128) * 128
+        logits, _ = llm.prefill(lp, L, embeds, m, llm.QuantKVCache.create(
+            L, len(ps), max_len, device="cuda"))
+        return logits, embeds.shape[1]
+
+    with torch.inference_mode():
+        out = dict(zip(("full", "S_full"), full(prompts)))
+        out["alone"] = torch.cat([full([p])[0] for p in prompts])
+        seqs = [eng.tokenize_prompt(p) for p in prompts]
+        img = seqs[0].index(IMAGE_TOKEN_INDEX)
+        pre = torch.tensor([seqs[0][:img]], device="cuda")
+        out["Sp"] = img + cfg.num_video_tokens
+        out["hint"] = -(-(out["Sp"] + question_len + MAX_NEW_TOKENS)
+                        // 128) * 128
+        k, v, pm = build_prefix_kv(eng.params, cfg, pre, torch.ones_like(pre),
+                                   feats[None], out["hint"])
+        q_ids, q_mask = (torch.from_numpy(a).long().cuda() for a in
+                         eng._pad_bucket_batch([s[img + 1:] for s in seqs],
+                                               question_len))
+        q_emb = llm.embed_lookup(lp["embed"], q_ids,
+                                 llm.embed_dtype(lp["embed"]))
+        (out["prefix"], out["cache"], out["valid"],
+         out["pos"]) = llm.prefill_continue(
+            lp, L, q_emb, q_mask, k, v, pm, out["hint"],
+            tail_len=-(-(question_len + MAX_NEW_TOKENS) // 128) * 128)
+    return out
+
+
+def prefix_path(torch, kernels, zero, params, cfg, tok, temporal, spatial,
+                per_req, card):
+    """Path F: feature-cached and prefix-KV serving at full width (Phi-3.5,
+    int8_full, int8 cache, greedy, MAX_NEW_TOKENS, batches of 6) on two
+    videos: the frames the paths resized (96 s) and the same pixels
+    reversed in time (60 s). The GPU host has no video decoder, so two
+    placeholder files under build/chip_smoke_videos/ give the cache its
+    keys (path, mtime, size) and the engine's preprocess_video returns
+    their frames. PREFIX_QUERIES queries alternate between the videos and
+    between the grounding and qa question texts, mode "grounding":
+      1. run_stream_cached: 2 encodes (K1 62 each), 2 full prefills;
+      2. the same call: 0 encodes, tokens equal to call 1's;
+      3. run_stream_prefix through the cascade: 0 encodes, one prefix (K2
+         per layer) per video, per decode step 4·nl w8a8 int8_gemv, 1 K5
+         and 1 lm_head;
+      4. run_stream_prefix with spec_draft_len: per verify pass 4·nl
+         int8_gemv at 30 rows, 1 K9, 1 lm_head.
+    Each call is counted like a path. Then the prefix route's first-step
+    logits against the full prefill's on the same cached features
+    (route_logits), on the int8_full and the bf16 tree, each within
+    ROUTE_FLOOR_RATIO times the full prefill's own drift when its queries
+    run alone, measured in the same run, and the bf16 tree also within
+    BOUND_SMALL_W8A8: 32 layers of W8A8 rows move the full route against
+    itself re-batched by up to 1.6e-1 on random features (H100), so a
+    fixed bar cannot hold the int8_full tree. Then one cascade decode step
+    timed beside its eager attention
+    (nl calls of llm._cascade_attention). → the summed launch counts."""
+    from grounded_video_llm_tpu_torch.core.config import GenerateConfig
+    from grounded_video_llm_tpu_torch.models import llm
+    from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
+    from grounded_video_llm_tpu_torch.text.templates import IMAGE_TOKEN_INDEX
+
+    nl = cfg.llm.num_layers
+    enc = per_req - nl                      # K1 launches of one encode
+    gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+                         quantize_cache=True)
+    gen_spec = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+                              quantize_cache=True,
+                              spec_draft_len=SPEC_DRAFT_LEN)
+    eng = InferenceEngine(params, cfg, tok, gen, seed=SEED,
+                          quantize="int8_full")
+    vdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_videos")
+    os.makedirs(vdir, exist_ok=True)
+    paths = []
+    for i in range(2):
+        paths.append(os.path.join(vdir, f"video{i}.mp4"))
+        with open(paths[-1], "wb") as f:
+            f.write(b"placeholder" * (i + 1))
+    frames = {paths[0]: (temporal, spatial, 96.0),
+              paths[1]: (np.ascontiguousarray(temporal[::-1]),
+                         np.ascontiguousarray(spatial[::-1]), 60.0)}
+    eng.preprocess_video = frames.__getitem__
+    texts = [p for _, p in (MODES[0], MODES[1], MODES_2[0], MODES_2[1])]
+    videos = [paths[i % 2] for i in range(PREFIX_QUERIES)]
+    queries = [texts[(i // 2) % len(texts)] for i in range(PREFIX_QUERIES)]
+    mode = "grounding"
+    seqs = [eng.tokenize_prompt(eng.build_prompt(q, mode, 96.0))
+            for q in queries]
+    post = max(len(s) - s.index(IMAGE_TOKEN_INDEX) - 1 for s in seqs)
+    question_len = max(64, -(-post // 64) * 64)
+
+    def expect(n_enc, n_prefill, n_prefix, cascade):
+        def fn(t):
+            s = t.get("decode_steps", 0)
+            P = t.get("verify_passes", 0)
+            return dict(zero, flash_fwd=n_enc * enc + n_prefill * nl
+                        + n_prefix * nl,
+                        int8_gemv=4 * nl * (s + P),
+                        decode_attention_int8=0 if cascade else nl * s,
+                        scatter_write=s, scatter_write_multi=P,
+                        int8_matmul=2 + s + P)
+        return fn
+
+    def call(route, g, check):
+        def fn():
+            kw = dict(question_len=question_len) if route == "prefix" else {}
+            run = (eng.run_stream_prefix if route == "prefix"
+                   else eng.run_stream_cached)
+            out = run(videos, queries, mode=mode, batch_size=6, gen_cfg=g,
+                      **kw)
+            t = eng.last_timings
+            check(out, t)
+            return t
+        return fn
+
+    results, launches, tokens = {}, dict(zero), {}
+
+    def record(name, out, t):
+        results[name] = out
+        tokens[name] = eng.last_tokens[0]
+        steps = t.get("decode_steps", t.get("verify_passes", 0))
+        log(f"[path] F {name}: encode {t.get('encode', 0.0):.3f} s "
+            f"({t.get('encodes', 0)} encodes), prefix "
+            f"{t.get('prefix', 0.0):.3f} s ({t.get('prefixes', 0)} prefixes),"
+            f" prefill {t['prefill']:.3f} s, decode {t['decode']:.3f} s "
+            f"({t['decode'] * 1e3 / max(steps, 1):.2f} ms per "
+            f"{'pass' if 'verify_passes' in t else 'step'} over {steps}), "
+            f"preprocess {t.get('preprocess', 0.0):.3f} s; durations "
+            f"{sorted(set(r.duration for r in out))}; {card}")
+
+    def want_encodes(n):
+        def check(out, t):
+            if t.get("encodes", 0) != n or len(out) != PREFIX_QUERIES:
+                raise AssertionError(f"path F: {t.get('encodes', 0)} encodes"
+                                     f" (want {n}), {len(out)} results")
+            if [r.duration for r in out] != [frames[v][2] for v in videos]:
+                raise AssertionError("path F: results not in input order")
+        return check
+
+    for name, route, g, n_enc, n_prefill, n_prefix in (
+            ("1 run_stream_cached", "cached", gen, 2, 2, 0),
+            ("2 run_stream_cached again", "cached", gen, 0, 2, 0),
+            ("3 run_stream_prefix cascade", "prefix", gen, 0, 0, 2),
+            (f"4 run_stream_prefix spec{SPEC_DRAFT_LEN}", "prefix", gen_spec,
+             0, 0, 2)):
+        def check(out, t, name=name, n_enc=n_enc):
+            want_encodes(n_enc)(out, t)
+            record(name, out, t)
+        got = run_path(torch, kernels, f"F {name} (question_len "
+                       f"{question_len})", call(route, g, check),
+                       expect(n_enc, n_prefill, n_prefix, route == "prefix"))
+        launches = {k: launches[k] + got[k] for k in launches}
+    same = bool(torch.equal(tokens["1 run_stream_cached"],
+                            tokens["2 run_stream_cached again"]))
+    agree = {n: float((tokens[n] == tokens["1 run_stream_cached"])
+                      .float().mean()) for n in tokens}
+    log(f"[path] F tokens equal to call 1's, by call: {agree} (call 2 must "
+        f"be 1.0; the prefix routes are readings: random weights flip "
+        f"argmaxes) {'OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("path F: the repeated run_stream_cached call "
+                             "gave other tokens")
+
+    # the prefix route's first-step logits against the full prefill's, on
+    # video 1's cached features and its queries, on the int8_full tree and
+    # on the bf16 one; the full route against itself re-batched (each query
+    # alone) gives the rounding floor of a 32-layer comparison
+    feats, duration = eng.encode_video_cached(paths[0])
+    prompts = [eng.build_prompt(q, mode, duration)
+               for v, q in zip(videos, queries) if v == paths[0]]
+    B = len(prompts)
+    bf16 = InferenceEngine(params, cfg, tok, seed=SEED)
+    routes = {name: route_logits(torch, e, cfg, feats, prompts, question_len)
+              for name, e in (("bf16", bf16), ("int8_full", eng))}
+    checks = []
+    for name, r in routes.items():
+        err = rel_err(torch, r["prefix"], r["full"])
+        floor = rel_err(torch, r["alone"], r["full"])
+        argmax = [float((r[x].argmax(-1) == r["full"].argmax(-1))
+                        .float().mean()) for x in ("prefix", "alone")]
+        bar = ROUTE_FLOOR_RATIO * floor
+        if name == "bf16":
+            bar = min(bar, BOUND_SMALL_W8A8)
+        ok = err <= bar
+        checks.append(ok)
+        log(f"[path] F prefix vs full prefill, {name} tree, video 1's {B} "
+            f"queries: first-step logits rel L2 {err:.3e} (<= {bar:.3e}: "
+            f"{ROUTE_FLOOR_RATIO} x the floor"
+            + (f", at most {BOUND_SMALL_W8A8}" if name == "bf16" else "")
+            + f"); floor, the full route B={B} vs each query alone "
+            f"{floor:.3e}, ratio {err / floor:.3f}; argmax agreement with "
+            f"the full route B={B}: "
+            f"prefix {argmax[0]:.3f}, alone {argmax[1]:.3f} (readings); "
+            f"prefix {r['Sp']} tokens, hint {r['hint']}, full prompt "
+            f"{r['S_full']} {'OK' if ok else 'FAIL'}; {card}")
+    del bf16, routes["bf16"]
+    r = routes["int8_full"]
+    cache, valid, pos, hint = r["cache"], r["valid"], r["pos"], r["hint"]
+    lp, L = eng.params["llm"], cfg.llm
+    with torch.inference_mode():
+        # one cascade decode step, timed, beside its eager attention
+        tok_emb = llm.embed_lookup(lp["embed"], r["prefix"].argmax(-1))[:, None]
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        step_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start.record()
+            _, cache, valid = llm.decode_step_shared(
+                lp, L, tok_emb, cache, valid, pos, rope_hint=hint)
+            end.record()
+            torch.cuda.synchronize()
+            step_ms.append(start.elapsed_time(end))
+            pos = pos + 1
+        H, Hkv, Dh = L.num_heads, L.num_kv_heads, L.head_dim
+        gq = torch.Generator(device="cuda")
+        gq.manual_seed(SEED)
+        q = torch.randn(B, 1, H, Dh, generator=gq, device="cuda",
+                        dtype=torch.bfloat16)
+        kn, vn = (torch.randn(B, 1, Hkv, Dh, generator=gq, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(2))
+        keep_p, keep_t = llm._shared_keep(L, cache.prefix_mask, valid,
+                                          pos[:, None])
+        keep_new = torch.ones(1, 1, dtype=torch.bool, device="cuda")
+        tail = cache.tail
+
+        def attention():
+            for i in range(nl):
+                llm._cascade_attention(
+                    q, kn, vn, keep_new,
+                    (cache.pk[i], cache.pk_scale[i], cache.pv[i],
+                     cache.pv_scale[i]), keep_p,
+                    (tail.k[i], tail.k_scale[i], tail.v[i],
+                     tail.v_scale[i]), keep_t, Dh ** -0.5)
+
+        attn_ms = cuda_ms(torch, attention, 3)
+    step = min(step_ms)
+    log(f"[path] F cascade decode step at B={B} (CUDA events, the lowest of "
+        f"3): {step:.2f} ms, of it the eager cascade attention ({nl} layers,"
+        f" the int8 prefix of {r['Sp']} slots dequantized each layer) "
+        f"{attn_ms:.2f} ms, share {attn_ms / step:.3f}; "
+        f"peak_device_memory={torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; {card}")
+    if not all(checks):
+        raise AssertionError("path F: the prefix route's logits disagree "
+                             "with the full prefill's")
+    del eng, feats, cache, tail, r, routes
+    shutil.rmtree(vdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
 
 
 STATIC_REPS = 1     # rounds of microbench/static_scales in the path
@@ -3604,6 +4053,8 @@ def main() -> int:
     for quantize in (None, "int8", "int8_full"):
         small_reference(torch, cfg, SEED, quantize)
     small_reference_verify(torch, cfg, SEED, S_v)
+    for quantize in (None, "int8_full"):
+        small_reference_prefix(torch, cfg, SEED, quantize)
     small_reference_fused_iv2(torch, cfg, SEED, temporal)
     small_reference_static_iv2(torch, cfg, SEED, temporal)
     small_reference_quant_ab(torch, cfg, SEED)
@@ -3698,6 +4149,11 @@ def main() -> int:
     got = static_path(torch, kernels, params, cfg, tok, gen_int8, batch6,
                       prompts, temporal, spatial, t_a,
                       expect(per_req + nb, 4 * nl, True, 1))
+    launches = {k: launches[k] + got[k] for k in launches}
+
+    # path F: feature-cached and prefix-KV serving (mode A's configuration)
+    got = prefix_path(torch, kernels, zero, params, cfg, tok, temporal,
+                      spatial, per_req, card)
     launches = {k: launches[k] + got[k] for k in launches}
 
     weight_only = InferenceEngine(params, cfg, tok, gen_cfg, seed=SEED,

@@ -24,8 +24,17 @@ Training runs ``forward_hidden`` without a cache: LoRA adapters on the four
 fused projections (``layers/lora``, train/lora.py) with inverted dropout on
 their input, per-layer or grouped activation checkpointing, and the
 sequence-chunked cross entropy ``causal_lm_loss_from_hidden``. Serving and
-training share one ``_layer_full``. Not ported yet: prefix-KV, cascade
-decode (with ``verify_step_shared``) and continuous batching.
+training share one ``_layer_full``.
+
+Prefix-KV serving (serve/generate.build_prefix_kv): ``prefill_continue``
+prefills a question chunk against a per-video bf16 prefix K/V built once
+(its queries attend [prefix ; chunk] in ``_rect_attention``, the prefix
+kept at batch 1), into a bf16 ``KVCache``, a ``QuantKVCache`` or, with
+``tail_len``, a ``SharedPrefixCache``: the prefix quantized once at batch
+1 and a per-row int8 tail. ``decode_step_shared`` and
+``verify_step_shared`` attend over that cascade (``_cascade_attention``,
+plain torch as the JAX package's is plain XLA); the tail is written by K5
+and K9. Not ported yet: continuous batching (``decode_step(active=...)``).
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ from ..ops.attention import decode_attention, mha
 from ..ops.cache_write import scatter_write, scatter_write_multi
 from ..ops.decode_attention_int8 import (decode_attention_int8, quantize_kv,
                                          verify_attention_int8)
+from ..ops.flash_attention import NEG_INF
 from ..ops.int8_matmul import (INT8_GEMM_MIN_ROWS, Int8Embedding, Int8Weight,
                                dynamic_int8_matmul, int8_matmul)
 from ..ops.normalization import rms_norm
@@ -263,7 +273,8 @@ def _write_prompt_kv(cache, i: int, k: torch.Tensor, v: torch.Tensor):
 def forward_hidden(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                    attn_mask: torch.Tensor, cache=None, *, remat: bool = False,
                    remat_group: int = 1, lora_dropout: float = 0.0,
-                   dropout_seed: Optional[int] = None) -> torch.Tensor:
+                   dropout_seed: Optional[int] = None,
+                   rope_hint: Optional[int] = None) -> torch.Tensor:
     """Run all decoder layers → hidden [B, S, D] after the final norm.
 
     With a cache (prefill; the JAX function with collect_kv=True and
@@ -277,13 +288,17 @@ def forward_hidden(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     layers (torch.utils.checkpoint, non-reentrant): the backward recomputes
     each group's forward once, so only the group boundaries stay alive.
     lora_dropout > 0 with a dropout_seed drops the LoRA branch inputs, each
-    layer and projection with its own seed derived from dropout_seed."""
+    layer and projection with its own seed derived from dropout_seed.
+
+    rope_hint overrides the capacity (or S) as the LongRoPE factor choice:
+    build_prefix_kv fills a cache of the prefix's own length but must pick
+    the factors of the continuation's capacity."""
     # left-padded prompts: position = cumsum(mask) - 1, clamped
     positions = (torch.cumsum(attn_mask.long(), dim=-1) - 1).clamp_min(0)
     S = inputs_embeds.shape[1]
-    cos, sin = llm_rope_tables(
-        cfg, positions,
-        seq_len_hint=cache.max_len if cache is not None else S)
+    if rope_hint is None:
+        rope_hint = cache.max_len if cache is not None else S
+    cos, sin = llm_rope_tables(cfg, positions, seq_len_hint=rope_hint)
 
     lay = params["layers"]
     L = lay["input_norm_w"].shape[0]
@@ -445,6 +460,200 @@ def prefill(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     return logits[:, 0], cache._replace(length=length)
 
 
+def _query_rows(q: torch.Tensor, Hkv: int) -> torch.Tensor:
+    """q [B, S, H, Dh] → [B, Hkv, G·S, Dh]: each kv head's G·S query rows
+    (head h = kv head · G + g, the JAX package's grouping)."""
+    B, S, H, Dh = q.shape
+    G = H // Hkv
+    return q.reshape(B, S, Hkv, G, Dh).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, G * S, Dh)
+
+
+def _from_query_rows(o: torch.Tensor, S: int) -> torch.Tensor:
+    """_query_rows' inverse: [B, Hkv, G·S, Dh] → [B, S, H, Dh]."""
+    B, Hkv, GS, Dh = o.shape
+    G = GS // S
+    return o.reshape(B, Hkv, G, S, Dh).permute(0, 3, 1, 2, 4).reshape(
+        B, S, Hkv * G, Dh)
+
+
+def _scores_f32(qh: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """qh [B, Hkv, M, Dh] times k [Bk, Hkv, Sk, Dh] transposed, Bk 1 or B →
+    fp32 [B, Hkv, M, Sk]. A batch-1 k is shared by every row: each kv head
+    runs one product over all B·M query rows, so k is read once and never
+    broadcast B times."""
+    B, Hkv, M, Dh = qh.shape
+    if k.shape[0] == 1 and B > 1:
+        s = matmul_f32(qh.transpose(0, 1).reshape(Hkv, B * M, Dh),
+                       k[0].transpose(1, 2))
+        return s.reshape(Hkv, B, M, -1).transpose(0, 1)
+    return matmul_f32(qh, k.transpose(2, 3))
+
+
+def _pv_f32(p: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """p [B, Hkv, M, Sk] (in v's dtype) times v [Bv, Hkv, Sk, Dh], Bv 1 or B
+    → fp32 [B, Hkv, M, Dh]; a batch-1 v as in _scores_f32."""
+    B, Hkv, M, Sk = p.shape
+    if v.shape[0] == 1 and B > 1:
+        o = matmul_f32(p.transpose(0, 1).reshape(Hkv, B * M, Sk), v[0])
+        return o.reshape(Hkv, B, M, -1).transpose(0, 1)
+    return matmul_f32(p, v)
+
+
+def _rect_attention(q, pk, pv, k_c, v_c, keep, scale: float) -> torch.Tensor:
+    """prefill_continue's attention: the chunk's queries q [B, Sq, H, Dh]
+    over [prefix ; chunk]. pk/pv [Bp, Sp, Hkv, Dh] (Bp 1 or B) stay at
+    their batch; k_c/v_c [B, Sq, Hkv, Dh]; keep [B, Sq, Sp + Sq]. fp32
+    scores and one fp32 softmax over the whole row, as the JAX package's
+    plain XLA version."""
+    B, Sq, H, Dh = q.shape
+    Sp, Hkv = pk.shape[1], pk.shape[2]
+    G = H // Hkv
+    qh = _query_rows(q, Hkv)
+    s = torch.cat([_scores_f32(qh, pk.transpose(1, 2)),
+                   _scores_f32(qh, k_c.transpose(1, 2))], dim=-1) * scale
+    s = torch.where(keep[:, None, None], s.reshape(B, Hkv, G, Sq, Sp + Sq),
+                    NEG_INF)
+    p = torch.softmax(s, dim=-1).reshape(B, Hkv, G * Sq, Sp + Sq)
+    out = (_pv_f32(p[..., :Sp].to(pv.dtype), pv.transpose(1, 2))
+           + _pv_f32(p[..., Sp:].to(v_c.dtype), v_c.transpose(1, 2)))
+    return _from_query_rows(out, Sq).to(q.dtype)
+
+
+def quantize_kv_head_major(kv: torch.Tensor, pad_to: int):
+    """A K or V stack [L, B, S, Hkv, Dh] → the int8 caches' layout: values
+    [L, B, Hkv, pad_to, Dh] int8 and scales [L, B, Hkv, pad_to] fp32, one
+    per (slot, kv head); slots past S hold 0 with scale 1."""
+    L, B, S, Hkv, Dh = kv.shape
+    q8, sc = quantize_kv(kv)
+    vals = torch.zeros(L, B, Hkv, pad_to, Dh, dtype=torch.int8,
+                       device=kv.device)
+    scales = torch.ones(L, B, Hkv, pad_to, dtype=torch.float32,
+                        device=kv.device)
+    vals[:, :, :, :S] = q8.transpose(2, 3)
+    scales[..., :S] = sc.transpose(2, 3)
+    return vals, scales
+
+
+class SharedPrefixCache(NamedTuple):
+    """The cascade decode cache of prefix-KV serving: the per-video prefix
+    stored once at batch 1 (int8, quantized once), and a per-row int8 tail
+    (question chunk, then generated tokens). A decode step streams the
+    prefix once for the whole batch."""
+    pk: torch.Tensor           # [L, 1, Hkv, Sp, Dh] int8
+    pk_scale: torch.Tensor     # [L, 1, Hkv, Sp] fp32
+    pv: torch.Tensor
+    pv_scale: torch.Tensor
+    prefix_mask: torch.Tensor  # [1, Sp] valid prefix slots
+    tail: QuantKVCache         # [L, B, Hkv, Mt, Dh]
+
+
+def prefill_continue(params, cfg: LLMConfig, chunk_embeds: torch.Tensor,
+                     chunk_mask: torch.Tensor, prefix_k: torch.Tensor,
+                     prefix_v: torch.Tensor, prefix_mask: torch.Tensor,
+                     max_len: int, quantize_cache: bool = True,
+                     tail_len: Optional[int] = None):
+    """Prefill a left-padded question chunk [B, Sq, D] (chunk_mask [B, Sq])
+    against a bf16 prefix K/V [L, Bp, Sp, Hkv, Dh] (Bp 1 or B, prefix_mask
+    [Bp, Sp]) from serve/generate.build_prefix_kv → (last-position logits
+    [B, V] fp32, cache, valid mask, next positions [B]).
+
+    The chunk attends the prefix in bf16, as a full prefill does; the cache
+    quantizes the same bf16 prefix values a full prefill would. max_len is
+    the LongRoPE hint and the capacity of the cache returned: a bf16
+    KVCache, a QuantKVCache (quantize_cache; the prefix quantized once and
+    broadcast to B), valid mask [B, max_len]; or, with tail_len, a
+    SharedPrefixCache whose tail holds the chunk at slots [0, Sq) of
+    tail_len, valid mask [B, tail_len] over the tail (requires
+    quantize_cache and Bp = 1)."""
+    B, Sq, _ = chunk_embeds.shape
+    L, Bp, Sp, Hkv, Dh = prefix_k.shape
+    dev = chunk_embeds.device
+    if tail_len is not None and (not quantize_cache or Bp != 1):
+        raise NotImplementedError("shared-prefix caches require "
+                                  "quantize_cache=True and a batch-1 prefix")
+    if tail_len is None and max_len < Sp + Sq:
+        raise ValueError(f"max_len {max_len} cannot hold the prefix ({Sp}) "
+                         f"and the chunk ({Sq})")
+    pm = prefix_mask.bool().expand(B, Sp)
+    cmask = chunk_mask.bool()
+    plen = pm.sum(dim=-1)
+    positions = plen[:, None] + (torch.cumsum(chunk_mask.long(), dim=-1)
+                                 - 1).clamp_min(0)                  # [B, Sq]
+    cos, sin = llm_rope_tables(cfg, positions, seq_len_hint=max_len)
+    # keep [B, Sq, Sp + Sq]: prefix slots by their validity, chunk slots
+    # causal and valid; a window compares token positions, not slots
+    causal = torch.ones(Sq, Sq, dtype=torch.bool, device=dev).tril()
+    keep = torch.cat([pm[:, None, :].expand(B, Sq, Sp),
+                      causal[None] & cmask[:, None, :]], dim=-1)
+    if cfg.sliding_window is not None:
+        kpos = torch.cat([torch.cumsum(pm.long(), dim=-1) - 1, positions],
+                         dim=-1)
+        keep = keep & (positions[:, :, None] - kpos[:, None, :]
+                       < cfg.sliding_window)
+
+    lay = params["layers"]
+    x = chunk_embeds
+    new_ks, new_vs = [], []
+    for i in range(L):
+        lp = layer_slice(lay, i)
+        h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg)
+        q, k = apply_rope(q, k, cos, sin)
+        attn = _rect_attention(q, prefix_k[i].to(k.dtype),
+                               prefix_v[i].to(v.dtype), k, v, keep,
+                               cfg.head_dim ** -0.5)
+        x = x + _dense(attn.reshape(B, Sq, cfg.q_dim), lp["o_kernel"], lp,
+                       "o")
+        h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
+        x = x + _mlp(h, lp, cfg)
+        new_ks.append(k)
+        new_vs.append(v)
+    new_ks, new_vs = torch.stack(new_ks), torch.stack(new_vs)
+    x = rms_norm(x[:, -1:], params["final_norm_w"], cfg.rms_eps)
+    logits = logits_from_hidden(params, x)[:, 0]
+    pos_next = (plen + chunk_mask.sum(dim=-1)).to(torch.int32)
+
+    if tail_len is not None:
+        pk, pks = quantize_kv_head_major(prefix_k, Sp)
+        pv, pvs = quantize_kv_head_major(prefix_v, Sp)
+        tk, tks = quantize_kv_head_major(new_ks, tail_len)
+        tv, tvs = quantize_kv_head_major(new_vs, tail_len)
+        tail = QuantKVCache(tk, tks, tv, tvs,
+                            torch.full((B,), Sq, dtype=torch.int32,
+                                       device=dev))
+        tail_valid = torch.zeros(B, tail_len, dtype=torch.bool, device=dev)
+        tail_valid[:, :Sq] = cmask
+        return (logits, SharedPrefixCache(pk, pks, pv, pvs,
+                                          prefix_mask.to(torch.int32), tail),
+                tail_valid, pos_next)
+
+    valid = torch.zeros(B, max_len, dtype=torch.bool, device=dev)
+    valid[:, :Sp] = pm
+    valid[:, Sp:Sp + Sq] = cmask
+    length = torch.full((B,), Sp + Sq, dtype=torch.int32, device=dev)
+    if quantize_cache:
+        cache = QuantKVCache.create(cfg, B, max_len, device=dev)
+        for vals, scales, pref, chunk in (
+                (cache.k, cache.k_scale, prefix_k, new_ks),
+                (cache.v, cache.v_scale, prefix_v, new_vs)):
+            # the prefix quantized once at Bp, then broadcast into B rows
+            pq, ps = quantize_kv_head_major(pref, Sp)
+            cq, cs = quantize_kv_head_major(chunk, Sq)
+            vals[:, :, :, :Sp] = pq
+            scales[..., :Sp] = ps
+            vals[:, :, :, Sp:Sp + Sq] = cq
+            scales[..., Sp:Sp + Sq] = cs
+        return logits, cache._replace(length=length), valid, pos_next
+    cache = KVCache.create(cfg, B, max_len, dtype=chunk_embeds.dtype,
+                           device=dev)
+    for buf, pref, chunk in ((cache.k, prefix_k, new_ks),
+                             (cache.v, prefix_v, new_vs)):
+        buf[:, :, :Sp] = pref
+        buf[:, :, Sp:Sp + Sq] = chunk
+    return logits, cache._replace(length=length), valid, pos_next
+
+
 def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
                 cache, valid_mask: torch.Tensor, positions: torch.Tensor,
                 active: Optional[torch.Tensor] = None):
@@ -590,3 +799,154 @@ def commit_verify(cache, valid_mask: torch.Tensor, n_accept: torch.Tensor,
     newly = (slots >= base[:, None]) & (slots < (base + n_accept)[:, None])
     return (cache._replace(length=cache.length + n_accept.to(torch.int32)),
             valid_mask.bool() | newly)
+
+
+def _dequant(q8: torch.Tensor, scale: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    """int8 [..., S, Dh] times fp32 scales [..., S] → dtype, the JAX
+    package's _dequant_hd in the port's layout. XLA fuses it into the
+    product that reads it; eager torch writes the dequantized copy."""
+    return (q8 * scale[..., None]).to(dtype)
+
+
+def _cascade_attention(q, k_new, v_new, keep_new, prefix, keep_p, tail,
+                       keep_t, scale: float) -> torch.Tensor:
+    """S queries q [B, S, H, Dh] over [shared prefix ; per-row tail ; the S
+    in-pass tokens' own k/v (k_new, v_new [B, S, Hkv, Dh])], one fp32
+    softmax across the three segments: decode_step_shared (S = 1) and
+    verify_step_shared (S candidates, causal among themselves). prefix
+    (k8, k_scale, v8, v_scale) [1, Hkv, Sp, Dh] / [1, Hkv, Sp], read once
+    for the whole batch; tail the same at batch B over Mt slots; keep_p
+    [B or 1, S or 1, Sp], keep_t [B, S or 1, Mt], keep_new [S, S]."""
+    B, S, H, Dh = q.shape
+    dt = q.dtype
+    pk, pks, pv, pvs = prefix
+    tk, tks, tv, tvs = tail
+    Hkv, Sp, Mt = tk.shape[1], pk.shape[2], tk.shape[2]
+    G = H // Hkv
+    qh = _query_rows(q, Hkv)
+    s = torch.cat([_scores_f32(qh, _dequant(pk, pks, dt)),
+                   _scores_f32(qh, _dequant(tk, tks, dt)),
+                   _scores_f32(qh, k_new.transpose(1, 2))], dim=-1) * scale
+    keep = torch.cat([keep_p.expand(B, S, Sp), keep_t.expand(B, S, Mt),
+                      keep_new.expand(B, S, S)], dim=-1)
+    s = torch.where(keep[:, None, None], s.reshape(B, Hkv, G, S, -1), NEG_INF)
+    p = torch.softmax(s, dim=-1).reshape(B, Hkv, G * S, -1).to(dt)
+    out = (_pv_f32(p[..., :Sp], _dequant(pv, pvs, dt))
+           + _pv_f32(p[..., Sp:Sp + Mt], _dequant(tv, tvs, dt))
+           + _pv_f32(p[..., Sp + Mt:], v_new.transpose(1, 2)))
+    return _from_query_rows(out, S).to(dt)
+
+
+def _shared_keep(cfg: LLMConfig, prefix_mask: torch.Tensor,
+                 tail_valid: torch.Tensor, positions: torch.Tensor):
+    """Attendable prefix and tail slots for queries at positions [B, S] →
+    keep_p [1 or B, 1 or S, Sp], keep_t [B, 1 or S, Mt]. A sliding window
+    compares token positions: a prefix slot's is its valid rank, a tail
+    slot's the prefix length plus its valid rank."""
+    pm = prefix_mask.bool()                                  # [1, Sp]
+    tv = tail_valid.bool()                                   # [B, Mt]
+    keep_p, keep_t = pm[:, None, :], tv[:, None, :]
+    if cfg.sliding_window is not None:
+        pkpos = torch.cumsum(pm.long(), dim=-1) - 1
+        tkpos = pm.sum(dim=-1)[:, None] + torch.cumsum(tv.long(), dim=-1) - 1
+        keep_p = keep_p & (positions[:, :, None] - pkpos[:, None, :]
+                           < cfg.sliding_window)
+        keep_t = keep_t & (positions[:, :, None] - tkpos[:, None, :]
+                           < cfg.sliding_window)
+    return keep_p, keep_t
+
+
+def _shared_layers(params, cfg: LLMConfig, x: torch.Tensor,
+                   cache: SharedPrefixCache, keep_p, keep_t, keep_new, cos,
+                   sin):
+    """The decoder layers of a cascade step on x [B, S, D] → (hidden after
+    the final norm, the S tokens' k and v [L, B, S, Hkv, Dh]). Projections
+    of an int8 tree run K3, w8a8 under the marker."""
+    B, S, _ = x.shape
+    lay, tail = params["layers"], cache.tail
+    new_ks, new_vs = [], []
+    for i in range(lay["input_norm_w"].shape[0]):
+        lp = layer_slice(lay, i)
+        h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
+        q, k, v = _qkv(h, lp, cfg, w8a8_decode=True)
+        q, k = apply_rope(q, k, cos, sin)
+        attn = _cascade_attention(
+            q, k, v, keep_new,
+            (cache.pk[i], cache.pk_scale[i], cache.pv[i], cache.pv_scale[i]),
+            keep_p, (tail.k[i], tail.k_scale[i], tail.v[i], tail.v_scale[i]),
+            keep_t, cfg.head_dim ** -0.5)
+        x = x + _dense(attn.reshape(B, S, cfg.q_dim), lp["o_kernel"], lp,
+                       "o", w8a8_decode=True)
+        h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
+        x = x + _mlp(h, lp, cfg, w8a8_decode=True)
+        new_ks.append(k)
+        new_vs.append(v)
+    return (rms_norm(x, params["final_norm_w"], cfg.rms_eps),
+            torch.stack(new_ks), torch.stack(new_vs))
+
+
+def decode_step_shared(params, cfg: LLMConfig, token_embeds: torch.Tensor,
+                       cache: SharedPrefixCache, tail_valid: torch.Tensor,
+                       positions: torch.Tensor,
+                       rope_hint: Optional[int] = None,
+                       active: Optional[torch.Tensor] = None):
+    """decode_step over a SharedPrefixCache → (logits [B, V] fp32, cache,
+    tail_valid with the new slot set). The new token's k/v go to the tail
+    at each row's own slot, one K5 launch for values and scales; the prefix
+    is read once per layer for the whole batch. token_embeds [B, 1, D];
+    tail_valid [B, Mt]; positions [B]; rope_hint: the LongRoPE hint of the
+    equivalent single cache (default Sp + Mt). The tail's buffers are
+    updated in place."""
+    if active is not None:
+        raise NotImplementedError("decode_step_shared(active=...) "
+                                  "(continuous batching) is not ported yet")
+    tail = cache.tail
+    Sp, Mt = cache.pk.shape[3], tail.max_len
+    cos, sin = llm_rope_tables(
+        cfg, positions[:, None],
+        seq_len_hint=rope_hint if rope_hint is not None else Sp + Mt)
+    write_idx = tail.length.clamp_max(Mt - 1)
+    keep_p, keep_t = _shared_keep(cfg, cache.prefix_mask, tail_valid,
+                                  positions[:, None])
+    keep_new = torch.ones(1, 1, dtype=torch.bool, device=positions.device)
+    x, ks, vs = _shared_layers(params, cfg, token_embeds, cache, keep_p,
+                               keep_t, keep_new, cos, sin)
+    kq, ksc = quantize_kv(ks[:, :, 0])                   # [L, B, Hkv, Dh]
+    vq, vsc = quantize_kv(vs[:, :, 0])
+    scatter_write([tail.k, tail.k_scale, tail.v, tail.v_scale],
+                  [kq, ksc, vq, vsc], write_idx)
+    slot = (torch.arange(Mt, device=tail_valid.device)[None, :]
+            == write_idx[:, None])
+    logits = logits_from_hidden(params, x)[:, 0]
+    return (logits, cache._replace(tail=tail._replace(length=tail.length + 1)),
+            tail_valid.bool() | slot)
+
+
+def verify_step_shared(params, cfg: LLMConfig, token_embeds: torch.Tensor,
+                       cache: SharedPrefixCache, tail_valid: torch.Tensor,
+                       positions: torch.Tensor,
+                       rope_hint: Optional[int] = None):
+    """verify_step over a SharedPrefixCache → (logits [B, S, V] fp32,
+    cache): S candidates score over the cascade with a causal S×S block;
+    their k/v go to tail slots base..base+S-1, base = min(tail length,
+    Mt - S), one K9 launch; the tail's length and tail_valid do not move
+    (commit_verify on the tail does that). positions [B, S]."""
+    B, S = token_embeds.shape[:2]
+    tail = cache.tail
+    Sp, Mt = cache.pk.shape[3], tail.max_len
+    cos, sin = llm_rope_tables(
+        cfg, positions,
+        seq_len_hint=rope_hint if rope_hint is not None else Sp + Mt)
+    base = tail.length.clamp_max(Mt - S)
+    keep_p, keep_t = _shared_keep(cfg, cache.prefix_mask, tail_valid,
+                                  positions)
+    causal = torch.ones(S, S, dtype=torch.bool,
+                        device=positions.device).tril()
+    x, ks, vs = _shared_layers(params, cfg, token_embeds, cache, keep_p,
+                               keep_t, causal, cos, sin)
+    kq, ksc = quantize_kv(ks)                            # [L, B, S, Hkv, Dh]
+    vq, vsc = quantize_kv(vs)
+    scatter_write_multi([tail.k, tail.k_scale, tail.v, tail.v_scale],
+                        [kq, ksc, vq, vsc], base)
+    return logits_from_hidden(params, x), cache

@@ -31,14 +31,34 @@ length in tokens and the number of tokens generated, with
 on the request that calibrated static scales ``calibrate``;
 ``last_tokens`` holds the request's token ids and lengths (host tensors).
 
-Not ported yet: beam search, the feature and prefix caches and batched
-streaming.
+Batched serving: ``run_batch`` and ``run_stream`` (host decode and resize
+of the next batch on threads while the device works); the feature cache
+(``feature_cache_size`` videos, an LRU of host features keyed on path,
+mtime and size): ``encode_video_cached``, ``generate_from_features``,
+``run_stream_cached`` (each unique video encoded once, queries batched
+over its features); and ``run_stream_prefix``, which also prefills each
+video's shared [pre-image text | video tokens] head once
+(serve/generate.build_prefix_kv) and runs each batch of its queries as a
+question-chunk prefill and decode, through the cascade cache
+(llm.decode_step_shared) with ``quantize_cache`` and through
+speculative.generate_tokens_spec_from_prefix with ``spec_draft_len``. These
+calls sum their phases over the call in ``last_timings`` (encode with
+``encodes``, prefix with ``prefixes``, prefill, decode with
+``decode_steps`` or ``verify_passes``, and preprocess: host decode time
+not hidden under device work) and hold every row's tokens, in input
+order, in ``last_tokens``.
+
+Not ported yet: beam search, continuous batching
+(``make_continuous_request`` and its prefix-KV LRU ``prefix_kv_cached``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
+from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Optional
 
 import numpy as np
@@ -46,19 +66,24 @@ import torch
 
 from ..core.config import GenerateConfig, VLMConfig
 from ..ops.int8_matmul import Int8Embedding
+from ..models import vlm
 from ..ops.preprocess import dual_stream_resize_host
 from ..text import codec
 from ..text.templates import (DEFAULT_IMAGE_TOKEN, GROUNDING_TOKEN,
-                              get_template)
+                              IMAGE_TOKEN_INDEX, get_template)
 from ..text.tokenizer import pad_batch_generate, tokenize_with_image
 from ..train.lora import merge_lora
 from ..video.reader import read_frames
-from .generate import decode_texts, generate_tokens
+from .calibrate import calibrate_and_apply
+from .generate import (_ceil128, _PhaseClock, build_prefix_kv, decode_texts,
+                       generate_tokens, generate_tokens_from_features,
+                       generate_tokens_from_prefix)
 from .quantize import (is_quantized, quantize_clip_for_serving,
                        quantize_llm_for_serving,
                        quantize_video_encoder_for_serving)
-from .calibrate import calibrate_and_apply
-from .speculative import generate_tokens_spec
+from .speculative import (generate_tokens_spec,
+                          generate_tokens_spec_from_features,
+                          generate_tokens_spec_from_prefix)
 
 
 @dataclasses.dataclass
@@ -73,7 +98,7 @@ class InferenceEngine:
     def __init__(self, params, cfg: VLMConfig, tokenizer,
                  gen_cfg: Optional[GenerateConfig] = None, seed: int = 42,
                  device=None, quantize: Optional[str] = None,
-                 static_scales: bool = False):
+                 static_scales: bool = False, feature_cache_size: int = 8):
         if quantize not in (None, "int8", "int8_full"):
             raise ValueError(f"quantize={quantize!r}: expected None, 'int8' "
                              "or 'int8_full'")
@@ -109,6 +134,10 @@ class InferenceEngine:
         self.generator.manual_seed(seed)
         self.last_timings: dict = {}
         self.last_tokens = None
+        # host-feature LRU (encode_video_cached): (path, mtime, size) →
+        # (features [NV, H] on the host, duration); 0 disables it
+        self.feature_cache_size = feature_cache_size
+        self._feature_cache: OrderedDict = OrderedDict()
 
     # -- input construction -------------------------------------------------
 
@@ -168,25 +197,16 @@ class InferenceEngine:
             temporal = np.broadcast_to(temporal[None], (B, *temporal.shape))
         if spatial.ndim == 4:
             spatial = np.broadcast_to(spatial[None], (B, *spatial.shape))
-        seqs = [self.tokenize_prompt(p) for p in prompts]
-        input_ids, attn_mask = pad_batch_generate(
-            seqs, self.tokenizer.pad_token_id, self.cfg.max_txt_len)
-
-        def dev(a):  # np.array copies: broadcast views are read-only
-            return torch.from_numpy(np.array(a)).to(self.device)
-
+        input_ids, attn_mask = self._batch_ids(prompts)
         self.last_timings = timings = {}
         if self._static_scales_pending:
             t0 = time.perf_counter()
             self._maybe_calibrate(temporal)    # ends on a device→host copy
             timings["calibrate"] = time.perf_counter() - t0
-        args = (self.params, self.cfg, dev(input_ids).long(),
-                dev(attn_mask).long(), dev(spatial), dev(temporal),
-                self.generator)
-        kw = dict(max_new_tokens=g.max_new_tokens, temperature=g.temperature,
-                  top_p=g.top_p, do_sample=g.do_sample,
-                  eos_token_id=self.tokenizer.eos_token_id,
-                  pad_token_id=self.tokenizer.pad_token_id, timings=timings)
+        args = (self.params, self.cfg, self._dev(input_ids).long(),
+                self._dev(attn_mask).long(), self._dev(spatial),
+                self._dev(temporal), self.generator)
+        kw = self._gen_kwargs(g, timings)
         if g.spec_draft_len > 0:
             # greedy emits the model's own argmax whatever the drafts;
             # sampling uses the delta-draft rejection rule
@@ -195,11 +215,394 @@ class InferenceEngine:
         else:
             tokens, lengths = generate_tokens(
                 *args, quantize_cache=g.quantize_cache, **kw)
-        timings["new_tokens"] = int(lengths.max())
+        self._note_tokens(timings, tokens, lengths, input_ids.shape[1])
         self.last_tokens = (tokens.cpu(), lengths.cpu())
-        timings["prompt_len"] = int(input_ids.shape[1])
+        return self._texts(tokens, lengths)
+
+    # -- helpers shared by the generation routes ----------------------------
+
+    def _dev(self, a) -> torch.Tensor:
+        """A host array or tensor on the engine's device (np.array copies:
+        broadcast views are read-only)."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device)
+        return torch.from_numpy(np.array(a)).to(self.device)
+
+    def _batch_ids(self, prompts: List[str]):
+        seqs = [self.tokenize_prompt(p) for p in prompts]
+        return pad_batch_generate(seqs, self.tokenizer.pad_token_id,
+                                  self.cfg.max_txt_len)
+
+    def _gen_kwargs(self, g: GenerateConfig, timings: dict) -> dict:
+        return dict(max_new_tokens=g.max_new_tokens,
+                    temperature=g.temperature, top_p=g.top_p,
+                    do_sample=g.do_sample,
+                    eos_token_id=self.tokenizer.eos_token_id,
+                    pad_token_id=self.tokenizer.pad_token_id,
+                    timings=timings)
+
+    @staticmethod
+    def _note_tokens(timings: dict, tokens, lengths, prompt_len: int):
+        """The longest prompt and generation of a call, over its batches."""
+        timings["new_tokens"] = max(timings.get("new_tokens", 0),
+                                    int(lengths.max()))
+        timings["prompt_len"] = max(timings.get("prompt_len", 0),
+                                    int(prompt_len))
+
+    def _texts(self, tokens, lengths) -> List[str]:
         return decode_texts(self.tokenizer, tokens, lengths,
                             self.tokenizer.eos_token_id)
+
+    # -- batched serving ----------------------------------------------------
+
+    def generate_prepped(self, prepped, prompts: List[str], mode: str = "qa",
+                         gen_cfg: Optional[GenerateConfig] = None,
+                         pad_to: Optional[int] = None
+                         ) -> List[InferenceResult]:
+        """One batch from preprocessed videos: prepped is a list of
+        (temporal, spatial, duration) from preprocess_video. pad_to pads
+        the batch to that size by repeating the last video and prompt (one
+        batch shape for a stream); padded rows are dropped."""
+        n = len(prepped)
+        if n == 0 or n != len(prompts):
+            raise ValueError(f"generate_prepped takes one prompt per video, "
+                             f"got {n} videos and {len(prompts)} prompts")
+        if pad_to is not None and pad_to > n:
+            prepped = list(prepped) + [prepped[-1]] * (pad_to - n)
+            prompts = list(prompts) + [prompts[-1]] * (pad_to - n)
+        durations = [p[2] for p in prepped]
+        texts = self.generate(
+            [self.build_prompt(p, mode, d) for p, d in zip(prompts, durations)],
+            np.stack([p[0] for p in prepped]),
+            np.stack([p[1] for p in prepped]), gen_cfg)
+        tokens, lengths = self.last_tokens
+        self.last_tokens = (tokens[:n], lengths[:n])
+        return [self._result(t, d) for t, d in zip(texts[:n], durations[:n])]
+
+    def run_batch(self, video_paths: List[str], prompts: List[str],
+                  mode: str = "qa", gen_cfg: Optional[GenerateConfig] = None,
+                  decode_workers: int = 4) -> List[InferenceResult]:
+        """The videos decoded and resized on host threads, then one batched
+        request."""
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(max_workers=decode_workers) as pool:
+            prep = list(pool.map(self.preprocess_video, video_paths))
+        preprocess_s = time.perf_counter() - t0
+        out = self.generate_prepped(prep, prompts, mode, gen_cfg)
+        self.last_timings["preprocess"] = preprocess_s
+        return out
+
+    def run_stream(self, video_paths: List[str], prompts: List[str],
+                   mode: str = "qa", batch_size: int = 6,
+                   gen_cfg: Optional[GenerateConfig] = None,
+                   decode_workers: int = 4,
+                   pad_last: bool = True) -> List[InferenceResult]:
+        """Requests in batches of batch_size, in order: the host decode and
+        resize of batch i + 1 run on threads while the device works on
+        batch i. The last partial batch pads to batch_size by repeating its
+        last row (pad_last)."""
+        _check_pairs(video_paths, prompts)
+        chunks = [(video_paths[i:i + batch_size], prompts[i:i + batch_size])
+                  for i in range(0, len(video_paths), batch_size)]
+        results: List[InferenceResult] = []
+        timings: dict = {}
+        rows = []
+        with ThreadPoolExecutor(max_workers=decode_workers) as pool:
+            def submit(vids):
+                return [pool.submit(self.preprocess_video, v) for v in vids]
+
+            pending = submit(chunks[0][0]) if chunks else []
+            for ci, (vids, prmpts) in enumerate(chunks):
+                prep = [_wait(f, timings) for f in pending]
+                if ci + 1 < len(chunks):
+                    pending = submit(chunks[ci + 1][0])  # under the device
+                pad_to = (batch_size if pad_last and len(prep) < batch_size
+                          else None)
+                results.extend(self.generate_prepped(prep, prmpts, mode,
+                                                     gen_cfg, pad_to=pad_to))
+                _merge_timings(timings, self.last_timings)
+                rows.extend(zip(*self.last_tokens))
+        self._finish(timings, rows)
+        return results
+
+    # -- feature cache: each unique video encoded once ----------------------
+
+    @staticmethod
+    def _video_key(path: str):
+        st = os.stat(path)
+        return (path, st.st_mtime_ns, st.st_size)
+
+    def _is_cached(self, path: str) -> bool:
+        try:
+            return self._video_key(path) in self._feature_cache
+        except OSError:
+            return False
+
+    def encode_features(self, temporal: np.ndarray,
+                        spatial: np.ndarray) -> torch.Tensor:
+        """One video's encode on the device (a pending static-scale
+        calibration first) → its features [NV, H] on the host."""
+        self._maybe_calibrate(temporal)
+        with torch.inference_mode():
+            feats = vlm.encode_video(self.params, self.cfg,
+                                     self._dev(spatial[None]),
+                                     self._dev(temporal[None]))
+        return feats[0].cpu()
+
+    def encode_video_cached(self, video_path: str, prepped=None,
+                            timings: Optional[dict] = None):
+        """(features [NV, H] on the host, duration) of a video through the
+        LRU, keyed on path, mtime and size (an overwritten file encodes
+        anew). prepped: (temporal, spatial, duration) already decoded, for
+        callers that prefetched the host decode. timings gets encode and
+        encodes, and preprocess for a decode done here."""
+        key = self._video_key(video_path)
+        hit = self._feature_cache.get(key)
+        if hit is not None:
+            self._feature_cache.move_to_end(key)
+            return hit
+        if prepped is None:
+            t0 = time.perf_counter()
+            prepped = self.preprocess_video(video_path)
+            _add(timings, "preprocess", time.perf_counter() - t0)
+        temporal, spatial, duration = prepped
+        t0 = time.perf_counter()
+        # ends on the device→host copy of the features
+        entry = (self.encode_features(temporal, spatial), duration)
+        _add(timings, "encode", time.perf_counter() - t0)
+        _add(timings, "encodes", 1)
+        if self.feature_cache_size > 0:
+            self._feature_cache[key] = entry
+            while len(self._feature_cache) > self.feature_cache_size:
+                self._feature_cache.popitem(last=False)
+        return entry
+
+    def _from_features(self, prompts: List[str], features,
+                       g: GenerateConfig, timings: dict):
+        """One batch from video features [B, NV, H] (or [NV, H] for every
+        prompt), moved to the device once → (tokens, lengths)."""
+        if g.num_beams > 1:
+            raise NotImplementedError(
+                "feature-cached generation does not support beam search; "
+                "use generate()")
+        feats = torch.as_tensor(features)
+        if feats.dim() == 2:
+            feats = feats[None].expand(len(prompts), *feats.shape)
+        input_ids, attn_mask = self._batch_ids(prompts)
+        args = (self.params, self.cfg, self._dev(input_ids).long(),
+                self._dev(attn_mask).long(), feats.to(self.device),
+                self.generator)
+        kw = self._gen_kwargs(g, timings)
+        if g.spec_draft_len > 0:
+            tokens, lengths = generate_tokens_spec_from_features(
+                *args, draft_len=g.spec_draft_len, **kw)
+        else:
+            tokens, lengths = generate_tokens_from_features(
+                *args, quantize_cache=g.quantize_cache, **kw)
+        self._note_tokens(timings, tokens, lengths, input_ids.shape[1])
+        return tokens, lengths
+
+    def generate_from_features(self, prompts: List[str], features,
+                               gen_cfg: Optional[GenerateConfig] = None
+                               ) -> List[str]:
+        """generate() from video features [B, NV, H] (or [NV, H] for every
+        prompt) from encode_features or encode_video_cached; lockstep or
+        speculative."""
+        self.last_timings = timings = {}
+        tokens, lengths = self._from_features(prompts, features,
+                                              gen_cfg or self.gen_cfg,
+                                              timings)
+        self.last_tokens = (tokens.cpu(), lengths.cpu())
+        return self._texts(tokens, lengths)
+
+    def _collect(self, idxs, tokens, lengths, durations, results, rows):
+        """A batch's first len(idxs) rows into results and rows at their
+        input positions."""
+        k = len(idxs)
+        texts = self._texts(tokens[:k], lengths[:k])
+        tokens, lengths = tokens.cpu(), lengths.cpu()
+        for j, (i, text, d) in enumerate(zip(idxs, texts, durations)):
+            results[i] = self._result(text, d)
+            rows[i] = (tokens[j], lengths[j])
+
+    def _finish(self, timings: dict, rows) -> None:
+        self.last_timings = timings
+        if rows:
+            self.last_tokens = (torch.stack([r[0] for r in rows]),
+                                torch.stack([r[1] for r in rows]))
+
+    def run_stream_cached(self, video_paths: List[str], prompts: List[str],
+                          mode: str = "qa", batch_size: int = 6,
+                          gen_cfg: Optional[GenerateConfig] = None,
+                          decode_workers: int = 4,
+                          sort_by_video: bool = True,
+                          pad_last: bool = True) -> List[InferenceResult]:
+        """Feature-cached streaming: each unique video is encoded once and
+        the queries batch over the cached features. Queries are stably
+        sorted by video path (sort_by_video), so one video's queries share
+        batches; results come back in input order. The host decode of the
+        next batch's uncached videos runs on threads under the current
+        batch's device work. The last partial batch pads to batch_size by
+        repeating its last row (pad_last)."""
+        g = gen_cfg or self.gen_cfg
+        n = _check_pairs(video_paths, prompts)
+        order = (sorted(range(n), key=lambda i: video_paths[i])
+                 if sort_by_video else list(range(n)))
+        chunks = [order[i:i + batch_size] for i in range(0, n, batch_size)]
+        results: List[Optional[InferenceResult]] = [None] * n
+        rows: list = [None] * n
+        timings: dict = {}
+        with ThreadPoolExecutor(max_workers=decode_workers) as pool:
+            def prefetch(chunk) -> dict:
+                futs = {}
+                for i in chunk:
+                    p = video_paths[i]
+                    if p not in futs and not self._is_cached(p):
+                        futs[p] = pool.submit(self.preprocess_video, p)
+                return futs
+
+            pending = prefetch(chunks[0]) if chunks else {}
+            for ci, chunk in enumerate(chunks):
+                prep = pending
+                if ci + 1 < len(chunks):
+                    pending = prefetch(chunks[ci + 1])   # under the device
+                feats, durations = [], []
+                for i in chunk:
+                    fut = prep.pop(video_paths[i], None)
+                    f, d = self.encode_video_cached(
+                        video_paths[i],
+                        prepped=None if fut is None else _wait(fut, timings),
+                        timings=timings)
+                    feats.append(f)
+                    durations.append(d)
+                text_prompts = [self.build_prompt(prompts[i], mode, d)
+                                for i, d in zip(chunk, durations)]
+                fb = torch.stack(feats)
+                k = len(chunk)
+                if pad_last and k < batch_size:
+                    fb = torch.cat([fb, fb[-1:].expand(batch_size - k,
+                                                       *fb.shape[1:])])
+                    text_prompts += [text_prompts[-1]] * (batch_size - k)
+                tokens, lengths = self._from_features(text_prompts, fb, g,
+                                                      timings)
+                self._collect(chunk, tokens, lengths, durations, results,
+                              rows)
+        self._finish(timings, rows)
+        return results
+
+    # -- prefix-KV serving ----------------------------------------------------
+
+    def _pad_bucket_batch(self, seqs, prompt_len: int):
+        """Left-pad token lists to exactly prompt_len → ids, mask [k,
+        prompt_len] (pad_batch_generate pads to the longest); longer lists
+        keep their tail."""
+        input_ids, attn_mask = pad_batch_generate(
+            seqs, self.tokenizer.pad_token_id, prompt_len)
+        short = prompt_len - input_ids.shape[1]
+        if short > 0:
+            k = input_ids.shape[0]
+            input_ids = np.concatenate(
+                [np.full((k, short), self.tokenizer.pad_token_id, np.int32),
+                 input_ids], axis=1)
+            attn_mask = np.concatenate(
+                [np.zeros((k, short), np.int32), attn_mask], axis=1)
+        return input_ids, attn_mask
+
+    def run_stream_prefix(self, video_paths: List[str], prompts: List[str],
+                          mode: str = "qa", batch_size: int = 6,
+                          gen_cfg: Optional[GenerateConfig] = None,
+                          question_len: int = 64,
+                          decode_workers: int = 4) -> List[InferenceResult]:
+        """Prefix-KV streaming: per unique video, the encode (feature cache)
+        and the prefill of the shared [pre-image text | video tokens] head
+        run once (build_prefix_kv); its queries then run in batches of
+        batch_size (the last padded by repeating) as a question-chunk
+        prefill, the chunk left-padded to question_len (a longer one keeps
+        its tail), and a decode: the cascade (decode_step_shared) with
+        quantize_cache, generate_tokens_spec_from_prefix with
+        spec_draft_len. Where the pre-image text differs within a video's
+        queries, they run through generate_from_features instead. The bf16
+        prefix lives on the device only for its video's batches. One
+        LongRoPE hint, draft margin included, builds the prefix and runs the
+        continuation. Results come back in input order."""
+        g = gen_cfg or self.gen_cfg
+        if g.num_beams > 1:
+            raise NotImplementedError(
+                "prefix-cached streaming does not support beam search")
+        n = _check_pairs(video_paths, prompts)
+        groups: "OrderedDict[str, List[int]]" = OrderedDict()
+        for i, p in enumerate(video_paths):
+            groups.setdefault(p, []).append(i)
+        order = list(groups)
+        results: List[Optional[InferenceResult]] = [None] * n
+        rows: list = [None] * n
+        timings: dict = {}
+        margin = g.spec_draft_len + 1 if g.spec_draft_len > 0 else 0
+        with ThreadPoolExecutor(max_workers=decode_workers) as pool:
+            def prefetch(path):
+                return (None if self._is_cached(path)
+                        else pool.submit(self.preprocess_video, path))
+
+            futs = {order[0]: prefetch(order[0])} if order else {}
+            for gi, path in enumerate(order):
+                if gi + 1 < len(order):
+                    futs[order[gi + 1]] = prefetch(order[gi + 1])
+                fut = futs.pop(path, None)
+                features, duration = self.encode_video_cached(
+                    path, prepped=None if fut is None else _wait(fut, timings),
+                    timings=timings)
+                idxs = groups[path]
+                text_prompts = [self.build_prompt(prompts[i], mode, duration)
+                                for i in idxs]
+                seqs = [self.tokenize_prompt(p) for p in text_prompts]
+                img_at = [s.index(IMAGE_TOKEN_INDEX) for s in seqs]
+                pre = seqs[0][:img_at[0]]
+                shared = all(s[:a] == pre for s, a in zip(seqs, img_at))
+                if shared:
+                    Sp = len(pre) + self.cfg.num_video_tokens
+                    rope_hint = _ceil128(Sp + question_len
+                                         + g.max_new_tokens + margin)
+                    clock = _PhaseClock(timings, self.device)
+                    pre_ids = torch.tensor([pre], device=self.device)
+                    prefix = build_prefix_kv(
+                        self.params, self.cfg, pre_ids,
+                        torch.ones_like(pre_ids), self._dev(features[None]),
+                        rope_hint)
+                    clock.mark("prefix")
+                    clock.count("prefixes", 1)
+                for c0 in range(0, len(idxs), batch_size):
+                    chunk = idxs[c0:c0 + batch_size]
+                    pad = batch_size - len(chunk)
+                    if not shared:
+                        ps = text_prompts[c0:c0 + batch_size]
+                        tokens, lengths = self._from_features(
+                            ps + [ps[-1]] * pad, features, g, timings)
+                    else:
+                        posts = [s[a + 1:] for s, a in
+                                 zip(seqs[c0:c0 + batch_size],
+                                     img_at[c0:c0 + batch_size])]
+                        ids, mask = self._pad_bucket_batch(
+                            posts + [posts[-1]] * pad, question_len)
+                        args = (self.params, self.cfg, self._dev(ids).long(),
+                                self._dev(mask).long(), *prefix,
+                                self.generator)
+                        kw = self._gen_kwargs(g, timings)
+                        if g.spec_draft_len > 0:
+                            tokens, lengths = generate_tokens_spec_from_prefix(
+                                *args, draft_len=g.spec_draft_len,
+                                rope_hint=rope_hint, **kw)
+                        else:
+                            tokens, lengths = generate_tokens_from_prefix(
+                                *args, quantize_cache=g.quantize_cache,
+                                shared_prefix=g.quantize_cache,
+                                rope_hint=rope_hint, **kw)
+                        self._note_tokens(timings, tokens, lengths,
+                                          question_len)
+                    self._collect(chunk, tokens, lengths,
+                                  [duration] * len(chunk), results, rows)
+                prefix = None          # freed before the next video's
+        self._finish(timings, rows)
+        return results
 
     def _result(self, text: str, duration: float) -> InferenceResult:
         parsed = codec.parse_time_interval(
@@ -225,3 +628,34 @@ class InferenceEngine:
             gen_cfg: Optional[GenerateConfig] = None) -> InferenceResult:
         vf = read_frames(video_path, self.cfg.num_frames, sample="middle")
         return self.run_frames(vf.frames, vf.duration, prompt, mode, gen_cfg)
+
+
+def _check_pairs(video_paths: List[str], prompts: List[str]) -> int:
+    if len(video_paths) != len(prompts):
+        raise ValueError(f"one prompt per video: got {len(video_paths)} "
+                         f"videos and {len(prompts)} prompts")
+    return len(video_paths)
+
+
+def _add(timings: Optional[dict], key: str, value) -> None:
+    if timings is not None:
+        timings[key] = timings.get(key, 0) + value
+
+
+def _wait(fut, timings: dict):
+    """A prefetched host decode's result; the time spent waiting for it is
+    host time not hidden under device work."""
+    t0 = time.perf_counter()
+    out = fut.result()
+    _add(timings, "preprocess", time.perf_counter() - t0)
+    return out
+
+
+def _merge_timings(total: dict, timings: dict) -> None:
+    """A batch's timings into a call's: phases and counts add up, the
+    prompt and generation lengths keep their maximum."""
+    for key, value in timings.items():
+        if key in ("prompt_len", "new_tokens"):
+            total[key] = max(total.get(key, 0), value)
+        else:
+            _add(total, key, value)

@@ -11,10 +11,17 @@ Sampling draws from an explicit torch.Generator. Greedy decoding is
 token-exact against the JAX package; sampled decoding is not (the two
 frameworks' random streams differ).
 
+Prefix-KV serving: ``build_prefix_kv`` runs the shared [pre-image text |
+video tokens] head of a video's prompts once into a bf16 prefix K/V, and
+``generate_tokens_from_prefix`` prefills each batch's question chunk
+against it (llm.prefill_continue), then decodes with decode_step or, with
+``shared_prefix``, the cascade decode_step_shared.
+
 ``timings``: pass a dict to have the phases (encode, prefill, decode)
 timed on the host clock; each boundary synchronizes the device first, so
 the seconds are device work, not enqueue time. It also gets
-``decode_steps``, the number of decode_step calls.
+``decode_steps``, the number of decode steps. Values add up over calls
+that share the dict.
 """
 
 from __future__ import annotations
@@ -75,6 +82,12 @@ class _PhaseClock:
             self.timings[name] = self.timings.get(name, 0) + n
 
 
+def _ceil128(n: int) -> int:
+    """Cache capacities round up to a multiple of 128 slots, as in the JAX
+    package."""
+    return -(-n // 128) * 128
+
+
 def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
                             video_features, generator, *, max_new_tokens,
                             temperature, top_p, do_sample, eos_token_id,
@@ -84,7 +97,7 @@ def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
     embeds, _, mask = vlm.splice_multimodal(
         input_ids, None, attn_mask, video_features, params["llm"]["embed"])
     S_full = embeds.shape[1]
-    max_len = -(-(S_full + max_new_tokens) // 128) * 128
+    max_len = _ceil128(S_full + max_new_tokens)
 
     if quantize_cache:
         cache = llm_mod.QuantKVCache.create(cfg.llm, B, max_len,
@@ -113,11 +126,12 @@ def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
 
 def _decode_loop(params, cfg: VLMConfig, logits, cache, valid0, pos0,
                  generator, *, max_new_tokens, temperature, top_p, do_sample,
-                 eos_token_id, pad_token_id
+                 eos_token_id, pad_token_id, step_fn=llm_mod.decode_step
                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Sample the first token from the prefill logits, then decode until
     max_new_tokens or every row has emitted EOS → (tokens, lengths, number
-    of decode steps)."""
+    of decode steps). step_fn(params, cfg, embeds, cache, valid, positions)
+    is llm.decode_step or the cascade's decode_step_shared."""
     B = logits.shape[0]
     tok = sample_logits(logits, generator, temperature, top_p, do_sample)
     out = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.int64,
@@ -129,8 +143,8 @@ def _decode_loop(params, cfg: VLMConfig, logits, cache, valid0, pos0,
     while step < max_new_tokens and not bool(done.all()):
         token_embeds = llm_mod.embed_lookup(params["llm"]["embed"],
                                             tok)[:, None, :]
-        logits, cache, valid = llm_mod.decode_step(
-            params["llm"], cfg.llm, token_embeds, cache, valid, positions)
+        logits, cache, valid = step_fn(params["llm"], cfg.llm, token_embeds,
+                                       cache, valid, positions)
         nxt = sample_logits(logits, generator, temperature, top_p, do_sample)
         nxt = torch.where(done, pad_token_id, nxt)
         out[:, step] = nxt
@@ -193,6 +207,101 @@ def generate_tokens_from_features(params, cfg: VLMConfig,
             top_p=top_p, do_sample=do_sample, eos_token_id=eos_token_id,
             pad_token_id=pad_token_id, quantize_cache=quantize_cache,
             clock=clock)
+
+
+def build_prefix_kv(params, cfg: VLMConfig, pre_ids: torch.Tensor,
+                    pre_mask: torch.Tensor, video_features: torch.Tensor,
+                    rope_hint: int):
+    """The bf16 prefix K/V of prefix-KV serving: the shared [pre-image text
+    | video features] head (pre_ids/pre_mask [Bp, St], video_features [Bp,
+    NV, H]) through the decoder once → (k, v [L, Bp, Sp, Hkv, Dh] bf16,
+    mask [Bp, Sp]), Sp = St + NV, for prefill_continue. The prefill writes
+    them into a bf16 KVCache of capacity exactly Sp. rope_hint must be the
+    continuation's LongRoPE hint, so the prefix keys and every later query
+    use one factor set."""
+    lp = params["llm"]
+    with torch.inference_mode():
+        emb = llm_mod.embed_lookup(lp["embed"], pre_ids,
+                                   llm_mod.embed_dtype(lp["embed"]))
+        embeds = torch.cat([emb, video_features.to(emb.dtype)], dim=1)
+        Bp, NV = video_features.shape[:2]
+        mask = torch.cat([pre_mask.long(),
+                          torch.ones(Bp, NV, dtype=torch.long,
+                                     device=pre_mask.device)], dim=1)
+        cache = llm_mod.KVCache.create(cfg.llm, Bp, embeds.shape[1],
+                                       dtype=torch.bfloat16,
+                                       device=embeds.device)
+        llm_mod.forward_hidden(lp, cfg.llm, embeds, mask, cache,
+                               rope_hint=rope_hint)
+    return cache.k, cache.v, mask
+
+
+def generate_tokens_from_prefix(params, cfg: VLMConfig,
+                                post_ids: torch.Tensor,
+                                post_mask: torch.Tensor,
+                                prefix_k: torch.Tensor,
+                                prefix_v: torch.Tensor,
+                                prefix_mask: torch.Tensor,
+                                generator: Optional[torch.Generator], *,
+                                max_new_tokens: int,
+                                temperature: float = 0.2,
+                                top_p: Optional[float] = None,
+                                do_sample: bool = True,
+                                eos_token_id: int = 2,
+                                pad_token_id: int = 0,
+                                quantize_cache: bool = False,
+                                shared_prefix: bool = False,
+                                rope_hint: Optional[int] = None,
+                                timings: Optional[dict] = None
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generation over a cached prefix (build_prefix_kv): each row prefills
+    only its left-padded question chunk post_ids/post_mask [B, Sq] →
+    (tokens [B, max_new_tokens], lengths [B]).
+
+    shared_prefix decodes through the cascade (llm.decode_step_shared: the
+    prefix int8 K/V stored once at batch 1, a per-row tail); it requires
+    quantize_cache. rope_hint: the hint the prefix was built with; every
+    program of the continuation uses it. Default: ceil128(Sp + Sq +
+    max_new_tokens), this call's capacity. The single-cache routes size
+    their cache to the hint (their decode steps read it from the capacity)
+    and refuse a hint below the capacity they need."""
+    B, Sq = post_ids.shape
+    Sp = prefix_k.shape[2]
+    need = _ceil128(Sp + Sq + max_new_tokens)
+    hint = need if rope_hint is None else rope_hint
+    if shared_prefix and not quantize_cache:
+        raise ValueError("shared_prefix decodes over int8 caches: it needs "
+                         "quantize_cache=True")
+    if not shared_prefix and hint < need:
+        raise ValueError(f"rope_hint {hint} is below the {need} slots this "
+                         "call's cache needs")
+    clock = _PhaseClock(timings, post_ids.device)
+    lp = params["llm"]
+    with torch.inference_mode():
+        chunk_embeds = llm_mod.embed_lookup(lp["embed"], post_ids,
+                                            llm_mod.embed_dtype(lp["embed"]))
+        if shared_prefix:
+            logits, cache, valid0, pos0 = llm_mod.prefill_continue(
+                lp, cfg.llm, chunk_embeds, post_mask, prefix_k, prefix_v,
+                prefix_mask, hint, quantize_cache=True,
+                tail_len=_ceil128(Sq + max_new_tokens))
+
+            def step_fn(*args):
+                return llm_mod.decode_step_shared(*args, rope_hint=hint)
+        else:
+            logits, cache, valid0, pos0 = llm_mod.prefill_continue(
+                lp, cfg.llm, chunk_embeds, post_mask, prefix_k, prefix_v,
+                prefix_mask, hint, quantize_cache=quantize_cache)
+            step_fn = llm_mod.decode_step
+        clock.mark("prefill")
+        out, lengths, steps = _decode_loop(
+            params, cfg, logits, cache, valid0, pos0, generator,
+            max_new_tokens=max_new_tokens, temperature=temperature,
+            top_p=top_p, do_sample=do_sample, eos_token_id=eos_token_id,
+            pad_token_id=pad_token_id, step_fn=step_fn)
+        clock.mark("decode")
+        clock.count("decode_steps", steps)
+    return out, lengths
 
 
 def decode_texts(tokenizer, tokens, lengths, eos_token_id: int):

@@ -26,6 +26,8 @@ Contracts:
 The loop is a host loop of verify passes, the way serve/generate's decode
 loop steps decode_step, with per-row EOS and token-budget cuts; the cache
 keeps a draft margin of K + 1 slots past prompt + max_new_tokens.
+``generate_tokens_spec_from_prefix`` runs the same loop over the cascade
+cache of prefix-KV serving (llm.verify_step_shared, commits on the tail).
 ``timings`` gets the phases (encode, prefill, decode) on the synchronised
 host clock and ``verify_passes``.
 """
@@ -39,7 +41,7 @@ import torch
 from ..core.config import VLMConfig
 from ..models import llm as llm_mod
 from ..models import vlm
-from .generate import _PhaseClock, sample_logits
+from .generate import _ceil128, _PhaseClock, sample_logits
 
 
 def ngram_draft(buf: torch.Tensor, ptr: torch.Tensor,
@@ -147,39 +149,36 @@ class SpecState(NamedTuple):
     passes: int                 # verify passes run
 
 
-def _spec_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
-                        video_features, generator, *, max_new_tokens: int,
-                        draft_len: int, temperature: float,
-                        top_p: Optional[float], do_sample: bool,
-                        eos_token_id: int, pad_token_id: int,
-                        draft_table: Optional[torch.Tensor], clock
-                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """splice → prefill (int8 cache) → draft / verify loop →
-    (tokens [B, max_new_tokens], lengths [B], verify passes)."""
-    B, S = input_ids.shape
+def _commit_shared(cache, valid_mask, n_accept, draft_len):
+    """commit_verify on a SharedPrefixCache's tail."""
+    tail, valid = llm_mod.commit_verify(cache.tail, valid_mask, n_accept,
+                                        draft_len)
+    return cache._replace(tail=tail), valid
+
+
+def _spec_loop(lp, cfg, logits, cache, valid0, pos0, prompt_ids, generator,
+               verify, commit, *, max_new_tokens: int, draft_len: int,
+               temperature: float, top_p: Optional[float], do_sample: bool,
+               eos_token_id: int, pad_token_id: int,
+               draft_table: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """The draft / verify loop after a prefill (logits [B, V]) →
+    (tokens [B, max_new_tokens], lengths [B], verify passes). prompt_ids
+    [B, S] start the committed buffer the drafts are looked up in;
+    verify(lp, cfg, embeds, cache, valid, positions) → (logits, cache) and
+    commit(cache, valid, n_accept, S_v) → (cache, valid) are
+    llm.verify_step and llm.commit_verify, or their cascade forms."""
+    B, S = prompt_ids.shape
     K = draft_len
     S_v = K + 1                                           # tokens per pass
-    lp = params["llm"]
-    embeds, _, mask = vlm.splice_multimodal(input_ids, None, attn_mask,
-                                            video_features, lp["embed"])
-    S_full = embeds.shape[1]
-    dev = embeds.device
-    # + the draft margin: a pass may write S_v slots past the last committed
-    # token of a nearly finished row
-    max_len = -(-(S_full + max_new_tokens + S_v) // 128) * 128
-    cache = llm_mod.QuantKVCache.create(cfg.llm, B, max_len, device=dev)
-    logits, cache = llm_mod.prefill(lp, cfg.llm, embeds, mask, cache)
-    clock.mark("prefill")
-
-    valid0 = torch.zeros(B, max_len, dtype=torch.bool, device=dev)
-    valid0[:, :S_full] = mask.bool()
+    dev = logits.device
     tok0 = sample_logits(logits, generator, temperature, top_p, do_sample)
     C = S + max_new_tokens
     # one column past the end takes the writes a row cannot keep
     buf = torch.full((B, C + 1), pad_token_id, dtype=torch.long, device=dev)
-    buf[:, :S] = input_ids
+    buf[:, :S] = prompt_ids
     buf[:, S] = tok0
-    st = SpecState(cache, valid0, mask.sum(dim=-1).to(torch.int32), buf,
+    st = SpecState(cache, valid0, pos0, buf,
                    torch.ones(B, dtype=torch.long, device=dev),
                    tok0 == eos_token_id, 0)
     iidx = torch.arange(S_v, device=dev)[None, :]
@@ -197,13 +196,12 @@ def _spec_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
         inputs = torch.cat([cur, drafts], dim=1)          # [B, S_v]
         token_embeds = llm_mod.embed_lookup(lp["embed"], inputs)
         positions = st.pos_next[:, None] + iidx
-        logits, cache = llm_mod.verify_step(lp, cfg.llm, token_embeds,
-                                            st.cache, st.valid_mask,
-                                            positions)
+        logits, cache = verify(lp, cfg.llm, token_embeds, st.cache,
+                               st.valid_mask, positions)
         a, emitted = spec_accept_tokens(logits, drafts, generator,
                                         temperature, top_p, do_sample)
-        cache, valid = llm_mod.commit_verify(
-            cache, st.valid_mask, torch.where(alive, a, 0), S_v)
+        cache, valid = commit(cache, st.valid_mask, torch.where(alive, a, 0),
+                              S_v)
 
         # emitted count e = a, cut at EOS and at the token budget
         is_eos = (emitted == eos_token_id) & (iidx < a[:, None])
@@ -220,9 +218,36 @@ def _spec_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
 
     out = st.buf[:, S:C]
     lengths = (out != pad_token_id).sum(dim=-1)
-    clock.mark("decode")
-    clock.count("verify_passes", st.passes)
     return out, lengths, st.passes
+
+
+def _spec_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
+                        video_features, generator, *, max_new_tokens: int,
+                        draft_len: int, clock, **kw
+                        ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """splice → prefill (int8 cache) → draft / verify loop →
+    (tokens [B, max_new_tokens], lengths [B], verify passes)."""
+    B = input_ids.shape[0]
+    lp = params["llm"]
+    embeds, _, mask = vlm.splice_multimodal(input_ids, None, attn_mask,
+                                            video_features, lp["embed"])
+    S_full = embeds.shape[1]
+    # + the draft margin: a pass may write S_v slots past the last committed
+    # token of a nearly finished row
+    max_len = _ceil128(S_full + max_new_tokens + draft_len + 1)
+    cache = llm_mod.QuantKVCache.create(cfg.llm, B, max_len,
+                                        device=embeds.device)
+    logits, cache = llm_mod.prefill(lp, cfg.llm, embeds, mask, cache)
+    clock.mark("prefill")
+    valid0 = torch.zeros(B, max_len, dtype=torch.bool, device=embeds.device)
+    valid0[:, :S_full] = mask.bool()
+    out = _spec_loop(lp, cfg, logits, cache, valid0,
+                     mask.sum(dim=-1).to(torch.int32), input_ids, generator,
+                     llm_mod.verify_step, llm_mod.commit_verify,
+                     max_new_tokens=max_new_tokens, draft_len=draft_len, **kw)
+    clock.mark("decode")
+    clock.count("verify_passes", out[2])
+    return out
 
 
 def generate_tokens_spec_from_features(
@@ -277,4 +302,55 @@ def generate_tokens_spec(params, cfg: VLMConfig, input_ids: torch.Tensor,
             temperature=temperature, top_p=top_p, do_sample=do_sample,
             eos_token_id=eos_token_id, pad_token_id=pad_token_id,
             draft_table=draft_table, clock=clock)
+    return (out, lengths, passes) if with_stats else (out, lengths)
+
+
+def generate_tokens_spec_from_prefix(
+        params, cfg: VLMConfig, post_ids: torch.Tensor,
+        post_mask: torch.Tensor, prefix_k: torch.Tensor,
+        prefix_v: torch.Tensor, prefix_mask: torch.Tensor,
+        generator: Optional[torch.Generator], *, max_new_tokens: int,
+        draft_len: int = 4, temperature: float = 0.0,
+        top_p: Optional[float] = None, do_sample: bool = False,
+        eos_token_id: int = 2, pad_token_id: int = 0,
+        draft_table: Optional[torch.Tensor] = None, with_stats: bool = False,
+        rope_hint: Optional[int] = None,
+        timings: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
+    """Speculative generation over the cascade cache: the question chunk
+    post_ids/post_mask [B, Sq] prefilled against a batch-1 prefix
+    (serve/generate.build_prefix_kv), then verify passes of
+    llm.verify_step_shared, the prefix read once a pass for the whole
+    batch. Drafts come from the question chunk and the generated tokens
+    (the prefix's video tokens are not text). rope_hint: the hint the prefix
+    was built with (default ceil128(Sp + Sq + max_new_tokens + draft_len +
+    1), the draft margin included). Otherwise the contract of
+    generate_tokens_spec_from_features."""
+    B, Sq = post_ids.shape
+    Sp = prefix_k.shape[2]
+    S_v = draft_len + 1
+    hint = (rope_hint if rope_hint is not None
+            else _ceil128(Sp + Sq + max_new_tokens + S_v))
+    tail_len = _ceil128(Sq + max_new_tokens + S_v)
+    clock = _PhaseClock(timings, post_ids.device)
+    lp = params["llm"]
+    with torch.inference_mode():
+        chunk_embeds = llm_mod.embed_lookup(lp["embed"], post_ids,
+                                            llm_mod.embed_dtype(lp["embed"]))
+        logits, cache, tail_valid, pos0 = llm_mod.prefill_continue(
+            lp, cfg.llm, chunk_embeds, post_mask, prefix_k, prefix_v,
+            prefix_mask, hint, quantize_cache=True, tail_len=tail_len)
+        clock.mark("prefill")
+
+        def verify(*args):
+            return llm_mod.verify_step_shared(*args, rope_hint=hint)
+
+        out, lengths, passes = _spec_loop(
+            lp, cfg, logits, cache, tail_valid, pos0, post_ids.long(),
+            generator, verify, _commit_shared,
+            max_new_tokens=max_new_tokens, draft_len=draft_len,
+            temperature=temperature, top_p=top_p, do_sample=do_sample,
+            eos_token_id=eos_token_id, pad_token_id=pad_token_id,
+            draft_table=draft_table)
+        clock.mark("decode")
+        clock.count("verify_passes", passes)
     return (out, lengths, passes) if with_stats else (out, lengths)

@@ -122,7 +122,25 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
         prefix route's first-step logits held to the full prefill's (at
         most ROUTE_FLOOR_RATIO times the full route's own re-batching
         drift, and on the bf16 tree at most 1e-1), and one cascade decode
-        step timed beside its eager attention.
+        step timed beside its eager attention;
+     G  continuous batching behind the HTTP server's default shape
+        (ServingFrontend: pool 4, prompt bucket 256, 64 new tokens, chunks
+        of 8; greedy) in path A's configuration on path F's two videos,
+        10 requests in the three modes with budgets 8/16/32/64 submitted
+        together through ContinuousScheduler: the feature-backed pool (per
+        step K3 w8a8 at 4 rows, K4, K5 at each row's own slot, K6; four
+        requests served alone again, token-equal; K5 bit-equal and K4
+        within its bars on one pool step with distinct slots and an
+        inactive row), the prefix-backed pool (its first-step logits
+        within ROUTE_FLOOR_RATIO times the feature route's drift when its
+        padding changes), the shared-prefix pool with spec_draft_len=4
+        (per pass K3 at 20 rows, K9 on the tail, K6), pipelined and its
+        loop unpipelined on the same shapes (bit-equal tokens), and the
+        HTTP server on an ephemeral port (/healthz,
+        /v1/models, a generate, a streamed generate assembling the same
+        text, a bad request answered 400); per round the wall time,
+        tokens/s, admission and chunk-step times, time to first token and
+        peak memory, tagged with the card.
    Each path runs with every launch count set to 0 just before it; its
    counts are read just after and held against the counts the config
    implies. Phase times, peak device memory, and a shape/finiteness check of
@@ -3132,6 +3150,28 @@ def route_logits(torch, eng, cfg, feats, prompts, question_len):
     return out
 
 
+def two_videos(eng, temporal, spatial):
+    """Paths F and G's two videos: the frames the paths resized (96 s) and
+    the same pixels reversed in time (60 s). The GPU host has no video
+    decoder, so two placeholder files under build/chip_smoke_videos/ give
+    the feature cache its keys (path, mtime, size) and the engine's
+    preprocess_video returns their frames → (paths, frames by path, the
+    directory, removed by the caller)."""
+    vdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_videos")
+    os.makedirs(vdir, exist_ok=True)
+    paths = []
+    for i in range(2):
+        paths.append(os.path.join(vdir, f"video{i}.mp4"))
+        with open(paths[-1], "wb") as f:
+            f.write(b"placeholder" * (i + 1))
+    frames = {paths[0]: (temporal, spatial, 96.0),
+              paths[1]: (np.ascontiguousarray(temporal[::-1]),
+                         np.ascontiguousarray(spatial[::-1]), 60.0)}
+    eng.preprocess_video = frames.__getitem__
+    return paths, frames, vdir
+
+
 def prefix_path(torch, kernels, zero, params, cfg, tok, temporal, spatial,
                 per_req, card):
     """Path F: feature-cached and prefix-KV serving at full width (Phi-3.5,
@@ -3173,18 +3213,7 @@ def prefix_path(torch, kernels, zero, params, cfg, tok, temporal, spatial,
                               spec_draft_len=SPEC_DRAFT_LEN)
     eng = InferenceEngine(params, cfg, tok, gen, seed=SEED,
                           quantize="int8_full")
-    vdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
-                        "chip_smoke_videos")
-    os.makedirs(vdir, exist_ok=True)
-    paths = []
-    for i in range(2):
-        paths.append(os.path.join(vdir, f"video{i}.mp4"))
-        with open(paths[-1], "wb") as f:
-            f.write(b"placeholder" * (i + 1))
-    frames = {paths[0]: (temporal, spatial, 96.0),
-              paths[1]: (np.ascontiguousarray(temporal[::-1]),
-                         np.ascontiguousarray(spatial[::-1]), 60.0)}
-    eng.preprocess_video = frames.__getitem__
+    paths, frames, vdir = two_videos(eng, temporal, spatial)
     texts = [p for _, p in (MODES[0], MODES[1], MODES_2[0], MODES_2[1])]
     videos = [paths[i % 2] for i in range(PREFIX_QUERIES)]
     queries = [texts[(i // 2) % len(texts)] for i in range(PREFIX_QUERIES)]
@@ -3349,6 +3378,593 @@ def prefix_path(torch, kernels, zero, params, cfg, tok, temporal, spatial,
         raise AssertionError("path F: the prefix route's logits disagree "
                              "with the full prefill's")
     del eng, feats, cache, tail, r, routes
+    shutil.rmtree(vdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    return launches
+
+
+# path G: continuous batching and the HTTP server at the server's default
+# shape (serve/server.ServingFrontend, cli/server.py's defaults)
+POOL = dict(pool_size=4, prompt_len=256, max_new_tokens=64, chunk=8)
+POOL_BUDGETS = (8, 16, 32, 64)     # per-request budgets, cycled
+POOL_ALONE = (0, 1, 4, 5)          # served alone again: row independence
+SHARED_ALONE = (1, 5)              # the same on round 3's cascade pool
+TAIL_READING = 5                   # round 3's tail-length reading
+
+
+def pool_asks(paths):
+    """Path G's 10 requests: the five prompts whose whole prompt fits the
+    256-token bucket (every mode; path A's grounding query takes 290) on
+    each video, budgets cycled → [(video, prompt, mode, budget)]."""
+    texts = [MODES[1], MODES[2], *MODES_2]
+    return [(paths[i % 2], texts[i // 2][1], texts[i // 2][0],
+             POOL_BUDGETS[i % len(POOL_BUDGETS)]) for i in range(10)]
+
+
+def pool_expect(zero, nl, enc, *, prefix=False, spec=False, shared=False):
+    """A round's launch counts from the server's timings (admissions, steps:
+    decode steps or verify passes) and its set-up (encodes, prefix
+    builds): K1 per encode, K2 per feature-backed admission prefill and per
+    prefix build; per step or pass 4·nl K3 w8a8 (at pool_size or pool_size
+    × (draft + 1) rows) and one lm_head; per step K5 and, on the plain
+    cache, nl K4; per pass K9 and, on the plain cache, nl K8; one lm_head
+    per admission."""
+    def fn(t, prep):
+        s, adm = t.get("steps", 0), t.get("admissions", 0)
+        want = dict(zero, flash_fwd=(prep.get("encodes", 0) * enc
+                                     + prep.get("builds", 0) * nl
+                                     + (0 if prefix else adm * nl)),
+                    int8_gemv=4 * nl * s, int8_matmul=s + adm)
+        attn = 0 if shared else nl * s
+        if spec:
+            want.update(verify_attention_int8=attn, scatter_write_multi=s)
+        else:
+            want.update(decode_attention_int8=attn, scatter_write=s)
+        return want
+    return fn
+
+
+def pool_round(torch, kernels, name, frontend, asks, expect, card,
+               prepare=None):
+    """One round of path G: every count to 0; prepare() (the encodes or
+    prefix builds of the unique videos, on this thread, before any request
+    is in flight: its readings); the asks submitted together through
+    frontend.submit; every future awaited; the counts held against
+    expect(server timings, readings). Prints requests, wall seconds,
+    tokens, tokens/s, admission seconds (set-up and admission prefill
+    apart), ms per chunk step by CUDA events and by the host clock, time to
+    first token and peak memory → (token arrays, launches)."""
+    server = frontend.server
+    for k in kernels.values():
+        k.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    server.timings = {}
+    first, sent, futs = {}, {}, []
+    t0 = time.perf_counter()
+    prep = prepare() if prepare is not None else {}
+    for i, (video, prompt, mode, budget) in enumerate(asks):
+        sent[i] = time.perf_counter()
+        fut, _ = frontend.submit(
+            video, prompt, mode, budget,
+            on_token=lambda tok, i=i: first.setdefault(i, time.perf_counter()))
+        futs.append(fut)
+    tokens = [f.result(timeout=900) for f in futs]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {n: k.launches for n, k in kernels.items()}
+    t = dict(server.timings)
+    want = expect(t, prep)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_tok = sum(len(x) for x in tokens)
+    steps = t.get("steps", 0)
+    timed = max(t.get("timed_steps", 0), 1)
+    ttft = np.asarray(sorted(first[i] - sent[i] for i in first)
+                      or [float("nan")])
+    # the same from the round's start: what a request that meets an
+    # unencoded video (or an unbuilt prefix) waits, set-up included
+    ttft0 = np.asarray(sorted(first[i] - t0 for i in first)
+                       or [float("nan")])
+    unit, units = (("pass", "passes") if server.spec_draft_len
+                   else ("step", "steps"))
+    setup = ", ".join(f"{k} {v:.3f}" if isinstance(v, float) else
+                      f"{k} {v}" for k, v in prep.items())
+    tail = f" tail_len={server._tail_len}" if server.shared_prefix else ""
+    log(f"[path] G {name}: requests={len(asks)} max_len={server.max_len}"
+        f"{tail} "
+        f"wall_s={wall:.3f} tokens={n_tok} tokens_per_s={n_tok / wall:.2f}; "
+        f"set-up ({setup or 'none'}); admissions={t.get('admissions', 0)} "
+        f"admission_prefill_s_per_request="
+        f"{t.get('admit', 0.0) / max(t.get('admissions', 1), 1):.4f}; "
+        f"{steps} {units} in {t.get('chunks', 0)} chunks: ms_per_{unit} "
+        f"cuda_events={t.get('chunk_device_ms', 0.0) / timed:.2f} "
+        f"host_clock={t.get('chunk', 0.0) * 1e3 / timed:.2f} (launch to "
+        f"tokens read); time to first "
+        f"token s from submission (after the set-up) "
+        f"median={float(np.median(ttft)):.3f} max={float(ttft.max()):.3f}, "
+        f"from the round's start (set-up included) "
+        f"median={float(np.median(ttft0)):.3f} max={float(ttft0.max()):.3f}"
+        f"; peak_device_memory={peak:.2f} GiB; "
+        f"{card}")
+    log(f"[path] G {name}: launches {got} expected {want}")
+    if got != want:
+        raise AssertionError(f"path G {name}: launch counts {got}, expected "
+                             f"{want}")
+    bad = [i for i, (x, a) in enumerate(zip(tokens, asks))
+           if not 0 < len(x) <= a[3]]
+    if bad:
+        raise AssertionError(f"path G {name}: requests {bad} gave no tokens "
+                             "or more than their budget")
+    return tokens, got
+
+
+def shared_alone(torch, llm, eng, asks, i, pipeline_chunks):
+    """Request asks[i] alone through a fresh shared-prefix pool of round 3's
+    shape (pipeline_chunks: its doubled margin and longer tail; the loop
+    itself unpipelined), greedy → (tokens, every verify pass's (logits of
+    its row [S, V] fp32, the row's valid tail slots then), the pool's
+    tail_len)."""
+    from grounded_video_llm_tpu_torch.serve.server import ServingFrontend
+
+    frontend = ServingFrontend(eng, **POOL, prefix_cache=True,
+                               shared_prefix_pool=True,
+                               spec_draft_len=SPEC_DRAFT_LEN,
+                               pipeline_chunks=pipeline_chunks)
+    frontend.shutdown()              # served here, on this thread
+    server = frontend.server
+    server.pipeline = False
+    req, _ = eng.make_continuous_request(
+        asks[i][0], asks[i][1], asks[i][2], prompt_len=POOL["prompt_len"],
+        max_new_tokens=asks[i][3], prefix_rope_hint=server.max_len)
+    passes = []
+    real = llm.verify_step_shared
+
+    def record(params, cfg, embeds, cache, valid, *a, **k):
+        out = real(params, cfg, embeds, cache, valid, *a, **k)
+        # the lone request holds slot 0
+        passes.append((out[0][0].float().clone(), valid[0].sum()))
+        return out
+    with mock.patch.object(llm, "verify_step_shared", record):
+        tokens = server.serve([req])[0]
+    torch.cuda.synchronize()
+    tail = server._tail_len
+    del frontend, server, req
+    torch.cuda.empty_cache()
+    return tokens, [(x, int(n)) for x, n in passes], tail
+
+
+def tail_product_reading(torch, llm, cfg, Sp, tails, valid, device):
+    """The cascade's tail product (llm._pv_f32: softmax weights times the
+    per-slot tail's values, bf16 operands, fp32 out) at round 3's shapes
+    (pool rows, S = SPEC_DRAFT_LEN + 1 queries, the weights a slice of the
+    whole [prefix ; tail ; in-pass] row), weights 0 past `valid` slots, on
+    each tail length in `tails` → max |difference| between the first and
+    the second tail's outputs (0.0: bit-equal)."""
+    L = cfg.llm
+    B, Hkv, Dh = POOL["pool_size"], L.num_kv_heads, L.head_dim
+    M = L.num_heads // Hkv * (SPEC_DRAFT_LEN + 1)
+    g = torch.Generator(device=device).manual_seed(SEED)
+    Mt = max(tails)
+    v = torch.randn(B, Hkv, Mt, Dh, generator=g, device=device)
+    w = torch.rand(B, Hkv, M, Mt, generator=g, device=device)
+    w[..., valid:] = 0
+    outs = []
+    for t in tails:
+        row = torch.zeros(B, Hkv, M, Sp + t + SPEC_DRAFT_LEN + 1,
+                          dtype=torch.bfloat16, device=device)
+        row[..., Sp:Sp + t] = w[..., :t]
+        outs.append(llm._pv_f32(row[..., Sp:Sp + t],
+                                v[:, :, :t].to(torch.bfloat16)))
+    return float((outs[0] - outs[1]).abs().max())
+
+
+def pool_step_check(torch, da, cw, llm, cont, eng, cfg, asks, card):
+    """One decode step of a pool whose rows sit at distinct lengths (three
+    requests admitted a chunk apart) with its fourth slot never used
+    (inactive): K5 bit-equal to its plain version on that step's writes,
+    the same storage, every other byte untouched; K4 within its bars
+    (BOUND_ATTN_REL, BOUND_ATTN_ROW) on layer 0's inputs, the pool's own
+    ragged masks and the inactive row's empty one included."""
+    server = cont.ContinuousServer(eng.params, cfg, **POOL,
+                                   temperature=0.0, do_sample=False,
+                                   eos_token_id=eng.tokenizer.eos_token_id,
+                                   pad_token_id=eng.tokenizer.pad_token_id)
+    emitted, results = {i: [] for i in range(3)}, {}
+    for i in range(3):
+        req, _ = eng.make_continuous_request(
+            asks[i][0], asks[i][1], asks[i][2],
+            prompt_len=POOL["prompt_len"], max_new_tokens=64)
+        server._admit([(i, server.stage_request(req, server.device))],
+                      emitted, results)
+        if i < 2:
+            server._run_chunk(emitted, results)
+    seen = {}
+
+    def k4(q, kq, ks, vq, vs, mask, kn, vn, scale):
+        if "k4" not in seen:
+            seen["k4"] = [x.clone() for x in (q, kq, ks, vq, vs, mask, kn,
+                                              vn)] + [scale]
+        return da.decode_attention_int8(q, kq, ks, vq, vs, mask, kn, vn,
+                                        scale=scale)
+
+    def k5(caches, news, idx):
+        seen["k5"] = ([c.clone() for c in caches], news, idx.clone(), caches,
+                      [c.data_ptr() for c in caches])
+        cw.scatter_write(caches, news, idx)
+
+    lengths = server.state.cache.length.tolist()
+    with mock.patch.multiple(llm, decode_attention_int8=k4, scatter_write=k5):
+        server._run_chunk(emitted, results, force_chunk=1)
+    torch.cuda.synchronize()
+    before, news, idx, after, ptrs = seen["k5"]
+    slots = idx.tolist()
+    expect = [c.clone() for c in before]
+    cw.scatter_write_reference(expect, news, idx.cpu())
+    same = all(torch.equal(a, b) for a, b in zip(after, expect))
+    kept = [c.data_ptr() for c in after] == ptrs
+    keep = torch.ones(len(slots), after[0].shape[3], dtype=torch.bool,
+                      device=after[0].device)
+    for b, slot in enumerate(slots):
+        keep[b, slot] = False
+    untouched = all(
+        torch.equal(c.transpose(1, 2)[:, :, keep].view(torch.uint8),
+                    o.transpose(1, 2)[:, :, keep].view(torch.uint8))
+        for c, o in zip(after, before))
+    q, kq, ks, vq, vs, mask, kn, vn, scale = seen["k4"]
+    o = da.decode_attention_int8(q, kq, ks, vq, vs, mask, kn, vn, scale=scale)
+    o_ref = da.decode_attention_int8_reference(q, kq, ks, vq, vs, mask, kn,
+                                               vn, scale=scale)
+    do = o.float() - o_ref.float()
+    rel = float(torch.linalg.vector_norm(do)
+                / torch.linalg.vector_norm(o_ref.float()))
+    row = float((torch.linalg.vector_norm(do, dim=-1)
+                 / torch.linalg.vector_norm(o_ref.float(), dim=-1)).max())
+    visible = mask.sum(dim=-1).tolist()
+    ok5 = same and kept and untouched and len(set(slots)) == len(slots)
+    ok4 = (rel <= BOUND_ATTN_REL and row <= BOUND_ATTN_ROW
+           and bool(torch.isfinite(o).all()) and visible[-1] == 0)
+    log(f"[path] G pool step: lengths {lengths}, active "
+        f"{server.state.active.tolist()}; K5 writes slots {slots} (distinct "
+        f"per row) equal_to_plain={same} same_storage={kept} "
+        f"untouched_bytes_equal={untouched} {'OK' if ok5 else 'FAIL'}; K4 "
+        f"layer 0 on the pool's masks (visible slots per row {visible}): "
+        f"rel|do|={rel:.3e} (<= {BOUND_ATTN_REL}) max per (row, head) "
+        f"rel|do|={row:.3e} (<= {BOUND_ATTN_ROW:.3e}) "
+        f"{'OK' if ok4 else 'FAIL'}; {card}")
+    if not (ok4 and ok5):
+        raise AssertionError("path G: K4 or K5 disagrees with its plain "
+                             "version on a pool step")
+
+
+def admission_logits(torch, cont, eng, cfg, asks, video, prefix_len):
+    """First-step logits of `video`'s asks through the pool's two admission
+    prefills (B = 1): feature-backed, the prompt left-padded to the bucket
+    (the plain pool's max_len), and prefix-backed, the question left-padded
+    to the bucket (the prefix pool's). The floor is path F's: the feature
+    route against itself with the padding changed, each prompt unpadded at
+    its own length (the route at B = n against B = 1 is no floor: the
+    card's kernels gave bit-equal logits) → (prefix vs feature rel L2,
+    floor, n)."""
+    from grounded_video_llm_tpu_torch.text.templates import IMAGE_TOKEN_INDEX
+
+    plain_len = -(-(POOL["prompt_len"] - 1 + cfg.num_video_tokens
+                    + POOL["max_new_tokens"] + POOL["chunk"]) // 128) * 128
+    prefix_max = -(-(prefix_len + POOL["prompt_len"]
+                     + POOL["max_new_tokens"] + POOL["chunk"]) // 128) * 128
+    mine = [a for a in asks if a[0] == video]
+    feats, duration = eng.encode_video_cached(video)
+    feats = feats.to(eng.device)
+    seqs = [eng.tokenize_prompt(eng.build_prompt(prompt, mode, duration))
+            for _, prompt, mode, _ in mine]
+    n = len(seqs)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).long().to(eng.device)
+
+    def feature(ids, mask):
+        return cont._prefill_batch_from_features(
+            eng.params, cfg, t(ids), t(mask),
+            feats[None].expand(len(ids), *feats.shape), plain_len)[0]
+
+    padded = [eng._pad_bucket(s, POOL["prompt_len"]) for s in seqs]
+    img = seqs[0].index(IMAGE_TOKEN_INDEX)
+    with torch.no_grad():
+        alone = torch.cat([feature(i[None], m[None]) for i, m in padded])
+        unpadded = torch.cat([feature([s], [[1] * len(s)]) for s in seqs])
+        prefix = eng.prefix_kv_cached(video, seqs[0][:img], feats, prefix_max)
+        pref = []
+        for s in seqs:
+            q, qm = eng._pad_bucket(s[img + 1:], POOL["prompt_len"])
+            pref.append(cont._prefill_batch_from_prefix(
+                eng.params, cfg, t(q[None]), t(qm[None]), *prefix,
+                prefix_max)[0])
+        pref = torch.cat(pref)
+    return rel_err(torch, pref, alone), rel_err(torch, unpadded, alone), n
+
+
+def continuous_path(torch, kernels, zero, params, cfg, tok, temporal,
+                    spatial, per_req, card):
+    """Path G: continuous batching behind the HTTP server's default shape
+    (ServingFrontend(pool_size=4, prompt_len=256, max_new_tokens=64,
+    chunk=8), greedy) at full width (Phi-3.5, int8_full) on path F's two
+    videos, each round's requests submitted together through
+    ContinuousScheduler:
+      1. the feature-backed pool: 10 requests in the three modes with
+         budgets 8/16/32/64, the two videos encoded once; then
+         POOL_ALONE's requests each served alone through a fresh pool of
+         the same shape, token-equal (rows are independent under the
+         active mask), and pool_step_check (K5 and K4 on a pool step);
+      2. the prefix-backed pool (prefix_cache): the same requests; the
+         first-step logits of a prefix admission against a feature
+         admission within ROUTE_FLOOR_RATIO times the feature route's own
+         drift when its padding changes, measured in the same run (path
+         F's rule; admission_logits);
+      3. the shared-prefix pool with spec_draft_len=SPEC_DRAFT_LEN and
+         pipeline_chunks, then its loop unpipelined on the same shapes:
+         bit-equal tokens; SHARED_ALONE's requests each served alone
+         through a fresh pool of those shapes, token-equal; request
+         TAIL_READING's verify passes on the default pool's shorter tail
+         against those shapes', and the tail product on both (readings:
+         shared_alone, tail_product_reading);
+      4. HTTP: serve_http on 127.0.0.1, an ephemeral port: /healthz,
+         /v1/models, one /v1/generate with stream false and one with stream
+         true of a short round-1 request with text (both give its tokens
+         and text; the deltas assemble it), one bad request answered 400,
+         as the JAX server does.
+    Each round is counted like a path (pool_expect) → the summed counts."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from grounded_video_llm_tpu_torch.core.config import GenerateConfig
+    from grounded_video_llm_tpu_torch.models import llm
+    from grounded_video_llm_tpu_torch.ops import cache_write as cw
+    from grounded_video_llm_tpu_torch.ops import decode_attention_int8 as da
+    from grounded_video_llm_tpu_torch.serve import continuous as cont
+    from grounded_video_llm_tpu_torch.serve import engine as engine_mod
+    from grounded_video_llm_tpu_torch.serve.server import (ServingFrontend,
+                                                           serve_http)
+
+    nl = cfg.llm.num_layers
+    enc = per_req - nl                      # K1 launches of one encode
+    gen = GenerateConfig(max_new_tokens=POOL["max_new_tokens"],
+                         do_sample=False, quantize_cache=True)
+    eng = engine_mod.InferenceEngine(params, cfg, tok, gen, seed=SEED,
+                                     quantize="int8_full")
+    paths, _, vdir = two_videos(eng, temporal, spatial)
+    asks = pool_asks(paths)
+    launches = dict(zero)
+
+    def add(got):
+        for k in launches:
+            launches[k] += got[k]
+
+    def encodes():
+        t = {}
+        for p in paths:
+            eng.encode_video_cached(p, timings=t)
+        return {"encodes": t["encodes"], "encode_s": t["encode"]}
+
+    def prefixes(frontend):
+        def fn():
+            n = []
+            real = engine_mod.build_prefix_kv
+            t0 = time.perf_counter()
+            with mock.patch.object(engine_mod, "build_prefix_kv",
+                                   lambda *a, **k: n.append(1)
+                                   or real(*a, **k)):
+                for p in paths:
+                    eng.make_continuous_request(
+                        p, asks[0][1], asks[0][2],
+                        prompt_len=POOL["prompt_len"],
+                        prefix_rope_hint=frontend.server.max_len)
+            torch.cuda.synchronize()
+            return {"builds": len(n), "prefix_s": time.perf_counter() - t0}
+        return fn
+
+    # ---- 1. the feature-backed pool
+    frontend = ServingFrontend(eng, **POOL)
+    tokens1, got = pool_round(
+        torch, kernels, "1 feature-backed pool", frontend, asks,
+        pool_expect(zero, nl, enc), card, encodes)
+    frontend.shutdown()
+    del frontend
+    add(got)
+    same = []
+    for i in POOL_ALONE:
+        alone = cont.ContinuousServer(
+            eng.params, cfg, **POOL, temperature=0.0, do_sample=False,
+            eos_token_id=tok.eos_token_id, pad_token_id=tok.pad_token_id)
+        req, _ = eng.make_continuous_request(
+            asks[i][0], asks[i][1], asks[i][2],
+            prompt_len=POOL["prompt_len"], max_new_tokens=asks[i][3])
+        same.append(bool(np.array_equal(alone.serve([req])[0], tokens1[i])))
+        del alone
+    log(f"[path] G 1 rows independent: requests {list(POOL_ALONE)} served "
+        f"alone through a fresh pool of the same shape give the pool's "
+        f"tokens: {same} {'OK' if all(same) else 'FAIL'}")
+    if not all(same):
+        raise AssertionError("path G: a request served alone gave other "
+                             "tokens than in the pool")
+    pool_step_check(torch, da, cw, llm, cont, eng, cfg, asks, card)
+
+    # ---- 2. the prefix-backed pool
+    frontend = ServingFrontend(eng, **POOL, prefix_cache=True)
+    prefix_len = frontend.server._prefix_len
+    _, got = pool_round(torch, kernels, "2 prefix-backed pool", frontend,
+                        asks, pool_expect(zero, nl, enc, prefix=True), card,
+                        prefixes(frontend))
+    frontend.shutdown()
+    del frontend
+    add(got)
+    err, floor, n = admission_logits(torch, cont, eng, cfg, asks, paths[0],
+                                     prefix_len)
+    ok = err <= ROUTE_FLOOR_RATIO * floor
+    log(f"[path] G 2 prefix vs feature admission, video 0's {n} requests: "
+        f"first-step logits rel L2 {err:.3e} (<= {ROUTE_FLOOR_RATIO} x the "
+        f"floor = {ROUTE_FLOOR_RATIO * floor:.3e}); floor, the feature route "
+        f"with the prompt left-padded to the bucket vs unpadded {floor:.3e}, "
+        f"ratio {err / floor if floor else float('inf'):.3f}; prefix "
+        f"{prefix_len} tokens {'OK' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("path G: the prefix admission's logits disagree "
+                             "with the feature admission's")
+
+    # ---- 3. the shared-prefix pool, speculative, pipelined, then the same
+    # pool's loop unpipelined: pipelining doubles the overshoot margin, which
+    # at this shape takes the per-slot tail from 384 to 512 slots, and the
+    # eager cascade attention's tail product rounds otherwise over another
+    # length (tail_product_reading), so the unpipelined loop runs on the
+    # pipelined pool's shapes
+    spec_tokens = {}
+    for pipelined in (True, False):
+        frontend = ServingFrontend(eng, **POOL, prefix_cache=True,
+                                   shared_prefix_pool=True,
+                                   spec_draft_len=SPEC_DRAFT_LEN,
+                                   pipeline_chunks=True)
+        frontend.server.pipeline = pipelined
+        name = (f"3 shared-prefix pool spec{SPEC_DRAFT_LEN} "
+                + ("pipelined" if pipelined else "unpipelined, the same "
+                   "shapes"))
+        spec_tokens[pipelined], got = pool_round(
+            torch, kernels, name, frontend, asks,
+            pool_expect(zero, nl, enc, prefix=True, spec=True, shared=True),
+            card, prefixes(frontend))
+        frontend.shutdown()
+        del frontend
+        add(got)
+    same = all(np.array_equal(a, b) for a, b in
+               zip(spec_tokens[False], spec_tokens[True]))
+    agree = float(np.mean([np.array_equal(a, b) for a, b in
+                           zip(spec_tokens[False], tokens1)]))
+    log(f"[path] G 3 pipelined tokens bit-equal to the unpipelined loop's on "
+        f"the same pool: {same}; requests equal to round 1's (a reading: "
+        f"other routes, random weights) {agree:.2f} "
+        f"{'OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError("path G: the pipelined pool gave other tokens")
+    # rows independent on the cascade: SHARED_ALONE's requests each served
+    # alone through a fresh pool of the round's shapes give the round's
+    # tokens; then request 0 alone on the default (unpipelined) pool's
+    # shapes, whose tail is shorter: the first verify pass's logits of the
+    # two tails locate the default-shape token mismatch (a reading)
+    alone = {i: shared_alone(torch, llm, eng, asks, i, True)
+             for i in SHARED_ALONE}
+    same = [bool(np.array_equal(alone[i][0], spec_tokens[False][i]))
+            for i in SHARED_ALONE]
+    log(f"[path] G 3 rows independent: requests {list(SHARED_ALONE)} served "
+        f"alone through a fresh shared-prefix pool of the round's shapes "
+        f"give the round's tokens: {same} {'OK' if all(same) else 'FAIL'}")
+    if not all(same):
+        raise AssertionError("path G: a request served alone through the "
+                             "shared-prefix pool gave other tokens")
+    # request TAIL_READING alone on the default pool's shorter tail beside
+    # the same on the round's shapes: pass by pass, the first verify pass
+    # whose logits differ and the valid tail slots then; and the tail
+    # product alone on the two tails, weights 0 past the question bucket
+    # and past one slot more
+    i = TAIL_READING
+    short, long_ = shared_alone(torch, llm, eng, asks, i, False), alone[i]
+    pairs = list(zip(short[1], long_[1]))
+    diff = [j for j, (a, b) in enumerate(pairs) if not torch.equal(a[0], b[0])]
+    first = (f"pass {diff[0]} of {len(pairs)} (valid tail slots "
+             f"{pairs[diff[0]][0][1]}, logits rel L2 "
+             f"{rel_err(torch, pairs[diff[0]][0][0], pairs[diff[0]][1][0]):.3e}"
+             f"; every pass before it bit-equal, the last with "
+             f"{pairs[diff[0] - 1][0][1] if diff[0] else '-'} valid slots)"
+             if diff else f"none of {len(pairs)}")
+    worst = max((rel_err(torch, a[0], b[0]) for a, b in pairs), default=0.0)
+    prod = {n: tail_product_reading(torch, llm, cfg, prefix_len,
+                                    (short[2], long_[2]), n, eng.device)
+            for n in (POOL["prompt_len"], POOL["prompt_len"] + 1)}
+    log(f"[path] G 3 request {i} alone, tail_len {short[2]} (the default "
+        f"pool) vs {long_[2]} (the round's shapes): first verify pass "
+        f"logits rel L2 {rel_err(torch, pairs[0][0][0], pairs[0][1][0]):.3e}"
+        f"; the first pass whose logits differ: {first}; the largest rel L2 "
+        f"{worst:.3e}; tokens equal {bool(np.array_equal(short[0], long_[0]))}"
+        f"; the tail product (_pv_f32) on the two tails, max |diff| with "
+        + ", ".join(f"{n} valid slots {d:.3e}" for n, d in prod.items())
+        + f" (readings); {card}")
+
+    # ---- 4. HTTP: of round 1's requests with a budget of at most 16, the
+    # one whose text is the longest (random weights make most tokens ids
+    # that decode to no text)
+    texts = [tok.decode([int(x) for x in t], skip_special_tokens=True).strip()
+             for t in tokens1]
+    pick = max((i for i, a in enumerate(asks) if a[3] <= 16),
+               key=lambda i: len(texts[i]))
+    frontend = ServingFrontend(eng, **POOL)
+    httpd = serve_http(frontend, "127.0.0.1", 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+
+    def request(path, body=None):
+        data = None if body is None else json.dumps(body).encode()
+        req = urllib.request.Request(base + path, data=data, headers={
+            "Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=600) as r:
+                return r.status, r.headers["Content-Type"], r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.headers["Content-Type"], e.read()
+
+    try:
+        for k in kernels.values():
+            k.launches = 0
+        frontend.server.timings = {}
+        t0 = time.perf_counter()
+        health = request("/healthz")
+        models = request("/v1/models")
+        video, prompt, mode, budget = asks[pick]
+        body = {"video_path": video, "prompt": prompt, "mode": mode,
+                "max_new_tokens": budget}
+        plain = request("/v1/generate", body)
+        streamed = request("/v1/generate", dict(body, stream=True))
+        bad = request("/v1/generate", {"prompt": "no video"})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        frontend.shutdown()
+        thread.join(timeout=60)
+    got = {n: k.launches for n, k in kernels.items()}
+    t = dict(frontend.server.timings)
+    add(got)
+    want = pool_expect(zero, nl, enc)(t, {})
+    payload = json.loads(plain[2]) if plain[0] == 200 else {}
+    deltas, final = [], None
+    for line in streamed[2].decode().splitlines():
+        if line.startswith("data: ") and line != "data: [DONE]":
+            obj = json.loads(line[len("data: "):])
+            if obj.get("done"):
+                final = obj
+            else:
+                deltas.append(obj["delta"])
+    ok = (health[0] == 200 and json.loads(health[2])["status"] == "ok"
+          and models[0] == 200
+          and json.loads(models[2])["data"][0]["family"] == "phi3.5"
+          and plain[0] == 200 and streamed[0] == 200
+          and streamed[1] == "text/event-stream" and final is not None
+          and "".join(deltas).strip() == final["text"] == payload["text"]
+          == texts[pick]
+          and payload["num_tokens"] == final["num_tokens"]
+          == len(tokens1[pick])
+          and bad[0] == 400 and got == want)
+    log(f"[path] G 4 HTTP on {base}: /healthz {health[0]}, /v1/models "
+        f"{models[0]}, /v1/generate of round 1's request {pick} {plain[0]} "
+        f"({payload.get('num_tokens')} tokens, text {payload.get('text')!r}; "
+        f"round 1 gave {len(tokens1[pick])} tokens, {texts[pick]!r}), "
+        f"streamed {streamed[0]} {streamed[1]} in {len(deltas)} deltas "
+        f"assembling the same text: "
+        f"{final is not None and ''.join(deltas).strip() == payload.get('text')}"
+        f", a request without video_path {bad[0]} (want 400); wall_s="
+        f"{wall:.3f}; launches {got} expected {want} "
+        f"{'OK' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("path G: the HTTP round trip failed")
+    del eng
     shutil.rmtree(vdir, ignore_errors=True)
     torch.cuda.empty_cache()
     return launches
@@ -4154,6 +4770,11 @@ def main() -> int:
     # path F: feature-cached and prefix-KV serving (mode A's configuration)
     got = prefix_path(torch, kernels, zero, params, cfg, tok, temporal,
                       spatial, per_req, card)
+    launches = {k: launches[k] + got[k] for k in launches}
+
+    # path G: continuous batching and the HTTP server (mode A's tree)
+    got = continuous_path(torch, kernels, zero, params, cfg, tok, temporal,
+                          spatial, per_req, card)
     launches = {k: launches[k] + got[k] for k in launches}
 
     weight_only = InferenceEngine(params, cfg, tok, gen_cfg, seed=SEED,

@@ -34,7 +34,13 @@ kept at batch 1), into a bf16 ``KVCache``, a ``QuantKVCache`` or, with
 1 and a per-row int8 tail. ``decode_step_shared`` and
 ``verify_step_shared`` attend over that cascade (``_cascade_attention``,
 plain torch as the JAX package's is plain XLA); the tail is written by K5
-and K9. Not ported yet: continuous batching (``decode_step(active=...)``).
+and K9.
+
+Continuous batching (serve/continuous.py) runs ``decode_step`` and
+``decode_step_shared`` with ``active`` [B]: an inactive row (a free or
+finished pool slot) still writes its step's k/v at its clamped slot, in the
+same K5 launch as every other row, but neither advances its length nor sets
+a valid slot, so it idles in place.
 """
 
 from __future__ import annotations
@@ -661,11 +667,19 @@ def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
     slot set). token_embeds [B, 1, D]; cache a KVCache or QuantKVCache;
     valid_mask [B, max_len] attendable slots; positions [B] of the new
     token. The caller's cache buffers are updated in place; the returned
-    cache shares them."""
-    if active is not None:
-        raise NotImplementedError(
-            "decode_step(active=...) (continuous batching) is not ported yet")
+    cache shares them.
+
+    active [B] bool (continuous-pool rows still generating; QuantKVCache
+    only): an inactive row's k/v are written at its clamped slot as any
+    row's, but its length does not advance and no valid slot is set, so the
+    next step writes the same slot again. None: every row active."""
     quant = isinstance(cache, QuantKVCache)
+    if active is not None and not quant:
+        # the bf16 write below is one shared slot for every row (uniform
+        # lengths, batch serving); ragged per-row slots would corrupt rows
+        raise NotImplementedError(
+            "decode_step(active=...) (continuous batching) requires a "
+            "QuantKVCache; the bf16 KVCache path writes one shared slot")
     B = token_embeds.shape[0]
     max_len = cache.max_len
     cos, sin = llm_rope_tables(cfg, positions[:, None], seq_len_hint=max_len)
@@ -719,13 +733,21 @@ def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
         for buf, new in ((cache.k, new_ks), (cache.v, new_vs)):
             buf.index_copy_(2, slot_idx,
                             torch.stack(new)[:, :, None].to(buf.dtype))
-    new_cache = cache._replace(length=cache.length + 1)
+    new_cache = cache._replace(length=cache.length + _advance(active))
     slot = (torch.arange(max_len, device=valid_mask.device)[None, :]
             == write_idx[:, None])
+    if active is not None:
+        slot = slot & active[:, None]
     valid_mask = valid_mask.bool() | slot
     x = rms_norm(x, params["final_norm_w"], cfg.rms_eps)
     logits = logits_from_hidden(params, x)[:, 0]
     return logits, new_cache, valid_mask
+
+
+def _advance(active: Optional[torch.Tensor]):
+    """What a decode step adds to each row's length: 1, or 1 on the active
+    rows of a continuous pool and 0 on the others."""
+    return 1 if active is None else active.to(torch.int32)
 
 
 def verify_step(params, cfg: LLMConfig, token_embeds: torch.Tensor, cache,
@@ -897,10 +919,7 @@ def decode_step_shared(params, cfg: LLMConfig, token_embeds: torch.Tensor,
     is read once per layer for the whole batch. token_embeds [B, 1, D];
     tail_valid [B, Mt]; positions [B]; rope_hint: the LongRoPE hint of the
     equivalent single cache (default Sp + Mt). The tail's buffers are
-    updated in place."""
-    if active is not None:
-        raise NotImplementedError("decode_step_shared(active=...) "
-                                  "(continuous batching) is not ported yet")
+    updated in place. active [B]: decode_step's, on the tail."""
     tail = cache.tail
     Sp, Mt = cache.pk.shape[3], tail.max_len
     cos, sin = llm_rope_tables(
@@ -918,9 +937,11 @@ def decode_step_shared(params, cfg: LLMConfig, token_embeds: torch.Tensor,
                   [kq, ksc, vq, vsc], write_idx)
     slot = (torch.arange(Mt, device=tail_valid.device)[None, :]
             == write_idx[:, None])
+    if active is not None:
+        slot = slot & active[:, None]
     logits = logits_from_hidden(params, x)[:, 0]
-    return (logits, cache._replace(tail=tail._replace(length=tail.length + 1)),
-            tail_valid.bool() | slot)
+    tail = tail._replace(length=tail.length + _advance(active))
+    return logits, cache._replace(tail=tail), tail_valid.bool() | slot
 
 
 def verify_step_shared(params, cfg: LLMConfig, token_embeds: torch.Tensor,

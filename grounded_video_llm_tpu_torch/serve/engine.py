@@ -48,8 +48,13 @@ calls sum their phases over the call in ``last_timings`` (encode with
 not hidden under device work) and hold every row's tokens, in input
 order, in ``last_tokens``.
 
-Not ported yet: beam search, continuous batching
-(``make_continuous_request`` and its prefix-KV LRU ``prefix_kv_cached``).
+Continuous batching (serve/continuous.py, serve/server.py):
+``make_continuous_request`` builds a pool Request through the feature
+cache, or, with the pool's max_len as ``prefix_rope_hint``, a prefix-backed
+one whose prefix K/V come from a device LRU of ``prefix_kv_cache_size``
+entries (``prefix_kv_cached``).
+
+Not ported yet: beam search.
 """
 
 from __future__ import annotations
@@ -98,7 +103,8 @@ class InferenceEngine:
     def __init__(self, params, cfg: VLMConfig, tokenizer,
                  gen_cfg: Optional[GenerateConfig] = None, seed: int = 42,
                  device=None, quantize: Optional[str] = None,
-                 static_scales: bool = False, feature_cache_size: int = 8):
+                 static_scales: bool = False, feature_cache_size: int = 8,
+                 prefix_kv_cache_size: int = 2):
         if quantize not in (None, "int8", "int8_full"):
             raise ValueError(f"quantize={quantize!r}: expected None, 'int8' "
                              "or 'int8_full'")
@@ -138,6 +144,10 @@ class InferenceEngine:
         # (features [NV, H] on the host, duration); 0 disables it
         self.feature_cache_size = feature_cache_size
         self._feature_cache: OrderedDict = OrderedDict()
+        # prefix-KV LRU of continuous batching (prefix_kv_cached): device
+        # bf16 K/V, ~1.4 GB an entry at Phi-3.5's width
+        self.prefix_kv_cache_size = prefix_kv_cache_size
+        self._prefix_cache: OrderedDict = OrderedDict()
 
     # -- input construction -------------------------------------------------
 
@@ -507,6 +517,80 @@ class InferenceEngine:
             attn_mask = np.concatenate(
                 [np.zeros((k, short), np.int32), attn_mask], axis=1)
         return input_ids, attn_mask
+
+    def _pad_bucket(self, seq, prompt_len: int):
+        """One token list left-padded to exactly prompt_len → ids, mask
+        [prompt_len]."""
+        input_ids, attn_mask = self._pad_bucket_batch([seq], prompt_len)
+        return input_ids[0], attn_mask[0]
+
+    def prefix_kv_cached(self, video_path: str, pre_ids, features,
+                         rope_hint: int):
+        """The bf16 prefix K/V (build_prefix_kv: k, v, mask on the device)
+        of a video's [pre-image text | video tokens] head through an LRU of
+        prefix_kv_cache_size entries, keyed on the video file's stat, the
+        pre-image ids and the hint. Eviction does not free a prefix that a
+        queued Request still holds."""
+        try:
+            vid_key = self._video_key(video_path)
+        except OSError:
+            vid_key = (video_path,)
+        key = (vid_key, tuple(pre_ids), rope_hint)
+        hit = self._prefix_cache.get(key)
+        if hit is not None:
+            self._prefix_cache.move_to_end(key)
+            return hit
+        pre = torch.tensor([list(pre_ids)], device=self.device)
+        entry = build_prefix_kv(self.params, self.cfg, pre,
+                                torch.ones_like(pre),
+                                self._dev(torch.as_tensor(features)[None]),
+                                rope_hint)
+        self._prefix_cache[key] = entry
+        while len(self._prefix_cache) > max(1, self.prefix_kv_cache_size):
+            self._prefix_cache.popitem(last=False)
+        return entry
+
+    def make_continuous_request(self, video_path: str, prompt: str,
+                                mode: str = "qa", prompt_len: int = 64,
+                                max_new_tokens: Optional[int] = None,
+                                on_token=None,
+                                prefix_rope_hint: Optional[int] = None):
+        """→ (a feature-backed continuous-batching Request, the video's
+        duration): the features come through the feature cache, so a
+        repeated video skips the encoders at admission; the prompt is
+        left-padded to the prompt_len bucket, and a prompt whose <image>
+        slot the bucket would cut raises.
+
+        prefix_rope_hint (the pool's max_len): a prefix-backed Request
+        instead, the video's [system | video tokens] head from
+        prefix_kv_cached and only the post-image question chunk in the
+        bucket; same-video requests share the prefix tensors."""
+        from .continuous import Request
+
+        features, duration = self.encode_video_cached(video_path)
+        seq = self.tokenize_prompt(self.build_prompt(prompt, mode, duration))
+        if prefix_rope_hint is not None:
+            img = seq.index(IMAGE_TOKEN_INDEX)
+            prefix = self.prefix_kv_cached(video_path, seq[:img], features,
+                                           prefix_rope_hint)
+            input_ids, attn_mask = self._pad_bucket(seq[img + 1:], prompt_len)
+            return Request(input_ids=input_ids, attn_mask=attn_mask,
+                           spatial_pixels=None, temporal_pixels=None,
+                           max_new_tokens=max_new_tokens, on_token=on_token,
+                           prefix=prefix), duration
+        input_ids, attn_mask = self._pad_bucket(seq, prompt_len)
+        if not np.any(input_ids == IMAGE_TOKEN_INDEX):
+            # the tail-keeping cut dropped the image slot: the splice would
+            # put the video at slot 0
+            raise ValueError(
+                f"prompt ({len(seq)} tokens) overflows the prompt_len="
+                f"{prompt_len} bucket past the <image> token; raise the "
+                "server's prompt_len (or enable prefix_cache, which keeps "
+                "the pre-image head out of the bucket)")
+        return Request(input_ids=input_ids, attn_mask=attn_mask,
+                       spatial_pixels=None, temporal_pixels=None,
+                       max_new_tokens=max_new_tokens, on_token=on_token,
+                       features=features), duration
 
     def run_stream_prefix(self, video_paths: List[str], prompts: List[str],
                           mode: str = "qa", batch_size: int = 6,

@@ -271,10 +271,6 @@ def test_prefill_continue_refusals(micro):
         tllm.prefill_continue(*args, tk.expand(-1, 3, -1, -1, -1),
                               tv.expand(-1, 3, -1, -1, -1),
                               tm.expand(3, -1), max_len, tail_len=128)
-    with pytest.raises(NotImplementedError):
-        tllm.decode_step_shared(tp["llm"], cfg.llm, emb[:, :1], None, None,
-                                torch.zeros(3, dtype=torch.int32),
-                                active=torch.ones(3, dtype=torch.bool))
 
 
 def _cascade_steps(cfg, jl_params, tl_params, jpre, tpre, post_ids, post_mask,

@@ -96,7 +96,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    leaf's gradient;
 5. the main path, full-width Phi-3.5 (vlm_config("phi3.5",
    stage="inference"), seeded random weights) on one seeded synthetic
-   96-frame video resized once: a bf16 request, then the int8 modes through
+   96-frame video resized once by the engine's host preprocessing on the
+   native route, which is required ([resize]: cpp/pil_resize.cc built
+   alone with g++ by ops/host_build.py, ms per video, and 4 frames native
+   against numpy, bit-equal): a bf16 request, then the int8 modes through
    InferenceEngine.generate, greedy, 32 new tokens:
      A  quantize="int8_full", int8 KV cache, B = 6 prompts (each of the three
         modes twice, different text, ragged left padding);
@@ -141,6 +144,22 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
         text, a bad request answered 400); per round the wall time,
         tokens/s, admission and chunk-step times, time to first token and
         peak memory, tagged with the card.
+     H  the evaluation runner, cli/eval.py's in-process run_benchmark, in
+        path A's configuration (16 new tokens, feature LRU of 8) over 35
+        synthetic videos (96 frames of 240x320 each, durations 30-120 s,
+        behind placeholder files under build/chip_smoke_eval/, resized
+        natively by the engine's preprocessing): 105 Charades-STA items
+        from a charades_sta annotation file with --prefix_cache (35
+        prefixes; the encodes the LRU implies), the first 12 again (their
+        videos re-encode), multiple choice and grounded QA (6 items each)
+        through run_stream_cached, dense captioning of 2 videos through
+        run_stream; each call counted like a path, its metric keys the
+        JAX package's, items/s and the phase sums printed; then beam
+        search (num_beams=4, 32 tokens): bf16 B=1 (K1/K2 only) and
+        int8_full B=2 (per step 129 weight-only int8_matmul on the bf16
+        cache), num_beams=1 equal to the bf16 request's greedy tokens, ms
+        per step beside the cache reorder's share, and the joint log-prob
+        of the best beam and of greedy (a reading, not a gate).
    Each path runs with every launch count set to 0 just before it; its
    counts are read just after and held against the counts the config
    implies. Phase times, peak device memory, and a shape/finiteness check of
@@ -2776,6 +2795,48 @@ def small_reference_train(torch, cfg_full, seed):
 # ---------------------------------------------------------------------------
 
 
+def resize_phase(engine, frames, card):
+    """The engine's host resize of one video (96 frames to 224, the 12
+    segment frames to 336) on the native route, which it requires (the
+    standalone build of cpp/pil_resize.cc where the host has no decoder
+    library); then 4 frames at the temporal size through the native and
+    the numpy route, bit-equal, each timed → (temporal, spatial, ms)."""
+    from grounded_video_llm_tpu_torch.ops import pil_resize
+
+    pil_resize.reset_native_cache()
+    t0 = time.perf_counter()
+    pil_resize._native_lib()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    temporal, spatial = engine.preprocess_frames(frames)
+    ms = (time.perf_counter() - t0) * 1e3
+    calls = dict(pil_resize.ROUTE_CALLS)
+    log(f"[resize] library {pil_resize.NATIVE_LIBRARY} (loaded or built in "
+        f"{build_s:.2f} s; {pil_resize.NATIVE_ERROR or 'no build error'}); "
+        f"route calls {calls}")
+    if calls != {"native": 2, "numpy": 0}:
+        raise AssertionError(f"the host resize did not run natively: {calls}"
+                             f" ({pil_resize.NATIVE_ERROR})")
+    four = np.ascontiguousarray(frames[:4])
+    h, w = four.shape[1:3]
+    rh, rw = pil_resize.resized_shape_torchvision(h, w, 224)
+    t0 = time.perf_counter()
+    native = pil_resize.resize_bicubic_batch_u8(four, rh, rw)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    plain = np.stack([pil_resize._resize_np(f, rh, rw) for f in four])
+    numpy_ms = (time.perf_counter() - t0) * 1e3
+    equal = bool(np.array_equal(native, plain))
+    log(f"[resize] one video ({frames.shape[0]} frames of {h}x{w} to 224, "
+        f"{engine.cfg.num_segs} segment frames to 336), native: {ms:.1f} "
+        f"ms/video; 4 frames to {rh}x{rw}: native {native_ms:.2f} ms, numpy "
+        f"{numpy_ms:.1f} ms ({numpy_ms / native_ms:.0f}x), bit-equal "
+        f"{equal}; {card}")
+    if not equal:
+        raise AssertionError("native resize differs from the numpy route")
+    return temporal, spatial, ms
+
+
 def run_path(torch, kernels, name, fn, expect_fn):
     """Counts to 0, run fn() → timings, read the counts, hold them against
     expect_fn(timings)."""
@@ -3970,6 +4031,356 @@ def continuous_path(torch, kernels, zero, params, cfg, tok, temporal,
     return launches
 
 
+# path H: the evaluation runner (cli/eval.py's in-process runner) at full
+# width, and beam search
+EVAL_VIDEOS = 35        # synthetic videos, each from its own seed
+EVAL_PER_VIDEO = 3      # grounding items a video, listed together
+EVAL_NEW_TOKENS = 16
+EVAL_RERUN = 12         # the first items (4 videos) run again
+EVAL_FEATURE_CACHE = 8  # the engine's feature LRU
+EVAL_QUERIES = ("a person opens a door", "a person sits on a chair",
+                "someone is cooking at the stove", "a person puts a book "
+                "away", "a person turns off the light", "someone drinks from "
+                "a cup", "a person walks through the doorway", "a person "
+                "takes off their shoes", "someone is laughing on the sofa",
+                "a person closes the window")
+BEAM_K = 4
+
+
+def eval_video(seed: int, n_frames: int = 96, h: int = 240, w: int = 320):
+    """Seeded uint8 frames [F, h, w, 3] for path H: moving waves of a
+    random phase and frequency per channel plus uniform noise, made in a
+    few vectorized passes (synthetic_video's per-frame draws would cost
+    about 1 s a video on the host)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    t = (0.2 * np.arange(n_frames, dtype=np.float32))[:, None, None]
+    out = np.empty((n_frames, h, w, 3), np.uint8)
+    for c in range(3):
+        a = xx / rng.uniform(10, 30) + yy / rng.uniform(15, 35) \
+            + rng.uniform(0, 2 * np.pi)
+        wave = np.sin(a)[None] * np.cos(t) + np.cos(a)[None] * np.sin(t)
+        noise = rng.integers(-12, 13, (n_frames, h, w), dtype=np.int16)
+        out[..., c] = np.clip(127.5 + 90 * wave + noise, 0, 255)
+    return out
+
+
+def lru_encodes(lru: list, size: int, paths) -> int:
+    """The encodes the engine's feature LRU makes for encode_video_cached
+    calls on paths, in order; lru (most recent last) is updated."""
+    n = 0
+    for p in paths:
+        if p in lru:
+            lru.remove(p)
+        else:
+            n += 1
+        lru.append(p)
+        del lru[:max(0, len(lru) - size)]
+    return n
+
+
+def eval_path(torch, kernels, zero, params, cfg, tok, per_req, card):
+    """Path H: cli/eval.py's in-process runner (run_benchmark) on mode A's
+    tree (int8_full, int8 cache, batches of 6, greedy, EVAL_NEW_TOKENS) over
+    EVAL_VIDEOS synthetic videos (96 frames of 240x320 each, durations
+    30-120 s) behind placeholder files under build/chip_smoke_eval/: the
+    engine's preprocess_video makes each video's frames and resizes them
+    with its own preprocessing, on the native route (required).
+      1. grounding: EVAL_VIDEOS * EVAL_PER_VIDEO Charades-STA items, a
+         video's items listed together, from an annotation file in the
+         charades_sta format read by the CLI's loader, with --prefix_cache:
+         run_stream_prefix, one prefix a video, the encodes the feature LRU
+         (EVAL_FEATURE_CACHE videos) implies;
+      2. the first EVAL_RERUN items again (evicted videos encode again);
+      3. multiple choice (6 items) and grounded QA (6 items) on two videos
+         each through run_stream_cached;
+      4. dense captioning of 2 videos through run_stream.
+    Each call is counted like a path; the metric keys must be the JAX
+    package's. → (summed launch counts, the engine)."""
+    from grounded_video_llm_tpu_torch.cli import eval as cli_eval
+    from grounded_video_llm_tpu_torch.core.config import GenerateConfig
+    from grounded_video_llm_tpu_torch.ops import pil_resize
+    from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
+
+    t_path = time.perf_counter()
+    nl = cfg.llm.num_layers
+    enc = per_req - nl                      # K1 launches of one encode
+    eng = InferenceEngine(
+        params, cfg, tok, GenerateConfig(max_new_tokens=EVAL_NEW_TOKENS,
+                                         do_sample=False, temperature=0.0,
+                                         quantize_cache=True),
+        seed=SEED, quantize="int8_full",
+        feature_cache_size=EVAL_FEATURE_CACHE)
+    vdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_eval")
+    shutil.rmtree(vdir, ignore_errors=True)
+    os.makedirs(vdir)
+    names = [f"ev{i:02d}" for i in range(EVAL_VIDEOS)]
+    durations = {}
+    for i, name in enumerate(names):
+        with open(os.path.join(vdir, name + ".mp4"), "wb") as f:
+            f.write(name.encode())
+        durations[os.path.join(vdir, name + ".mp4")] = round(
+            30.0 + 90.0 * i / (EVAL_VIDEOS - 1), 1)
+    seeds = {p: 1000 + i for i, p in enumerate(durations)}
+    preps = []
+
+    def preprocess_video(path):
+        temporal, spatial = eng.preprocess_frames(
+            eval_video(seeds[path], cfg.num_frames))
+        preps.append(path)
+        return temporal, spatial, durations[path]
+
+    eng.preprocess_video = preprocess_video
+    rng = np.random.default_rng(SEED)
+    lines = []
+    for i, name in enumerate(names):
+        d = durations[os.path.join(vdir, name + ".mp4")]
+        for j in range(EVAL_PER_VIDEO):
+            s0, s1 = sorted(rng.uniform(0, d, 2))
+            q = EVAL_QUERIES[(EVAL_PER_VIDEO * i + j) % len(EVAL_QUERIES)]
+            lines.append(f"{name} {s0:.1f} {s1:.1f}##{q}")
+    anno = os.path.join(vdir, "charades_sta_test.txt")
+    with open(anno, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    base = ["--allow_random_weights", "--quantize", "int8_full",
+            "--max_new_tokens", str(EVAL_NEW_TOKENS), "--video_root", vdir]
+    keys = {"grounding": {"R1@0.3", "R1@0.5", "R1@0.7", "mIoU"},
+            "mc": {"accuracy"}, "gqa": {"GQA", "mIoP", "mIoU", "Acc"},
+            "captioning": {"SODA_c", "METEOR"}}
+    lru: list = []
+    launches = dict(zero)
+    pil_resize.ROUTE_CALLS.update(native=0, numpy=0)
+
+    def bench(name, argv, prefix, want_encodes, n_batches, route):
+        """One run_benchmark call, counted like a path."""
+        args = cli_eval.parse_args(base + argv)
+        eng.prefix_cache = prefix
+        out = {}
+
+        def fn():
+            t0 = time.perf_counter()
+            out["result"] = cli_eval.run_benchmark(eng, args)
+            out["wall"] = time.perf_counter() - t0
+            return eng.last_timings
+
+        def expect(t):
+            s = t["decode_steps"]
+            flash = {"prefix": t.get("encodes", 0) * enc
+                     + t.get("prefixes", 0) * nl,
+                     "cached": t.get("encodes", 0) * enc + n_batches * nl,
+                     "plain": n_batches * per_req}[route]
+            return dict(zero, flash_fwd=flash, int8_gemv=4 * nl * s,
+                        decode_attention_int8=0 if route == "prefix"
+                        else nl * s,
+                        scatter_write=s, int8_matmul=n_batches + s)
+
+        got = run_path(torch, kernels, f"H {name}", fn, expect)
+        for k in launches:
+            launches[k] += got[k]
+        t, r = eng.last_timings, out["result"]
+        m = r["metrics"]
+        bad = []
+        if set(m) != keys[args.benchmark]:
+            bad.append(f"metric keys {sorted(m)}")
+        if not all(np.isfinite(v) and 0.0 <= v <= 100.0 for v in m.values()):
+            bad.append(f"metric values {m}")
+        if want_encodes is not None and t.get("encodes", 0) != want_encodes:
+            bad.append(f"{t.get('encodes', 0)} encodes, the LRU implies "
+                       f"{want_encodes}")
+        log(f"[path] H {name}: {r['n_items']} items in {out['wall']:.2f} s, "
+            f"{r['n_items'] / out['wall']:.3f} items/s; encode "
+            f"{t.get('encode', 0.0):.3f} s ({t.get('encodes', 0)} encodes),"
+            f" prefix {t.get('prefix', 0.0):.3f} s ({t.get('prefixes', 0)} "
+            f"prefixes), prefill {t['prefill']:.3f} s, decode "
+            f"{t['decode']:.3f} s ({t['decode_steps']} steps, "
+            f"{t['decode'] * 1e3 / max(t['decode_steps'], 1):.2f} ms/step), "
+            f"preprocess waited {t.get('preprocess', 0.0):.3f} s; metrics "
+            f"{json.dumps(m)}; {card}")
+        if bad:
+            raise AssertionError(f"path H {name}: " + "; ".join(bad))
+        return r, t
+
+    # 1. grounding, prefix route: encodes in first-appearance order
+    paths = [os.path.join(vdir, name + ".mp4") for name in names]
+    n_items = EVAL_VIDEOS * EVAL_PER_VIDEO
+    r, t = bench("1 grounding charades_sta --prefix_cache",
+                 ["--benchmark", "grounding", "--anno_format",
+                  "charades_sta", "--anno_path", anno, "--prefix_cache"],
+                 True, lru_encodes(lru, EVAL_FEATURE_CACHE, paths),
+                 EVAL_VIDEOS, "prefix")
+    if r["n_items"] != n_items or t["prefixes"] != EVAL_VIDEOS:
+        raise AssertionError(f"path H: {r['n_items']} items, "
+                             f"{t['prefixes']} prefixes")
+    # 2. the first items again: their videos left the LRU
+    rerun = paths[:EVAL_RERUN // EVAL_PER_VIDEO]
+    r, t = bench(f"2 grounding, the first {EVAL_RERUN} items again",
+                 ["--benchmark", "grounding", "--anno_format",
+                  "charades_sta", "--anno_path", anno, "--prefix_cache",
+                  "--max_items", str(EVAL_RERUN)], True,
+                 lru_encodes(lru, EVAL_FEATURE_CACHE, rerun), len(rerun),
+                 "prefix")
+    # 3. multiple choice and grounded QA on two videos each, cached route
+    mc_videos, gqa_videos = names[4:6], names[0:2]
+    opts = ["a kitchen", "a bedroom", "a garage", "a garden"]
+    mc = [{"video": mc_videos[i % 2] + ".mp4",
+           "question": f"Where does scene {i} take place?",
+           "options": opts, "answer": "ABCD"[i % 4]} for i in range(6)]
+    gqa = [{"video": gqa_videos[i % 2] + ".mp4",
+            "question": f"What does the person hold in shot {i}?",
+            "options": ["a cup", "a book", "a phone"], "answer": i % 3,
+            "start": 2.0 + i, "end": 9.0 + 2 * i} for i in range(6)]
+    for name, items, vids in (("mc", mc, mc_videos), ("gqa", gqa,
+                                                      gqa_videos)):
+        path = os.path.join(vdir, f"{name}.json")
+        with open(path, "w") as f:
+            json.dump(items, f)
+        order = sorted(os.path.join(vdir, it["video"]) for it in items)
+        bench(f"3 {name} (run_stream_cached)",
+              ["--benchmark", name, "--anno_path", path], False,
+              lru_encodes(lru, EVAL_FEATURE_CACHE, order), 1, "cached")
+    # 4. dense captioning of two videos (run_stream: one batch of 2)
+    caps = {names[v]: {"duration": durations[paths[v]],
+                       "timestamps": [[0.0, 10.0], [12.0, 25.0]],
+                       "sentences": ["A person opens the door.",
+                                     "The person sits down."]}
+            for v in (EVAL_VIDEOS // 3, 2 * EVAL_VIDEOS // 3)}
+    cap_path = os.path.join(vdir, "captions.json")
+    with open(cap_path, "w") as f:
+        json.dump(caps, f)
+    preps_before = len(preps)
+    bench("4 captioning (run_stream)", ["--benchmark", "captioning",
+                                        "--anno_path", cap_path,
+                                        "--batch_size", "2"], False, None, 1,
+          "plain")
+    if len(preps) - preps_before != 2:
+        raise AssertionError("path H: captioning preprocessed "
+                             f"{len(preps) - preps_before} videos, want 2")
+    calls = dict(pil_resize.ROUTE_CALLS)
+    log(f"[path] H host resizes {calls} for {len(preps)} preprocessed videos"
+        f" (2 each: the frames, the segment frames); path H wall "
+        f"{time.perf_counter() - t_path:.1f} s; {card}")
+    if calls != {"native": 2 * len(preps), "numpy": 0}:
+        raise AssertionError(f"path H: resize routes {calls}")
+    shutil.rmtree(vdir, ignore_errors=True)
+    return launches, eng
+
+
+def sequence_logprob(torch, llm, vlm, params, cfg, ids, mask, sp, tp, tokens,
+                     eos):
+    """Teacher-forced joint log-prob of each row's tokens [B, T] after its
+    prompt, up to and including its first EOS: one forward over
+    [prompt ; tokens[:, :-1]] → [B] fp64 on the host."""
+    with torch.inference_mode():
+        feats = vlm.encode_video(params, cfg, sp, tp)
+        embeds, _, m = vlm.splice_multimodal(ids, None, mask, feats,
+                                             params["llm"]["embed"])
+        S = embeds.shape[1]
+        emb = llm.embed_lookup(params["llm"]["embed"], tokens[:, :-1],
+                               embeds.dtype)
+        full = torch.cat([embeds, emb], dim=1)
+        fm = torch.cat([m, torch.ones_like(tokens[:, :-1])], dim=1)
+        hidden = llm.forward_hidden(params["llm"], cfg.llm, full, fm)
+        logits = llm.logits_from_hidden(params["llm"], hidden[:, S - 1:])
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        picked = logp.gather(-1, tokens[..., None])[..., 0].double().cpu()
+    out = []
+    for row, lp in zip(tokens.cpu(), picked):
+        hit = (row == eos).nonzero()
+        n = int(hit[0]) + 1 if len(hit) else len(row)
+        out.append(float(lp[:n].sum()))
+    return out
+
+
+def beam_path(torch, kernels, zero, bf16, full, cfg, temporal, spatial,
+              greedy, per_req, card):
+    """Beam search at full width on phase 5's frames: a bf16 B=1 request
+    with num_beams=BEAM_K and MAX_NEW_TOKENS (K1/K2 only: the bf16 decode
+    attention is eager), then an int8_full B=2 one (the bf16 cache: per
+    step 4·nl weight-only K3 at 8 rows and K6 on the lm_head), counted like
+    paths; num_beams=1 must give the bf16 B=1 path's greedy tokens; tokens
+    in the vocabulary and lengths equal to their non-pad counts; ms per
+    step and the share of a step the cache reorder takes (the two
+    index_selects of a step, timed alone); the joint log-prob of the best
+    beam and of greedy by one teacher-forced forward, a reading: beam
+    search does not promise the higher one. → summed launch counts."""
+    from grounded_video_llm_tpu_torch.core.config import GenerateConfig
+    from grounded_video_llm_tpu_torch.models import llm, vlm
+    from grounded_video_llm_tpu_torch.serve.beam import beam_search_tokens
+    from grounded_video_llm_tpu_torch.serve.generate import _ceil128
+
+    nl = cfg.llm.num_layers
+    launches = dict(zero)
+    duration = 96.0
+    eos, pad = bf16.tokenizer.eos_token_id, bf16.tokenizer.pad_token_id
+    V = cfg.llm.padded_vocab_size
+    gen = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
+                         num_beams=BEAM_K)
+    checks = []
+    for name, eng, pairs, k6 in (
+            ("bf16 B=1", bf16, [MODES[0]], 0),
+            ("int8_full B=2", full, [MODES[0], MODES[1]], 4 * nl + 1)):
+        prompts = [eng.build_prompt(p, m, duration) for m, p in pairs]
+
+        def fn(eng=eng, prompts=prompts):
+            eng.generate(prompts, temporal, spatial, gen)
+            return eng.last_timings
+
+        got = run_path(torch, kernels, f"beam{BEAM_K} {name}", fn,
+                       expect_counts(zero, nl, per_req, 0, False, k6))
+        launches = {k: launches[k] + got[k] for k in launches}
+        t = eng.last_timings
+        tokens, lengths = eng.last_tokens
+        ok = bool(((tokens >= 0) & (tokens < V)).all()) and torch.equal(
+            lengths, (tokens != pad).sum(-1))
+        checks.append(ok)
+        step_ms = t["decode"] * 1e3 / max(t["decode_steps"], 1)
+        ids, mask = eng._batch_ids(prompts)
+        B = len(prompts)
+        S_full = ids.shape[1] - 1 + cfg.num_video_tokens
+        L = cfg.llm
+        shape = (nl, B * BEAM_K, _ceil128(S_full + MAX_NEW_TOKENS),
+                 L.num_kv_heads, L.head_dim)
+        kv = [torch.zeros(shape, dtype=torch.bfloat16, device=eng.device)
+              for _ in range(4)]
+        gidx = torch.arange(B * BEAM_K, device=eng.device).flip(0)
+
+        def reorder():
+            torch.index_select(kv[0], 1, gidx, out=kv[2])
+            torch.index_select(kv[1], 1, gidx, out=kv[3])
+
+        reorder_ms = cuda_ms(torch, reorder, 5)
+        del kv
+        log(f"[beam] {name}, num_beams={BEAM_K}: {t['decode_steps']} steps "
+            f"of {step_ms:.2f} ms (host clock), the cache reorder "
+            f"({2 * np.prod(shape) * 2 / 2**30:.2f} GiB gathered a step) "
+            f"{reorder_ms:.3f} ms, share {reorder_ms / step_ms:.3f}; tokens "
+            f"in the vocabulary, lengths the non-pad counts: {ok}; "
+            f"{card}")
+        if name == "bf16 B=1":
+            sp = eng._dev(spatial[None])
+            tp = eng._dev(temporal[None])
+            ids_t, mask_t = eng._dev(ids).long(), eng._dev(mask).long()
+            one, _ = beam_search_tokens(
+                eng.params, cfg, ids_t, mask_t, sp, tp,
+                max_new_tokens=MAX_NEW_TOKENS, num_beams=1,
+                eos_token_id=eos, pad_token_id=pad)
+            same = torch.equal(one.cpu(), greedy)
+            checks.append(same)
+            lp_beam, lp_greedy = (sequence_logprob(
+                torch, llm, vlm, eng.params, cfg, ids_t, mask_t, sp, tp,
+                x.to(eng.device), eos)[0] for x in (tokens, greedy))
+            log(f"[beam] bf16 B=1 num_beams=1 tokens equal to the bf16 B=1 "
+                f"path's greedy tokens: {same}; joint log-prob by one "
+                f"teacher-forced forward (a reading, not a gate): best of "
+                f"{BEAM_K} beams {lp_beam:.4f}, greedy {lp_greedy:.4f}; "
+                f"{card}")
+    if not all(checks):
+        raise AssertionError("beam search at full width: a check failed")
+    torch.cuda.empty_cache()
+    return launches
+
+
 STATIC_REPS = 1     # rounds of microbench/static_scales in the path
 
 
@@ -4660,10 +5071,7 @@ def main() -> int:
                                     m1, m2, *m3)}
 
     frames = synthetic_video(SEED, cfg.num_frames)
-    t0 = time.perf_counter()
-    temporal, spatial = bf16.preprocess_frames(frames)
-    resize_ms = (time.perf_counter() - t0) * 1e3
-    log(f"[path] host resize of the 96 frames, once: {resize_ms:.1f} ms")
+    temporal, spatial, resize_ms = resize_phase(bf16, frames, card)
 
     # ---- 4. small references
     for quantize in (None, "int8", "int8_full"):
@@ -4702,6 +5110,7 @@ def main() -> int:
                                                          gen_cfg),
                    expect(per_req, 0, False, 0))
     launches = {k: launches[k] + got[k] for k in launches}
+    greedy_bf16 = bf16.last_tokens[0].clone()
 
     full = InferenceEngine(params, cfg, tok, gen_int8, seed=SEED,
                            quantize="int8_full")
@@ -4776,6 +5185,16 @@ def main() -> int:
     got = continuous_path(torch, kernels, zero, params, cfg, tok, temporal,
                           spatial, per_req, card)
     launches = {k: launches[k] + got[k] for k in launches}
+
+    # path H: the evaluation runner (mode A's tree), then beam search
+    got, full = eval_path(torch, kernels, zero, params, cfg, tok, per_req,
+                          card)
+    launches = {k: launches[k] + got[k] for k in launches}
+    got = beam_path(torch, kernels, zero, bf16, full, cfg, temporal, spatial,
+                    greedy_bf16, per_req, card)
+    launches = {k: launches[k] + got[k] for k in launches}
+    del full
+    torch.cuda.empty_cache()
 
     weight_only = InferenceEngine(params, cfg, tok, gen_cfg, seed=SEED,
                                   quantize="int8")

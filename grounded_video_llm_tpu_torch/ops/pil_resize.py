@@ -1,5 +1,8 @@
 # The port's own copy of grounded_video_llm_tpu/ops/pil_resize.py, which imports no
-# framework; tests/test_torch_shared_modules.py holds the two to each other.
+# framework, with one more native route: cpp/pil_resize.cc built alone
+# (ops/host_build.py) where the libav decoder library is absent.
+# tests/test_torch_shared_modules.py and tests/test_torch_host_resize.py hold
+# it to the original.
 """PIL-exact bicubic resize (uint8, fixed-point) — the reference's pixel path.
 
 The reference preprocesses every frame with torchvision's PIL backend:
@@ -24,16 +27,21 @@ bit-for-bit for 8-bit RGB:
     with the uint8 quantization BETWEEN the passes as PIL does.
 
 The numpy implementation is the portable oracle; the C++ twin
-(cpp/pil_resize.cc, bound below through video/native/decoder.py's .so) is
-the hot path for the single-core host pipeline. `resize_bicubic_u8`
-dispatches native→numpy and both are parity-tested against Pillow itself
-(tests/test_pil_resize.py) and against each other.
+(cpp/pil_resize.cc) is the hot path of the host pipeline. It is bound from
+video/native/decoder.py's .so where ``make -C cpp`` built it, else from the
+source built alone with g++ at first use (ops/host_build.py; a host without
+libav, such as the GPU host, has no decoder library). `resize_bicubic_u8`
+dispatches native→numpy; ``ROUTE_CALLS`` counts the batch calls each route
+served, so a caller can require the native one. Both are parity-tested
+against Pillow itself (tests/test_pil_resize.py) and against each other.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
+from pathlib import Path
 from typing import Tuple
 
 import numpy as np
@@ -114,32 +122,63 @@ def _resize_np(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 # native dispatch
 # ---------------------------------------------------------------------------
 
+NATIVE_SOURCE = Path(__file__).resolve().parents[2] / "cpp" / "pil_resize.cc"
+# batch resizes served by each route since import (or reset_native_cache)
+ROUTE_CALLS = {"native": 0, "numpy": 0}
+# the library the native route loaded, and why the standalone build failed
+NATIVE_LIBRARY = None
+NATIVE_ERROR = None
+
+_lock = threading.Lock()
 _native_checked = False
 _native = None
 
 
+def _bind(lib):
+    lib.gvd_pil_resize_batch_u8.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
+        ctypes.c_int]
+    lib.gvd_pil_resize_batch_u8.restype = ctypes.c_int
+    return lib
+
+
 def _native_lib():
-    global _native_checked, _native
-    if _native_checked:
+    """The decoder library where it exports the resize, else
+    cpp/pil_resize.cc built alone; None (the numpy route) where neither
+    loads."""
+    global _native_checked, _native, NATIVE_LIBRARY, NATIVE_ERROR
+    with _lock:
+        if _native_checked:
+            return _native
+        _native_checked = True
+        from ..video.native import decoder as nd
+        lib = nd._load()
+        if lib is not None and hasattr(lib, "gvd_pil_resize_batch_u8"):
+            _native, NATIVE_LIBRARY = _bind(lib), nd._LIB_PATH
+            return _native
+        from . import host_build
+        try:
+            so = host_build.build_library(NATIVE_SOURCE, "gvd_pil_resize")
+            _native, NATIVE_LIBRARY = _bind(ctypes.CDLL(str(so))), str(so)
+        except (OSError, RuntimeError) as e:
+            NATIVE_ERROR = str(e)
         return _native
-    _native_checked = True
-    from ..video.native import decoder as nd
-    lib = nd._load()
-    if lib is not None and hasattr(lib, "gvd_pil_resize_batch_u8"):
-        lib.gvd_pil_resize_batch_u8.argtypes = [
-            ctypes.POINTER(ctypes.c_uint8), ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.POINTER(ctypes.c_uint8), ctypes.c_int,
-            ctypes.c_int]
-        lib.gvd_pil_resize_batch_u8.restype = ctypes.c_int
-        _native = lib
-    return _native
 
 
 def reset_native_cache():
-    """Re-probe the .so (bench.py builds cpp/ after first import)."""
-    global _native_checked, _native
-    _native_checked = False
-    _native = None
+    """Re-probe the libraries (bench.py builds cpp/ after first import) and
+    zero the route counts."""
+    global _native_checked, _native, NATIVE_LIBRARY, NATIVE_ERROR
+    with _lock:
+        _native_checked = False
+        _native = NATIVE_LIBRARY = NATIVE_ERROR = None
+        ROUTE_CALLS.update(native=0, numpy=0)
+
+
+def _count(route: str) -> None:
+    with _lock:
+        ROUTE_CALLS[route] += 1
 
 
 def resize_bicubic_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
@@ -151,8 +190,8 @@ def resize_bicubic_u8(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
 def resize_bicubic_batch_u8(frames: np.ndarray, out_h: int,
                             out_w: int) -> np.ndarray:
     """uint8 [T, H, W, 3] → [T, out_h, out_w, 3], PIL-bit-exact. One C call
-    for the whole batch when the native library is built (the GIL is released
-    for the duration, so resize overlaps the TPU like decode does)."""
+    for the whole batch when the native library loads (the GIL is released
+    for the duration, so resize overlaps the device like decode does)."""
     assert frames.dtype == np.uint8 and frames.ndim == 4 and \
         frames.shape[-1] == 3, frames.shape
     T, h, w, _ = frames.shape
@@ -168,7 +207,9 @@ def resize_bicubic_batch_u8(frames: np.ndarray, out_h: int,
             out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
             ctypes.c_int(out_h), ctypes.c_int(out_w))
         if rc == 0:
+            _count("native")
             return out
+    _count("numpy")
     return np.stack([_resize_np(f, out_h, out_w) for f in frames])
 
 

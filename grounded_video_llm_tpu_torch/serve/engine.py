@@ -48,13 +48,21 @@ calls sum their phases over the call in ``last_timings`` (encode with
 not hidden under device work) and hold every row's tokens, in input
 order, in ``last_tokens``.
 
+``prefix_cache=True`` routes an evaluation's repeated videos through
+``run_stream_prefix`` rather than ``run_stream_cached``
+(serve/eval._run_items reads it).
+
 Continuous batching (serve/continuous.py, serve/server.py):
 ``make_continuous_request`` builds a pool Request through the feature
 cache, or, with the pool's max_len as ``prefix_rope_hint``, a prefix-backed
 one whose prefix K/V come from a device LRU of ``prefix_kv_cache_size``
 entries (``prefix_kv_cached``).
 
-Not ported yet: beam search.
+``GenerateConfig.num_beams > 1`` runs beam search (serve/beam.py) in
+``generate`` and the routes built on it (run, run_frames, run_batch,
+run_stream), on a cache in the activations' dtype whatever
+``quantize_cache`` says; the feature-cached and prefix routes refuse it, as
+the JAX engine's do.
 """
 
 from __future__ import annotations
@@ -79,6 +87,7 @@ from ..text.templates import (DEFAULT_IMAGE_TOKEN, GROUNDING_TOKEN,
 from ..text.tokenizer import pad_batch_generate, tokenize_with_image
 from ..train.lora import merge_lora
 from ..video.reader import read_frames
+from .beam import beam_search_tokens
 from .calibrate import calibrate_and_apply
 from .generate import (_ceil128, _PhaseClock, build_prefix_kv, decode_texts,
                        generate_tokens, generate_tokens_from_features,
@@ -104,7 +113,7 @@ class InferenceEngine:
                  gen_cfg: Optional[GenerateConfig] = None, seed: int = 42,
                  device=None, quantize: Optional[str] = None,
                  static_scales: bool = False, feature_cache_size: int = 8,
-                 prefix_kv_cache_size: int = 2):
+                 prefix_cache: bool = False, prefix_kv_cache_size: int = 2):
         if quantize not in (None, "int8", "int8_full"):
             raise ValueError(f"quantize={quantize!r}: expected None, 'int8' "
                              "or 'int8_full'")
@@ -144,6 +153,9 @@ class InferenceEngine:
         # (features [NV, H] on the host, duration); 0 disables it
         self.feature_cache_size = feature_cache_size
         self._feature_cache: OrderedDict = OrderedDict()
+        # evaluation's repeated videos through run_stream_prefix
+        # (serve/eval._run_items)
+        self.prefix_cache = prefix_cache
         # prefix-KV LRU of continuous batching (prefix_kv_cached): device
         # bf16 K/V, ~1.4 GB an entry at Phi-3.5's width
         self.prefix_kv_cache_size = prefix_kv_cache_size
@@ -199,9 +211,6 @@ class InferenceEngine:
         """temporal [B,F,224,224,3], spatial [B,segs,336,336,3] (or unbatched
         [F,...] / [segs,...] shared by every prompt)."""
         g = gen_cfg or self.gen_cfg
-        if g.num_beams > 1:
-            raise NotImplementedError(
-                "num_beams > 1: beam search is not ported yet")
         B = len(prompts)
         if temporal.ndim == 4:
             temporal = np.broadcast_to(temporal[None], (B, *temporal.shape))
@@ -217,7 +226,12 @@ class InferenceEngine:
                 self._dev(attn_mask).long(), self._dev(spatial),
                 self._dev(temporal), self.generator)
         kw = self._gen_kwargs(g, timings)
-        if g.spec_draft_len > 0:
+        if g.num_beams > 1:
+            tokens, lengths = beam_search_tokens(
+                *args[:-1], max_new_tokens=g.max_new_tokens,
+                num_beams=g.num_beams, eos_token_id=kw["eos_token_id"],
+                pad_token_id=kw["pad_token_id"], timings=timings)
+        elif g.spec_draft_len > 0:
             # greedy emits the model's own argmax whatever the drafts;
             # sampling uses the delta-draft rejection rule
             tokens, lengths = generate_tokens_spec(

@@ -16,7 +16,7 @@ real checkpoints load.
 from __future__ import annotations
 
 import os
-from typing import Dict
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -110,13 +110,20 @@ def run_quant_ab(params_bf16, params_quant, cfg: VLMConfig,
                  pad_token_id: int = 0,
                  max_kl: float = DEFAULT_MAX_KL,
                  min_top1: float = DEFAULT_MIN_TOP1,
-                 min_greedy: float = DEFAULT_MIN_GREEDY
+                 min_greedy: float = DEFAULT_MIN_GREEDY,
+                 free_bf16: Optional[Callable[[], None]] = None
                  ) -> Dict[str, object]:
     """The A/B: the same pipeline inputs (numpy arrays or tensors) through
     both trees, on the device of the bf16 tree's embedding; returns the
     metric dict with a 'pass' verdict against the thresholds. The quantized
-    leg decodes over the int8 KV cache. The default eos of -1 stops no row,
-    as in the JAX bar."""
+    leg decodes over the int8 KV cache. The default
+    eos of -1 stops no row, as in the JAX bar.
+
+    Memory protocol, as in the JAX package: the bf16 leg runs first and its
+    outputs move to the host; ``free_bf16`` (called then) drops the bf16
+    tree, and a zero-argument callable as params_quant builds the quantized
+    tree only after that, for models whose two trees do not fit the card
+    together."""
     embed = params_bf16["llm"]["embed"]
     device = getattr(embed, "q", embed).device
 
@@ -138,6 +145,11 @@ def run_quant_ab(params_bf16, params_quant, cfg: VLMConfig,
                 toks.cpu().numpy(), lens.cpu().numpy())
 
     logits_a, mask, toks_a, len_a = leg(params_bf16, False)
+    params_bf16 = embed = None      # the last references before free_bf16
+    if free_bf16 is not None:
+        free_bf16()
+    if callable(params_quant):
+        params_quant = params_quant()
     logits_b, _, toks_b, len_b = leg(params_quant, True)
 
     metrics: Dict[str, object] = {}

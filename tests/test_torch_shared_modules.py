@@ -1,24 +1,30 @@
 """The port's own copies of the JAX package's framework-free modules (core
 config, text codec, templates and tokenizer, frame sampling, the PIL-exact
 resize, the data loader, the logger and metric trackers, the dataset mixes
-with their host preprocessing) against their originals: same inputs, equal
-outputs."""
+with their host preprocessing, the Porter stemmer, the prompt pools, the IO
+helpers) against their originals: same inputs, equal outputs."""
 
 import dataclasses
 import json
 
 import numpy as np
 import pytest
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from grounded_video_llm_tpu.core import config as jcfg
 from grounded_video_llm_tpu.ops import pil_resize as jresize
 from grounded_video_llm_tpu.text import codec as jcodec
+from grounded_video_llm_tpu.text import porter as jporter
+from grounded_video_llm_tpu.text import prompt_pools as jpools
 from grounded_video_llm_tpu.text import templates as jtpl
 from grounded_video_llm_tpu.text import tokenizer as jtok
 from grounded_video_llm_tpu.video import sampling as jsamp
 from grounded_video_llm_tpu_torch.core import config as tcfg
 from grounded_video_llm_tpu_torch.ops import pil_resize as tresize
 from grounded_video_llm_tpu_torch.text import codec as tcodec
+from grounded_video_llm_tpu_torch.text import porter as tporter
+from grounded_video_llm_tpu_torch.text import prompt_pools as tpools
 from grounded_video_llm_tpu_torch.text import templates as ttpl
 from grounded_video_llm_tpu_torch.text import tokenizer as ttok
 from grounded_video_llm_tpu_torch.video import sampling as tsamp
@@ -209,3 +215,116 @@ def test_datasets_and_host_preprocess_copy(tmp_path):
         for key in ("temporal_pixel_values", "spatial_pixel_values"):
             assert items[0][key].dtype == np.float32
             np.testing.assert_array_equal(items[0][key], items[1][key])
+
+
+# the words of the Porter paper's examples, of dense-caption text, and of
+# every prompt pool
+PORTER_WORDS = {
+    "paper": ("caresses ponies ties caress cats feed agreed plastered bled "
+              "motoring sing conflated troubled sized hopping tanned falling "
+              "hissing fizzed failing filing happy sky relational "
+              "conditional rational valenci hesitanci digitizer "
+              "conformabli radicalli differentli vileli analogousli "
+              "vietnamization predication operator feudalism decisiveness "
+              "hopefulness callousness formaliti sensitiviti sensibiliti "
+              "triplicate formative formalize electriciti electrical "
+              "hopeful goodness revival allowance inference airliner "
+              "gyroscopic adjustable defensible irritant replacement "
+              "adjustment dependent adoption homologou communism activate "
+              "angulariti homologous effective bowdlerize probate rate "
+              "cease controll roll generalizations oscillators").split(),
+    "captions": ("A man is running quickly across the crowded fields while "
+                 "the children were playing happily; she opened the doors, "
+                 "closing them again, and sat down to eat her dinner. "
+                 "People dancing, singing, jumped, cycling, cooked "
+                 "meals").split(),
+    "pools": sorted({w for pool in jpools.POOLS.values() for p in pool
+                     for w in p.split()}),
+}
+
+
+@pytest.mark.parametrize("words", sorted(PORTER_WORDS))
+def test_porter_copy(words):
+    for w in PORTER_WORDS[words]:
+        w = w.lower().strip(".,;")
+        assert tporter.porter_stem(w) == jporter.porter_stem(w), w
+
+
+@settings(max_examples=200, deadline=None, derandomize=True)
+@given(st.text(alphabet="abcdefghijklmnopqrstuvwxyz", max_size=14))
+def test_porter_copy_free_words(word):
+    assert tporter.porter_stem(word) == jporter.porter_stem(word)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prompt_pools_copy(seed):
+    import random
+
+    assert tpools.POOLS == jpools.POOLS
+    for pool in sorted(jpools.POOLS):
+        assert (tpools.sample_prompt(pool, random.Random(seed))
+                == jpools.sample_prompt(pool, random.Random(seed)))
+
+
+@pytest.mark.parametrize("kind", ["json", "jsonl", "pkl", "csv"])
+def test_io_copy(kind, tmp_path):
+    """What one package's helpers write, both read alike."""
+    from grounded_video_llm_tpu.utils import io as jio
+    from grounded_video_llm_tpu_torch.utils import io as tio
+
+    rows = [{"video": "a.mp4", "start": "1.5"}, {"video": "b.mp4",
+                                                 "start": "2"}]
+    for writer in (tio, jio):
+        path = str(tmp_path / f"{writer.__name__.split('.')[0]}.{kind}")
+        if kind == "json":
+            writer.save_json(rows, path)
+        elif kind == "jsonl":
+            writer.save_jsonl(rows, path)
+        elif kind == "pkl":
+            import pickle
+            with open(path, "wb") as f:
+                pickle.dump(rows, f)
+        else:
+            with open(path, "w") as f:
+                f.write("video,start\na.mp4,1.5\nb.mp4,2\n")
+        for reader in (tio, jio):
+            got = getattr(reader, f"load_{kind}")(path)
+            assert got == rows
+
+
+@pytest.fixture(scope="module")
+def micro_trees():
+    """A micro JAX tree (its init compiled) and the port's bridge of it."""
+    import jax
+
+    from grounded_video_llm_tpu.models import vlm as jvlm
+    from grounded_video_llm_tpu_torch.models.from_jax import params_from_jax
+
+    cfg = jcfg.micro_vlm_config("phi3.5")
+    jp = jax.jit(jvlm.init_params, static_argnums=1)(jax.random.key(0), cfg)
+    return jp, params_from_jax(jax.tree_util.tree_map(np.asarray, jp), cfg,
+                               "cpu")
+
+
+@pytest.mark.parametrize("quantize", [None, "int8", "int8_full"])
+def test_get_parameter_number_copy(quantize, micro_trees):
+    """The port's tree (bridged from the JAX one, then quantized the same
+    way) counts what the JAX tree counts, total and trainable."""
+    from grounded_video_llm_tpu.serve import quantize as jq
+    from grounded_video_llm_tpu.train import optimizer as jopt
+    from grounded_video_llm_tpu.utils import io as jio
+    from grounded_video_llm_tpu_torch.serve import quantize as tq
+    from grounded_video_llm_tpu_torch.train import optimizer as topt
+    from grounded_video_llm_tpu_torch.utils import io as tio
+
+    jp, tp = micro_trees
+    if quantize:
+        w8a8 = quantize == "int8_full"
+        jp = dict(jp, llm=jq.quantize_llm_for_serving(jp["llm"], w8a8=w8a8))
+        tp = dict(tp, llm=tq.quantize_llm_for_serving(tp["llm"], w8a8=w8a8))
+    want = jio.get_parameter_number(
+        jp, jopt.trainable_mask(jopt.label_params(jp)))
+    assert tio.get_parameter_number(
+        tp, topt.trainable_mask(topt.label_params(tp))) == want
+    assert tio.get_parameter_number(tp) == jio.get_parameter_number(jp)
+    assert want["Trainable"] < want["Total"]

@@ -454,9 +454,12 @@ def test_engine_generate_spec_equals_lockstep(micro):
     assert spec == lock
     assert eng.last_timings["verify_passes"] >= 1
     assert eng.last_timings["new_tokens"] >= 1
+    # beams run through generate and stay refused on the features route
+    beams = GenerateConfig(**base, num_beams=2)
+    assert len(eng.generate(prompts, temporal, spatial, beams)) == 2
     with pytest.raises(NotImplementedError):
-        eng.generate(prompts, temporal, spatial,
-                     GenerateConfig(**base, num_beams=2))
+        eng.generate_from_features(prompts, torch.zeros(
+            cfg.num_video_tokens, cfg.llm.hidden_size), beams)
 
 
 def test_cli_inference_debug_tiny_int8_full_spec(tmp_path, capsys):

@@ -174,7 +174,23 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    second move every trainable leaf, no frozen leaf may change by a bit,
    and the launch counts must be the config's (per microbatch flash_fwd
    23 + 39 + 32 + 32 for the remat recompute, flash_bwd 32); a phase split
-   of one more microbatch and the model-FLOP share;
+   of one more microbatch and the model-FLOP share; then path I, the
+   pretrain and sft stages through TrainingStrategy on a 1-rank NCCL mesh
+   (parallel/mesh.build_mesh over a process group started on a FileStore;
+   the backend must be NCCL and the mesh on the card): pretrain on the
+   tree without LoRA, embed and lm_head cut to the base vocabulary (4
+   captions, 2 steps: only the projectors may move), sft on the trained
+   tree (6 samples, 3 steps with an asynchronous interval save after step
+   2: the projectors, LoRA, embed and lm_head move), each at a global batch
+   of 2 in microbatches of 1 with path 6's launch counts per microbatch;
+   per step loss, grad_norm, seconds and peak memory; the seconds the loop
+   blocked on the save, step 3's seconds and whether the file was still
+   being written when step 3 ended; the file read back bit-equal to the
+   state at step 2; one sft step on the mesh against the plain step from
+   the same state and batch, loss, grad_norm and every updated leaf
+   bit-equal (at world size 1 every leaf is a plain tensor and every
+   all-reduce is over one rank: a check of the NCCL group and the mesh
+   plumbing, not of the gathers);
 7. the microbenchmarks, the path of M1, M2, M3 and M3d: each module of
    grounded_video_llm_tpu_torch/microbench (int8_gemm, decode,
    encoder_attn, static_scales with one round, flash_bwd, iv2_block) once
@@ -4959,6 +4975,320 @@ def train_path(torch, kernels, cfg, params, tok, temporal, spatial):
         shutil.rmtree(run_dir, ignore_errors=True)
 
 
+def stage_text(seed: int, stage: str, rounds: int,
+               llm_name: str = "phi3.5") -> str:
+    """A conversation in the stage's data format, rendered by the LLM's
+    template: pretrain a caption of the video (MixPretrain: no grounding
+    mark, no time tokens), sft a mix of questions on the video and
+    grounding turns, the grounding questions marked and answered in <n>
+    time tokens (MixSFT)."""
+    from grounded_video_llm_tpu_torch.text import codec
+    from grounded_video_llm_tpu_torch.text.templates import get_template
+
+    rng = np.random.default_rng(seed)
+    events = ["the host turns to the camera", "a car passes the studio window",
+              "the weather map appears", "the anchor reads the headline",
+              "a reporter walks along the street", "the crowd starts to cheer"]
+    if stage == "pretrain":
+        caption = " ".join(f"Then {events[i]}." for i in
+                           rng.integers(0, len(events), size=rounds))
+        conv = [{"from": "human", "value": "<image>\nDescribe the video."},
+                {"from": "gpt", "value": caption}]
+    else:
+        conv = []
+        for r in range(rounds):
+            e, f = events[r % 6], events[(r + 2) % 6]
+            if r % 2:
+                a, b = sorted(int(x) for x in rng.integers(0, 301, size=2))
+                q, ans = (f"When does {e} and then {f}? Please return the "
+                          "start and end timestamps."), f"From <{a}> to <{b}>."
+            else:
+                q, ans = f"What happens after {e}?", f"After that, {f}."
+            conv.append({"from": "human",
+                         "value": ("<image>\n" if r == 0 else "") + q})
+            conv.append({"from": "gpt", "value": ans})
+        conv = codec.mark_grounding_conversations(conv)
+    return get_template(llm_name).encode(conv)
+
+
+def stage_samples(temporal, spatial, stage: str, n: int, seed: int):
+    rounds = 6 if stage == "pretrain" else 40
+    return [{"video_ids": f"synthetic{i}", "text_inputs":
+             stage_text(seed + i, stage, rounds),
+             "temporal_pixel_values": temporal,
+             "spatial_pixel_values": spatial} for i in range(n)]
+
+
+def stage_path(torch, kernels, params, temporal, spatial, workdir):
+    """Path I: the pretrain and sft presets at full width through
+    TrainingStrategy on a 1-rank NCCL mesh (a FileStore under workdir, no
+    fallback: the backend must be NCCL and the mesh on the card), each at
+    a global batch of 2 in microbatches of 1, remat on (LoRA dropout 0.05
+    in sft). pretrain: the tree without LoRA, embed and lm_head cut to the
+    base vocabulary (its config has no expansion), 4 captions, 2 steps;
+    the first changes nothing (lr 0), the second must move the projectors
+    and nothing else (the LLM is frozen, embed and lm_head at lr 0 there).
+    sft: path 6's trained tree (LoRA, expanded vocabulary), 6 samples, 3
+    steps with an asynchronous interval save after step 2, so step 3 runs
+    while it is written; the second step must move the projectors, the
+    LoRA adapters, embed and lm_head, and nothing else. Counts to 0 just
+    before each run, read just after (K1/K2 and K7 as in path 6). Then the
+    async save read back bit-equal to the state at step 2, and one sft
+    step through the mesh's step function against the plain (meshless)
+    step from the same state and batch: loss, grad_norm and every updated
+    leaf bit-equal (both under torch's deterministic algorithms, so the
+    embedding gradient's duplicate rows add in one order). → launches."""
+    import dataclasses
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from grounded_video_llm_tpu_torch.cli.model_loading import \
+        build_tokenizer
+    from grounded_video_llm_tpu_torch.core import checkpoint as ckpt
+    from grounded_video_llm_tpu_torch.core.config import (STAGE_PRESETS,
+                                                          vlm_config)
+    from grounded_video_llm_tpu_torch.data.collate import collate
+    from grounded_video_llm_tpu_torch.models import vlm
+    from grounded_video_llm_tpu_torch.parallel.mesh import build_mesh
+    from grounded_video_llm_tpu_torch.text.templates import get_template
+    from grounded_video_llm_tpu_torch.train.optimizer import (make_optimizer,
+                                                              tree_items)
+    from grounded_video_llm_tpu_torch.train.step import make_train_step
+    from grounded_video_llm_tpu_torch.train.strategy import TrainingStrategy
+
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(workdir, "store"), 1),
+        rank=0, world_size=1, timeout=timedelta(seconds=600),
+        device_id=torch.device("cuda", 0))
+    launches = {n: 0 for n in kernels}
+    orig = {s: STAGE_PRESETS[s] for s in ("pretrain", "sft")}
+    try:
+        mesh = build_mesh(1, 1, 1)
+        if (dist.get_backend() != "nccl" or mesh.device.type != "cuda"
+                or mesh.device_mesh.device_type != "cuda"):
+            raise AssertionError(f"path I: mesh {mesh} is not an NCCL mesh "
+                                 "on the card")
+        log(f"[path] I {mesh}")
+        V = vlm_config("phi3.5", stage="pretrain").llm.vocab_size
+        layers = {k: v for k, v in params["llm"]["layers"].items()
+                  if k != "lora"}
+        pre_tree = dict(params, llm=dict(
+            params["llm"], layers=layers,
+            embed=params["llm"]["embed"][:V].detach().clone(),
+            lm_head=params["llm"]["lm_head"][:, :V].detach().clone()))
+        runs = (("pretrain", pre_tree, 4, 0.0),
+                ("sft", params, 6, 0.7))
+        for stage, tree, n, interval in runs:
+            cfg = vlm_config("phi3.5", stage=stage)
+            tok = build_tokenizer(cfg,
+                                  expand=STAGE_PRESETS[stage].expand_vocab)
+            STAGE_PRESETS[stage] = dataclasses.replace(
+                orig[stage], global_batch_size=2, per_device_batch_size=1,
+                epochs=1)
+            samples = stage_samples(temporal, spatial, stage, n, SEED + 11)
+            strat = TrainingStrategy(cfg, stage, tree, tok,
+                                     run_dir=os.path.join(workdir, stage),
+                                     mesh=mesh, n_train_examples=n, seed=SEED)
+            if strat.mesh is not mesh or strat.grad_accum != 2:
+                raise AssertionError(f"path I {stage}: mesh {strat.mesh}, "
+                                     f"grad_accum {strat.grad_accum}")
+            tp = strat.state.params
+            before = {p: t.detach().to("cpu", copy=True)
+                      for p, t in tree_items(tp)}
+            moving = {p for p in before
+                      if p.split("/")[0] in ("mm_projector",
+                                             "video_projector")}
+            if stage == "sft":
+                moving |= {p for p in before if strat.optimizer.updated(p)}
+            steps, clock, at_save = [], {}, {}
+
+            def on_step(step, m, stage=stage, tp=tp, before=before,
+                        moving=moving, strat=strat):
+                torch.cuda.synchronize()
+                now = time.perf_counter()
+                rec = dict(m, step=step, seconds=now - clock["t"],
+                           peak_gib=torch.cuda.max_memory_allocated()
+                           / 2 ** 30)
+                steps.append(rec)
+                if not (np.isfinite(m["loss"])
+                        and np.isfinite(m["grad_norm"])):
+                    raise AssertionError(f"path I {stage} step {step}: "
+                                         "non-finite loss or grad_norm")
+                changed = {p for p, t in tree_items(tp)
+                           if not torch.equal(t.detach().cpu(), before[p])}
+                if step == 1 and changed:
+                    raise AssertionError(f"path I {stage} step 1 (lr 0) "
+                                         f"changed {sorted(changed)}")
+                if step == 2 and changed != moving:
+                    raise AssertionError(
+                        f"path I {stage} step 2: moved "
+                        f"{sorted(changed - moving)} that must not, not "
+                        f"{sorted(moving - changed)} that must")
+                if step == 2:
+                    log(f"[path] I {stage} after step 2: {len(changed)} "
+                        f"leaves moved (the stage's trainable groups), "
+                        f"{len(before) - len(changed)} bit-equal")
+                if step == 3 and interval:
+                    at_save["writing"] = ckpt.save_in_flight()
+                if step == 2 and interval:
+                    # the state the interval save after this step writes
+                    at_save["params"] = {p: tp_leaf.detach().to("cpu",
+                                                                copy=True)
+                                         for p, tp_leaf in tree_items(tp)
+                                         if p in moving}
+                    at_save["mu"] = {p: t.to("cpu", copy=True) for p, t in
+                                     strat.state.opt_state["mu"].items()}
+                    at_save["nu"] = {p: t.to("cpu", copy=True) for p, t in
+                                     strat.state.opt_state["nu"].items()}
+                torch.cuda.reset_peak_memory_stats()
+                torch.cuda.synchronize()
+                clock["t"] = time.perf_counter()
+
+            for k in kernels.values():
+                k.launches = 0
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            clock["t"] = time.perf_counter()
+            strat.run_training(samples, resume_interval=interval,
+                               on_step=on_step)
+            got = {n_: k.launches for n_, k in kernels.items()}
+            nl = cfg.llm.num_layers
+            per_mb = {"flash_fwd": (cfg.clip.num_layers
+                                    + cfg.clip.feature_layer + 1)
+                      + cfg.video.num_blocks_used + 2 * nl,
+                      "flash_bwd": nl}
+            want = {n_: 2 * len(steps) * per_mb.get(n_, 0) for n_ in kernels}
+            S_text = collate(samples[:1], tok, get_template("phi3.5"),
+                             max_txt_len=strat.stage.max_txt_len
+                             ).input_ids.shape[1]
+            for rec in steps:
+                log(f"[path] I {stage} step {rec['step']}: loss="
+                    f"{rec['loss']:.5f} grad_norm={rec['grad_norm']:.4f} "
+                    f"step_s={rec['seconds']:.3f} s_per_sample="
+                    f"{rec['seconds'] / 2:.3f} peak_device_memory="
+                    f"{rec['peak_gib']:.2f} GiB (S_text {S_text}, spliced "
+                    f"{S_text - 1 + cfg.num_video_tokens})")
+            log(f"[path] I {stage} B=1 accum=2 on the NCCL mesh: launches "
+                f"{got} expected {want}")
+            if got != want:
+                raise AssertionError(f"path I {stage}: launches {got}, "
+                                     f"expected {want}")
+            launches = {k: launches[k] + got[k] for k in launches}
+            if not interval:
+                continue
+
+            # ---- the asynchronous save at step 2, read back
+            blocked = strat.save_blocked_s
+            after_save = steps[2]["seconds"] - blocked[0]
+            path = os.path.join(workdir, stage, "state_latest.pt")
+            t0 = time.perf_counter()
+            saved = torch.load(path, map_location="cpu", mmap=True,
+                               weights_only=True)
+            bad = []
+            for p, t in tree_items(tp):
+                want_t = at_save["params"].get(p)
+                got_t = saved["params"]
+                for k in p.split("/"):
+                    got_t = got_t[k]
+                same = (torch.equal(got_t, want_t) if want_t is not None
+                        else torch.equal(got_t.to("cuda"), t.detach()))
+                if not same:
+                    bad.append(p)
+            for k in ("mu", "nu"):
+                bad += [f"{k}/{p}" for p, t in at_save[k].items()
+                        if not torch.equal(saved["opt_state"][k][p], t)]
+            if saved["step"] != 2 or saved["opt_state"]["count"] != 2:
+                bad.append("step/count")
+            read_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            log(f"[path] I {stage} async interval save after step 2: loop "
+                f"blocked {blocked[0]:.3f} s (device to pinned host copy "
+                f"of {size / 2 ** 30:.2f} GiB, the pinned buffers allocated"
+                f" in this save), then step 3 ran "
+                f"{steps[2]['seconds']:.3f} s with the blocking included "
+                f"= {after_save:.3f} s after it, "
+                + ("the writer still writing when step 3 ended"
+                   if at_save["writing"] else
+                   "the writer done before step 3 ended")
+                + f" (step 2 {steps[1]['seconds']:.3f} s); read back in "
+                f"{read_s:.2f} "
+                f"s: {'bit-equal' if not bad else 'DIFFERS'} to the state "
+                f"at step 2")
+            if bad:
+                raise AssertionError(f"path I: the async save differs at "
+                                     f"{bad[:8]}")
+            del saved, at_save
+            shutil.rmtree(os.path.join(workdir, stage), ignore_errors=True)
+
+            # ---- one mesh step against the plain step
+            mb = collate(samples[:2], tok, get_template("phi3.5"),
+                         max_txt_len=strat.stage.max_txt_len, device="cuda")
+            batch = vlm.Batch(*(x.reshape(2, 1, *x.shape[1:]) for x in mb))
+            plain_opt, _ = make_optimizer(strat.stage, strat.total_steps,
+                                          tp)
+            plain = make_train_step(cfg, plain_opt, grad_accum=2, remat=True,
+                                    lora_dropout=strat.stage.lora_dropout,
+                                    dropout_seed=SEED)
+            st = strat.state
+            # count 1: the schedule's peak (at the run's last count, 3, the
+            # cosine has decayed to 0 and nothing would move)
+            start = ({p: t.detach().clone() for p, t in tree_items(tp)
+                      if p in moving},
+                     {k: {p: t.clone() for p, t in st.opt_state[k].items()}
+                      for k in ("mu", "nu")}, 1, st.step)
+
+            def restore():
+                flat = dict(tree_items(tp))
+                with torch.no_grad():
+                    for p, t in start[0].items():
+                        flat[p].copy_(t)
+                    for k in ("mu", "nu"):
+                        for p, t in start[1][k].items():
+                            st.opt_state[k][p].copy_(t)
+                st.opt_state["count"], st.step = start[2], start[3]
+
+            out = {}
+            deterministic = torch.are_deterministic_algorithms_enabled()
+            torch.use_deterministic_algorithms(True, warn_only=True)
+            try:
+                for name, fn in (("mesh", strat.step_fn), ("plain", plain)):
+                    restore()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    _, m = fn(st, batch)
+                    torch.cuda.synchronize()
+                    out[name] = (float(m["loss"]), float(m["grad_norm"]),
+                                 time.perf_counter() - t0,
+                                 {p: t.detach().clone() for p, t in
+                                  tree_items(tp) if p in moving})
+            finally:
+                torch.use_deterministic_algorithms(deterministic)
+            same_leaves = all(torch.equal(out["mesh"][3][p],
+                                          out["plain"][3][p])
+                              for p in moving)
+            equal = (out["mesh"][:2] == out["plain"][:2]) and same_leaves
+            log(f"[path] I {stage} one step on the mesh vs the plain step "
+                f"from the same state and batch: loss {out['mesh'][0]!r} vs "
+                f"{out['plain'][0]!r}, grad_norm {out['mesh'][1]!r} vs "
+                f"{out['plain'][1]!r}, {len(moving)} updated leaves "
+                f"{'bit-equal' if same_leaves else 'DIFFER'}; "
+                f"{out['mesh'][2]:.3f} s vs {out['plain'][2]:.3f} s")
+            if not equal:
+                raise AssertionError("path I: the mesh step differs from "
+                                     "the plain step")
+            del out, start
+        return launches
+    finally:
+        for s, c in orig.items():
+            STAGE_PRESETS[s] = c
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def main() -> int:
     import torch
 
@@ -5209,9 +5539,14 @@ def main() -> int:
     del weight_only, bf16
     torch.cuda.empty_cache()
 
-    # ---- 6. the training path, on the same bf16 weights
+    # ---- 6. the training path, on the same bf16 weights; then path I:
+    # the pretrain and sft stages on a 1-rank NCCL mesh
     got = train_path(torch, kernels, vlm_config("phi3.5", stage="grounded"),
                      params, tok, temporal, spatial)[0]
+    launches = {k: launches[k] + got[k] for k in launches}
+    got = stage_path(torch, kernels, params, temporal, spatial, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build",
+        "chip_smoke_stages"))
     launches = {k: launches[k] + got[k] for k in launches}
 
     # ---- 7. the microbenchmarks: the path of M1, M2, M3 and M3d

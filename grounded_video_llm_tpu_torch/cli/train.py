@@ -9,13 +9,19 @@ with the same arguments plus --device).
         --anno_path anno.json --data_dir videos/
 
 It trains on one device (cuda by default; --debug_tiny on the CPU needs
---device cpu). --pretrained_vision_proj_llm_path (the weight dumps' dir),
+--device cpu), or under torchrun on a (data, fsdp) mesh of every rank
+(parallel/mesh.build_mesh: parameters and optimizer state sharded over
+fsdp, each rank on cuda:LOCAL_RANK and its own rows of every batch):
+
+    torchrun --nproc_per_node 8 -m grounded_video_llm_tpu_torch.cli.train \\
+        --stage grounded --dataset mix_grounded --anno_path ...
+
+--pretrained_vision_proj_llm_path (the weight dumps' dir),
 --pretrained_video_path (the InternVideo2 .pt) and --pretrained_proj (an
 earlier stage's checkpoint) load through cli/model_loading.build_params;
 what they do not give is seeded random. After the final checkpoint the run
 writes the reference-format export {save_dir}/{stage}_{model}_{llm}_
-{dataset}.pth (the root train.py's name). Multi-GPU sharding is not ported
-yet.
+{dataset}.pth (the root train.py's name).
 """
 
 from __future__ import annotations
@@ -73,8 +79,13 @@ def main(argv=None):
 
     from ..core.config import STAGE_PRESETS, micro_vlm_config, vlm_config
     from ..data.datasets import DATASETS
+    from ..parallel.mesh import initialize_distributed, local_device
     from ..train.strategy import TrainingStrategy
     from .model_loading import build_params, build_tokenizer
+
+    # before any device use: under torchrun this rank's device is
+    # cuda:LOCAL_RANK and the process group is up (a failure raises)
+    distributed = initialize_distributed()
 
     if args.debug_tiny:
         cfg = micro_vlm_config(args.llm)
@@ -82,7 +93,8 @@ def main(argv=None):
     else:
         cfg = vlm_config(args.llm, stage=args.stage,
                          num_frames=args.num_frames, num_segs=args.num_segs)
-    device = torch.device(args.device)
+    device = (local_device() if distributed and args.device == "cuda"
+              else torch.device(args.device))
     params = build_params(
         cfg, device, torch.float32 if args.debug_tiny else torch.bfloat16,
         seed=args.seed,

@@ -6,10 +6,17 @@ The reference uses DistributedSampler + StatefulDataLoader (reference
 training/base_strategy.py:184-220): epoch-seeded shuffle, per-rank sharding,
 and a snapshot that restores mid-epoch position on resume. This loader keeps
 those semantics — deterministic epoch permutation from (seed, epoch), samples
-sharded by host process, `state_dict()/load_state_dict()` for exact mid-epoch
+sharded by rank, `state_dict()/load_state_dict()` for exact mid-epoch
 resume — and adds a background thread pool so video decode overlaps with
 device compute (the reference gets this from DataLoader workers; SURVEY §2.7 notes
-its rank-dependent num_workers quirk, which is NOT reproduced)."""
+its rank-dependent num_workers quirk, which is NOT reproduced).
+
+One difference from the original: every shard gets n // (num_shards *
+batch_size) batches, as DistributedSampler(drop_last=True) gives each rank
+n // num_shards samples. The original keeps len(shard) // batch_size, one
+batch more on some shards when num_shards does not divide n, and a rank
+that took one step more than the others would wait in that step's
+collectives until the group timed out."""
 
 from __future__ import annotations
 
@@ -21,7 +28,8 @@ import numpy as np
 
 
 class ShardedSampler:
-    """Deterministic epoch permutation, sharded across hosts, drop_last."""
+    """Deterministic epoch permutation, sharded across ranks, drop_last;
+    the same number of batches on every shard."""
 
     def __init__(self, n: int, batch_size: int, shuffle: bool = True,
                  seed: int = 0, num_shards: int = 1, shard_id: int = 0):
@@ -38,7 +46,7 @@ class ShardedSampler:
         else:
             order = np.arange(self.n)
         shard = order[self.shard_id::self.num_shards]
-        n_batches = len(shard) // self.batch_size
+        n_batches = self.n // (self.num_shards * self.batch_size)
         return shard[:n_batches * self.batch_size].reshape(
             n_batches, self.batch_size)
 

@@ -49,6 +49,7 @@ from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.utils.checkpoint import checkpoint
 
 from ..core.config import LLMConfig
@@ -62,6 +63,7 @@ from ..ops.int8_matmul import (INT8_GEMM_MIN_ROWS, Int8Embedding, Int8Weight,
                                dynamic_int8_matmul, int8_matmul)
 from ..ops.normalization import rms_norm
 from ..ops.rope import apply_rope, llm_rope_tables
+from ..parallel.partitioning import gather
 from .param_utils import child_generator, layer_slice, normal
 
 
@@ -153,11 +155,12 @@ def init_params(cfg: LLMConfig, *, generator: Optional[torch.Generator],
 
 def embed_lookup(embed, token_ids: torch.Tensor,
                  dtype=torch.bfloat16) -> torch.Tensor:
-    """Embedding gather; an int8 table dequantizes its rows into dtype."""
+    """Embedding gather; an int8 table dequantizes its rows into dtype, a
+    sharded table is gathered whole first."""
     if isinstance(embed, Int8Embedding):
         rows = embed.q[token_ids].float()
         return (rows * embed.scale[token_ids][..., None]).to(dtype)
-    return embed[token_ids]
+    return gather(embed)[token_ids]
 
 
 def embed_dtype(embed) -> torch.dtype:
@@ -351,7 +354,7 @@ def logits_from_hidden(params, hidden: torch.Tensor) -> torch.Tensor:
     lm_head = params["lm_head"]
     if isinstance(lm_head, Int8Weight):
         return _matmul_maybe_int8(hidden, lm_head).float()
-    return matmul_f32(hidden, lm_head)
+    return matmul_f32(hidden, gather(lm_head))
 
 
 def forward_logits(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
@@ -442,13 +445,22 @@ class _ChunkedCE(torch.autograd.Function):
 
 def causal_lm_loss_from_hidden(params, hidden: torch.Tensor,
                                labels: torch.Tensor, ignore_index: int = -100,
-                               chunk: int = 1024) -> torch.Tensor:
+                               chunk: int = 1024, mesh=None) -> torch.Tensor:
     """Sequence-chunked shifted cross entropy: the same value as
     logits_from_hidden + causal_lm_loss, but the fp32 [S, V] logits never
     exist whole (at S = 7.5k and V = 32k they would be 0.93 GB, twice over
-    in the backward); each chunk's are recomputed in the backward."""
-    total, count = _ChunkedCE.apply(hidden, params["lm_head"], labels,
-                                    ignore_index, chunk)
+    in the backward); each chunk's are recomputed in the backward.
+
+    mesh: this rank holds only its batch rows. The count of valid targets
+    is summed over the batch ranks (data x fsdp) and this rank's total is
+    divided by that global count, so the ranks' losses sum to the loss of
+    the whole batch and their summed gradients are its gradient (the
+    train step sums both)."""
+    total, count = _ChunkedCE.apply(hidden, gather(params["lm_head"]),
+                                    labels, ignore_index, chunk)
+    if mesh is not None:
+        count = count.clone()
+        dist.all_reduce(count, group=mesh.batch_group)
     return total / count.clamp_min(1)
 
 

@@ -1,7 +1,9 @@
 """Parameter helpers shared by the models: seeded random initializers with
 the JAX package's schemes (jax.nn.initializers.normal, truncated_normal and
 lecun_normal) drawn from an explicit torch.Generator, and per-layer slicing
-of stacked parameter trees (dense tensors and ``Int8Weight``s).
+of stacked parameter trees (dense tensors, ``Int8Weight``s and the
+sharded leaves of parallel/partitioning.shard_params, gathered one layer at
+a time).
 
 Samples are drawn in fp32 one leading-axis slice at a time and cast into a
 tensor of the target dtype, so a stacked [L, ...] weight never exists twice
@@ -16,6 +18,7 @@ from typing import Sequence
 import torch
 
 from ..ops.int8_matmul import Int8Weight
+from ..parallel.partitioning import gather_layer, is_sharded
 
 # std of a unit normal truncated to [-2, 2]; JAX divides by it so the
 # truncated draw keeps the requested stddev
@@ -67,9 +70,12 @@ def child_generator(generator, device):
 
 def layer_slice(tree, i: int):
     """Layer i of a tree of stacked [L, ...] tensors or int8 weights, as
-    views."""
+    views; a sharded leaf's layer i gathered whole (only its shards
+    move)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, Int8Weight):
         return tree.layer(i)
+    if is_sharded(tree):
+        return gather_layer(tree, i)
     return tree[i]

@@ -5,7 +5,8 @@ of grounded_video_llm_tpu/models/projectors.py).
   mm_projector    — phi3.5: Linear(4096→3072) → GELU → Linear(3072→3072)
                     llama3: Linear(1024→4096) → GELU → Linear(4096→4096)
 
-Kernels are [D_in, D_out], as in the JAX package.
+Kernels are [D_in, D_out], as in the JAX package; a kernel sharded by
+parallel/partitioning is gathered where it is used.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..parallel.partitioning import gather
 from .param_utils import lecun_normal
 
 
@@ -28,9 +30,9 @@ def init_mlp_params(d_in: int, d_mid: int, d_out: int, *, generator, device,
 
 
 def mlp_project(params, x: torch.Tensor) -> torch.Tensor:
-    h = x @ params["fc1"]["kernel"] + params["fc1"]["bias"]
+    h = x @ gather(params["fc1"]["kernel"]) + params["fc1"]["bias"]
     h = F.gelu(h, approximate="none")
-    return h @ params["fc2"]["kernel"] + params["fc2"]["bias"]
+    return h @ gather(params["fc2"]["kernel"]) + params["fc2"]["bias"]
 
 
 def init_video_projector(llm_hidden: int, video_dim: int = 1408, **kw):

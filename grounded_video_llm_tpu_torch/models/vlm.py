@@ -266,10 +266,12 @@ def splice_multimodal(input_ids: torch.Tensor,          # [B, S]
 def forward_loss(params, cfg: VLMConfig, batch: Batch, remat: bool = False,
                  freeze_encoders: bool = True, lora_dropout: float = 0.0,
                  dropout_seed: Optional[int] = None,
-                 remat_group: int = 1) -> torch.Tensor:
+                 remat_group: int = 1, mesh=None) -> torch.Tensor:
     """Full multimodal forward → scalar fp32 cross-entropy loss.
     lora_dropout with dropout_seed: training-only dropout on the LoRA
-    branch (peft lora_dropout)."""
+    branch (peft lora_dropout). mesh: the batch holds this rank's rows;
+    the loss is this rank's share of the whole batch's (see
+    llm.causal_lm_loss_from_hidden)."""
     video_features = encode_video(params, cfg, batch.spatial_pixels,
                                   batch.temporal_pixels,
                                   freeze_encoders=freeze_encoders)
@@ -280,7 +282,8 @@ def forward_loss(params, cfg: VLMConfig, batch: Batch, remat: bool = False,
                                     remat=remat, remat_group=remat_group,
                                     lora_dropout=lora_dropout,
                                     dropout_seed=dropout_seed)
-    return llm_mod.causal_lm_loss_from_hidden(params["llm"], hidden, labels)
+    return llm_mod.causal_lm_loss_from_hidden(params["llm"], hidden, labels,
+                                              mesh=mesh)
 
 
 def embed_tokens(params, token_ids: torch.Tensor) -> torch.Tensor:

@@ -61,16 +61,21 @@ class Metrics:
     """Windowed status metrics + tracker fan-out (reference metrics.py:104-204)."""
 
     def __init__(self, run_id: str, run_dir: str, hparams: Dict,
-                 window: int = 128, wandb_project: Optional[str] = None):
+                 window: int = 128, wandb_project: Optional[str] = None,
+                 write: bool = True):
+        """write=False keeps the windows and the step count and writes
+        nowhere (the training ranks other than 0)."""
         self.run_id = run_id
         self.global_step = 0
         self.start_time = time.time()
         self.step_start = time.time()
         self.loss_window = deque(maxlen=window)
         self.step_time_window = deque(maxlen=window)
-        self.trackers = [JSONLinesTracker(os.path.join(run_dir,
-                                                       f"{run_id}.jsonl"))]
-        if wandb_project:
+        self.trackers = []
+        if write:
+            self.trackers.append(JSONLinesTracker(
+                os.path.join(run_dir, f"{run_id}.jsonl")))
+        if write and wandb_project:
             self.trackers.append(WandbTracker(wandb_project, run_id, hparams))
         for t in self.trackers:
             if hasattr(t, "write_hyperparameters"):

@@ -20,6 +20,13 @@ gradient is formed for them at all.
 
 The moments are kept in each parameter's dtype, as optax keeps them. The
 global norm accumulates in fp32 (optax sums each leaf in its own dtype).
+
+On a mesh (``use_mesh``) a leaf may be a DTensor of this rank's shard
+(parallel/partitioning): its moments are shaped like the shard (ZeRO), the
+update runs on the shard, and the global norm counts every gradient
+element once: each rank sums the squares of its shards, each leaf's share
+divided by the number of ranks that hold the same shard, and the sums are
+added over every rank.
 """
 
 from __future__ import annotations
@@ -29,8 +36,10 @@ from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..core.config import StageConfig
+from ..parallel.partitioning import local, replicas
 
 GROUPS = ("video_projector", "mm_projector", "llm", "lora")
 B1, B2, EPS = 0.9, 0.999, 1e-8
@@ -119,6 +128,19 @@ class Optimizer:
                                     max(total_steps, warmup + 1), 0.0)
                 if peak > 0.0 else None)
             for g, peak in peaks.items()}
+        self.replicas: Optional[Dict[str, int]] = None
+
+    def use_mesh(self, mesh, params) -> None:
+        """Sharded training over mesh: ``params`` is the sharded tree."""
+        self.replicas = {p: replicas(t, mesh.size)
+                         for p, t in tree_items(params)}
+
+    def grad_norm(self, grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """The global norm of ``grads`` (path → this rank's shard)."""
+        if self.replicas is None:
+            return global_norm(list(grads.values()))
+        return global_norm(list(grads.values()),
+                           [self.replicas[p] for p in grads])
 
     def trainable(self, path: str) -> bool:
         return self.labels[path] != "frozen"
@@ -129,7 +151,7 @@ class Optimizer:
                 and self.schedules[self.labels[path]] is not None)
 
     def init(self, params) -> dict:
-        flat = dict(tree_items(params))
+        flat = {p: local(t) for p, t in tree_items(params)}
         zeros = {p: torch.zeros_like(t, memory_format=torch.contiguous_format)
                  for p, t in flat.items() if self.updated(p)}
         return {"count": 0, "mu": zeros,
@@ -144,9 +166,9 @@ class Optimizer:
               state: dict) -> None:
         """Update the trainable leaves of ``params`` in place from
         ``grads`` (path → gradient in the leaf's dtype, every trainable
-        leaf) and advance ``state``."""
-        flat = dict(tree_items(params))
-        gnorm = global_norm(list(grads.values()))
+        leaf; this rank's shard of a sharded one) and advance ``state``."""
+        flat = {p: local(t) for p, t in tree_items(params)}
+        gnorm = self.grad_norm(grads)
         clip = not bool(gnorm < self.grad_clip)
         count = state["count"]
         f32 = np.float32
@@ -170,9 +192,17 @@ class Optimizer:
         state["count"] = count + 1
 
 
-def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element, in fp32."""
-    return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+def global_norm(tensors, replicas=None) -> torch.Tensor:
+    """sqrt of the sum of squares of every element, in fp32. replicas: the
+    tensors are shards, held by that many ranks each; the sum is taken over
+    every rank of the default process group with each tensor's share
+    divided by its replicas."""
+    if replicas is None:
+        return torch.sqrt(sum(t.float().square().sum() for t in tensors))
+    total = sum(t.float().square().sum() / r
+                for t, r in zip(tensors, replicas))
+    dist.all_reduce(total)
+    return torch.sqrt(total)
 
 
 def make_optimizer(stage: StageConfig, total_steps: int,

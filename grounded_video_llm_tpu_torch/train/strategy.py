@@ -1,25 +1,36 @@
-"""Training strategy on one device: stage setup, the epoch/step loop,
-checkpoint and resume (port of grounded_video_llm_tpu/train/strategy.py).
+"""Training strategy: stage setup, the epoch/step loop, checkpoint and
+resume, on one device or on a (data, fsdp, tensor) mesh of processes (port
+of grounded_video_llm_tpu/train/strategy.py).
 
   setup         — stage features (vocab expansion when the embedding has
                   only the base vocabulary, LoRA attach), the per-group
-                  optimizer, the train step
-  run_training  — epoch loop over the resumable loader, the NaN abort,
-                  metrics (JSONL, optional wandb), the loss curve
+                  optimizer, the parameters sharded onto the mesh, the
+                  train step; grad_accum = global batch / (per-device
+                  batch x ranks), JAX's arithmetic
+  run_training  — epoch loop over the resumable loader (each batch rank
+                  reads its own shard of every global batch), the NaN
+                  abort, metrics (JSONL, optional wandb) and the loss curve
+                  on rank 0
   save/resume   — core/checkpoint's save_pytree of params, optimizer
-                  state and step, and the loader's JSON snapshot
+                  state and step (per rank on a mesh of more than one),
+                  and the loader's JSON snapshot; the interval saves are
+                  asynchronous (save_pytree_async), the loop waits for them
+                  at its end and a resume waits first
   export        — the reference's split-by-module .pth (models/export)
 
-Not ported yet: multi-GPU sharding.
+Without a mesh and without a process group it trains on the parameters'
+device alone; with a process group and no mesh it builds build_mesh().
 """
 
 from __future__ import annotations
 
 import math
 import os
+import time
 from typing import Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..core import checkpoint as ckpt
 from ..core.config import NUM_SPECIAL_TOKENS, STAGE_PRESETS, VLMConfig
@@ -28,16 +39,18 @@ from ..data.loader import DataLoader
 from ..models import vlm
 from ..obs.logger import initialize_overwatch
 from ..obs.trackers import Metrics
+from ..parallel.mesh import build_mesh
+from ..parallel.partitioning import full_tree
 from ..text.templates import get_template
 from . import lora as lora_mod
-from .optimizer import make_optimizer, tree_items, warmup_cosine_decay
+from .optimizer import make_optimizer, warmup_cosine_decay
 from .step import create_train_state, make_train_step
 from .vocab import expand_vocab
 
 
 class TrainingStrategy:
     def __init__(self, cfg: VLMConfig, stage_name: str, params: Dict,
-                 tokenizer, run_dir: str = "runs/default",
+                 tokenizer, run_dir: str = "runs/default", mesh=None,
                  n_train_examples: int = 0, seed: int = 42,
                  wandb_project: Optional[str] = None):
         self.cfg = cfg
@@ -46,13 +59,19 @@ class TrainingStrategy:
         self.run_dir = run_dir
         self.seed = seed
         self.overwatch = initialize_overwatch()
-        self.device = params["llm"]["embed"].device
+        if mesh is None and dist.is_available() and dist.is_initialized():
+            mesh = build_mesh()
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None
+                       else params["llm"]["embed"].device)
+        self.is_rank_zero = mesh is None or dist.get_rank() == 0
         os.makedirs(run_dir, exist_ok=True)
 
-        per_step_batch = self.stage.per_device_batch_size
+        n_ranks = mesh.size if mesh is not None else 1
+        per_step_batch = self.stage.per_device_batch_size * n_ranks
         if self.stage.global_batch_size % per_step_batch:
             raise ValueError("the global batch must be a multiple of the "
-                             "per-device batch")
+                             "per-device batch times the ranks")
         self.grad_accum = self.stage.global_batch_size // per_step_batch
         self.steps_per_epoch = (
             n_train_examples // self.stage.global_batch_size
@@ -78,38 +97,50 @@ class TrainingStrategy:
         self._lr_schedule = warmup_cosine_decay(
             0.0, self.stage.lr_llm or self.stage.lr_video_projector, warmup,
             max(total_steps, warmup + 1), 0.0)
-        self.state = create_train_state(params, self.optimizer)
+        self.state = create_train_state(params, self.optimizer, mesh=mesh)
         self.step_fn = make_train_step(
             cfg, self.optimizer, grad_accum=self.grad_accum, remat=True,
-            lora_dropout=self.stage.lora_dropout, dropout_seed=seed)
-        self.metrics = Metrics(
-            run_id=f"{stage_name}-{cfg.llm_name}", run_dir=run_dir,
-            hparams={"stage": stage_name, "llm": cfg.llm_name,
-                     "global_batch": self.stage.global_batch_size,
-                     "grad_accum": self.grad_accum,
-                     "total_steps": total_steps},
-            wandb_project=wandb_project)
+            lora_dropout=self.stage.lora_dropout, dropout_seed=seed,
+            mesh=mesh)
+        self.save_blocked_s = []     # seconds the loop waited on each save
+        hparams = {"stage": stage_name, "llm": cfg.llm_name,
+                   "global_batch": self.stage.global_batch_size,
+                   "grad_accum": self.grad_accum, "total_steps": total_steps}
+        run_id = f"{stage_name}-{cfg.llm_name}"
+        self.metrics = Metrics(run_id=run_id, run_dir=run_dir,
+                               hparams=hparams, wandb_project=wandb_project,
+                               write=self.is_rank_zero)
         self.total_steps = total_steps
 
     # ------------------------------------------------------------------
 
     def make_loader(self, dataset) -> DataLoader:
+        """Each batch rank (data x fsdp) reads its own shard of every
+        global batch: per step per_device_batch x tensor x grad_accum rows
+        (the ranks of one tensor group read the same)."""
         template = get_template(self.cfg.llm_name)
+        shards, shard_id, tensor = 1, 0, 1
+        if self.mesh is not None:
+            shards, shard_id = self.mesh.batch_ranks, self.mesh.batch_rank
+            tensor = self.mesh.shape["tensor"]
         return DataLoader(
             dataset,
             collate_fn=lambda samples: collate(
                 samples, self.tokenizer, template,
                 max_txt_len=self.stage.max_txt_len, device=self.device),
-            batch_size=self.stage.per_device_batch_size * self.grad_accum,
-            shuffle=True, seed=self.seed)
+            batch_size=(self.stage.per_device_batch_size * tensor
+                        * self.grad_accum),
+            shuffle=True, seed=self.seed, num_shards=shards,
+            shard_id=shard_id)
 
     def _device_batch(self, batch: vlm.Batch) -> vlm.Batch:
-        """[grad_accum * B_micro, ...] → [grad_accum, B_micro, ...]."""
-        if self.grad_accum == 1:
-            return batch
-        micro = batch.input_ids.shape[0] // self.grad_accum
-        return vlm.Batch(*(x.reshape(self.grad_accum, micro, *x.shape[1:])
-                           for x in batch))
+        """[grad_accum * B_micro, ...] → [grad_accum, B_micro, ...] (the
+        collate put this rank's rows on its device already)."""
+        if self.grad_accum > 1:
+            micro = batch.input_ids.shape[0] // self.grad_accum
+            batch = vlm.Batch(*(x.reshape(self.grad_accum, micro,
+                                          *x.shape[1:]) for x in batch))
+        return batch
 
     # ------------------------------------------------------------------
 
@@ -118,9 +149,10 @@ class TrainingStrategy:
                      on_step: Optional[Callable[[int, dict], None]] = None
                      ) -> None:
         """resume_interval: save a resume bundle every this fraction of an
-        epoch (0 turns the interval saves off). on_step(step, metrics) runs
-        after every optimizer step with the step's loss and grad_norm as
-        floats."""
+        epoch (0 turns the interval saves off); they are written in the
+        background (save_pytree_async) and the loop waits for the last one
+        before it returns. on_step(step, metrics) runs after every
+        optimizer step with the step's loss and grad_norm as floats."""
         loader = self.make_loader(dataset)
         if resume_from:
             self.load_resume(resume_from, loader)
@@ -150,12 +182,16 @@ class TrainingStrategy:
                     on_step(self.state.step, {"loss": loss,
                                               "grad_norm": grad_norm})
                 if save_every and self.metrics.global_step % save_every == 0:
-                    self.save_checkpoint("latest", loader)
+                    t0 = time.perf_counter()
+                    self.save_checkpoint("latest", loader, block=False)
+                    self.save_blocked_s.append(time.perf_counter() - t0)
                     self.plot_loss()
+        ckpt.wait_for_saves()
 
     def plot_loss(self) -> None:
-        """Loss-curve jpg in run_dir (reference base_strategy.py:104-116)."""
-        if not getattr(self, "_loss_history", None):
+        """Loss-curve jpg in run_dir (reference base_strategy.py:104-116),
+        on rank 0."""
+        if not getattr(self, "_loss_history", None) or not self.is_rank_zero:
             return
         try:
             import matplotlib
@@ -177,21 +213,33 @@ class TrainingStrategy:
     # Checkpointing
 
     def save_checkpoint(self, tag: str = "latest",
-                        loader: Optional[DataLoader] = None) -> str:
-        """params, optimizer state and step in one file; the loader's
-        resume state beside it as JSON."""
+                        loader: Optional[DataLoader] = None,
+                        block: bool = True) -> str:
+        """params, optimizer state and step in one file (a directory of
+        one file per rank on a mesh of more than one); the loader's resume
+        state beside it as JSON (each batch rank's position is the same).
+        block=False snapshots the state and writes it in the background
+        (core/checkpoint.save_pytree_async)."""
         path = os.path.join(self.run_dir, f"state_{tag}.pt")
-        ckpt.save_pytree(path, {"params": self.state.params,
-                                "opt_state": self.state.opt_state,
-                                "step": self.state.step})
-        if loader is not None:
+        tree = {"params": self.state.params,
+                "opt_state": self.state.opt_state, "step": self.state.step}
+        if block:
+            ckpt.wait_for_saves()
+            ckpt.save_pytree(path, tree)
+        else:
+            ckpt.save_pytree_async(path, tree)
+        if loader is not None and self.is_rank_zero:
             ckpt.save_json(os.path.join(self.run_dir, f"loader_{tag}.json"),
                            loader.state_dict())
         return path
 
     def load_resume(self, path: str, loader: DataLoader) -> None:
         """Restore a save_checkpoint bundle into this strategy's tensors
-        (paths and shapes must match) and the loader's position."""
+        (paths and shapes must match; on a mesh, the same mesh) and the
+        loader's position, after any save still being written."""
+        ckpt.wait_for_saves()
+        if self.mesh is not None:
+            dist.barrier()      # every rank's file is complete
         restored = ckpt.load_pytree(path, template={
             "params": self.state.params, "opt_state": self.state.opt_state,
             "step": self.state.step}, map_location=self.device)
@@ -205,8 +253,11 @@ class TrainingStrategy:
     def export_reference_checkpoint(self, path: str,
                                     trainable_only: bool = True) -> None:
         """Trainable-only split-by-module export in the reference's .pth
-        layout (fsdp.py:116-127) for cross-framework weight exchange."""
+        layout (fsdp.py:116-127) for cross-framework weight exchange. On a
+        mesh every rank gathers the sharded leaves and rank 0 writes."""
         from ..models import export as export_mod
 
-        export_mod.export_vlm_to_reference(self.state.params, self.cfg, path,
-                                           trainable_only=trainable_only)
+        params = full_tree(self.state.params)
+        if self.is_rank_zero:
+            export_mod.export_vlm_to_reference(params, self.cfg, path,
+                                               trainable_only=trainable_only)

@@ -15,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_mesh_ranks import InMemoryGrounded
 
 from grounded_video_llm_tpu.core.config import (LLMConfig, STAGE_PRESETS,
                                                 micro_vlm_config)
@@ -303,34 +304,6 @@ def test_lora_dropout_masks_survive_remat(model):
     assert float(no_drop) != out[0][0]
 
 
-class _InMemoryGrounded:
-    """Four grounded samples of random pixels and a conversation with time
-    tokens, already rendered (what MixGrounded yields, without a video)."""
-
-    def __init__(self, cfg, n=4, seed=0):
-        from grounded_video_llm_tpu_torch.text import codec
-        from grounded_video_llm_tpu_torch.text.templates import get_template
-
-        rng = np.random.default_rng(seed)
-        conv = codec.mark_grounding_conversations([
-            {"from": "human", "value": "<image>\nWhen does the car appear?"},
-            {"from": "gpt", "value": "From <12> to <85>."}])
-        self.text = get_template("phi3.5").encode(conv)
-        self.items = [{
-            "video_ids": f"v{i}", "text_inputs": self.text,
-            "temporal_pixel_values": (rng.normal(size=(
-                cfg.num_frames, 224, 224, 3)) * 0.5).astype(np.float32),
-            "spatial_pixel_values": (rng.normal(size=(
-                cfg.num_segs, 336, 336, 3)) * 0.5).astype(np.float32)}
-            for i in range(n)]
-
-    def __len__(self):
-        return len(self.items)
-
-    def __getitem__(self, i):
-        return self.items[i]
-
-
 @pytest.fixture()
 def grounded_2x2():
     """The grounded preset at a global batch of 2 in microbatches of 1."""
@@ -354,7 +327,7 @@ def test_training_strategy_end_to_end(tmp_path, grounded_2x2):
 
     cfg = micro_vlm_config("phi3.5")
     tok = build_test_tokenizer("phi3.5")
-    ds = _InMemoryGrounded(cfg)
+    ds = InMemoryGrounded(cfg)
 
     def make(run):
         return TrainingStrategy(cfg, "grounded",

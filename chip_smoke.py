@@ -145,11 +145,11 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
         tokens/s, admission and chunk-step times, time to first token and
         peak memory, tagged with the card.
      H  the evaluation runner, cli/eval.py's in-process run_benchmark, in
-        path A's configuration (16 new tokens, feature LRU of 8) over 35
+        path A's configuration (16 new tokens, feature LRU of 8) over 24
         synthetic videos (96 frames of 240x320 each, durations 30-120 s,
         behind placeholder files under build/chip_smoke_eval/, resized
-        natively by the engine's preprocessing): 105 Charades-STA items
-        from a charades_sta annotation file with --prefix_cache (35
+        natively by the engine's preprocessing): 72 Charades-STA items
+        from a charades_sta annotation file with --prefix_cache (24
         prefixes; the encodes the LRU implies), the first 12 again (their
         videos re-encode), multiple choice and grounded QA (6 items each)
         through run_stream_cached, dense captioning of 2 videos through
@@ -163,7 +163,18 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    Each path runs with every launch count set to 0 just before it; its
    counts are read just after and held against the counts the config
    implies. Phase times, peak device memory, and a shape/finiteness check of
-   the features and logits;
+   the features and logits. After path A, on its tree: the phase profile
+   at the JAX script's configuration (cli/phase_profile.build_stages, B =
+   6: internvideo2 on 72 clips, clip on 72 frames, encode, prefill at 63 +
+   3,420 tokens into the int8 cache, 32 decode steps), each stage once
+   unprofiled (obs/profiler.PhaseTimer) and once under torch.profiler, its
+   launches held to the config's and its profile to the port's kernels by
+   device name ([phase] lines); one B = 1 decode step inside
+   obs/profiler.device_trace with an annotate region, the trace written to
+   build/chip_smoke_trace/ holding the region and a port kernel; and the
+   device preprocessing route (ops/preprocess.dual_stream_preprocess_device,
+   the JAX package's preprocess_xla) on the card against its host run
+   within 1e-5;
 6. the training path on the same weights: vlm_config("phi3.5",
    stage="grounded") at full width, LoRA r=128 attached, the grounded
    preset at a global batch of 2 in microbatches of 1 (grad_accum 2),
@@ -202,12 +213,18 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    full-width llama3 (vlm_config("llama3", stage="inference"):
    Meta-Llama-3-8B, 32 layers, 32 heads and 8 kv heads of 128; the same
    encoders), seeded random bf16 weights, on the frames phase 5 resized:
-   one bf16 B=1 encode whole and with encoder_chunk_clips=4 (features
+   the [setup] line: the bf16 build and the engine's int8_full
+   quantization of it (seconds, peak rise) beside build_params(quantize=
+   "int8_full"), which builds the LLM directly in int8 (its peak rise must
+   be below the bf16 route's; every LLM leaf bit-equal to the engine's,
+   every other leaf to the bf16 tree's); one bf16 B=1 encode whole and
+   with encoder_chunk_clips=4 (features
    within relative L2 1e-6, each run's peak memory); K2, K3's w8a8 branch,
    K4 (G = 4) and K6 (128,558 rows) at llama3's own shapes, timed beside
    their plain versions, library calls and bounds; a bf16 B=1 request
-   (94 flash launches) and a mode A request (int8_full, int8 cache, B=6:
-   per step 128 w8a8 int8_gemv, 32 K4, 1 K5, 1 lm_head; 1 K6 a request),
+   (94 flash launches) and a mode A request on the direct tree
+   (int8_full, int8 cache, B=6: per step 128 w8a8 int8_gemv, 32 K4, 1 K5,
+   1 lm_head; 1 K6 a request),
    their launch counts held to the config's, their phase split, prefill
    length and peak memory printed, their tokens in the vocabulary. Before
    them: the depth-cut training reference of phase 4 for llama3; K2 and K7
@@ -220,7 +237,10 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    and the q/k/v split kept) written in the weights-day layout by
    models/export.write_weight_dumps and read back by build_params
    (weight_root, video_encoder_path, stage_ckpt) onto the card, every leaf
-   bit-equal to the bf16 source, bytes and seconds printed;
+   bit-equal to the bf16 source, bytes and seconds printed; then read
+   again with quantize="int8_full": the LLM bit-equal to
+   quantize_llm_for_serving of the bf16 read-back, seconds and peak rise
+   printed;
 9. llama3 grounded training on phase 8's full-width bf16 weights (the
    training path of phase 6 for vlm_config("llama3", stage="grounded"):
    LoRA r=128 with B != 0, two steps of two microbatches, the same checks
@@ -2853,6 +2873,156 @@ def resize_phase(engine, frames, card):
     return temporal, spatial, ms
 
 
+def tree_differences(torch, a, b) -> list:
+    """The paths of two trees (nested dicts of tensors, Int8Weight and
+    Int8Embedding leaves) that are not bit-equal: another structure, type,
+    dtype, shape, value or w8a8 flag."""
+    from grounded_video_llm_tpu_torch.train.optimizer import tree_items
+
+    ta, tb = dict(tree_items(a)), dict(tree_items(b))
+    bad = sorted(set(ta) ^ set(tb))
+
+    def equal(x, y):
+        if isinstance(x, torch.Tensor):
+            return (isinstance(y, torch.Tensor) and x.dtype == y.dtype
+                    and x.shape == y.shape and torch.equal(x, y))
+        if isinstance(x, tuple):    # Int8Weight, Int8Embedding
+            return (type(x) is type(y)
+                    and all(equal(u, v) for u, v in zip(x, y)))
+        return x == y
+
+    return bad + sorted(p for p in set(ta) & set(tb)
+                        if not equal(ta[p], tb[p]))
+
+
+# the port's device kernels (name fragments) each phase-profile stage's
+# profile must show
+PHASE_KERNELS = {"internvideo2": ("flash_fwd_kernel",),
+                 "clip": ("flash_fwd_kernel",),
+                 "encode": ("flash_fwd_kernel",),
+                 "prefill": ("flash_fwd_kernel", "int8_mm_kernel"),
+                 "decode": ("int8_mm_kernel", "attention_kernel",
+                            "scatter_kernel")}
+
+
+def phase_profile_phase(torch, kernels, params, cfg, card):
+    """cli/phase_profile's stages on path A's tree (int8_full, int8 cache)
+    at the JAX script's shapes, B = 6: each stage once unprofiled
+    (PhaseTimer) and once under torch.profiler, its launches counted and
+    held to the config's (decode: 128 w8a8 int8_gemv, 32 K4, 1 K5 and one
+    lm_head int8_matmul a step), its profile holding the port's kernels
+    by device name (prefill: flash_fwd and the int8 product kernel;
+    decode: the int8 product, int8-cache attention and scatter kernels)."""
+    from grounded_video_llm_tpu_torch.cli import phase_profile as pp
+
+    nl = cfg.llm.num_layers
+    n_clip = cfg.clip.num_layers + cfg.clip.feature_layer + 1
+    nb = cfg.video.num_blocks_used
+    steps = pp.DECODE_STEPS
+    zero = {n: 0 for n in kernels}
+    want = {"internvideo2": dict(zero, flash_fwd=nb),
+            "clip": dict(zero, flash_fwd=n_clip),
+            "encode": dict(zero, flash_fwd=nb + n_clip),
+            "prefill": dict(zero, flash_fwd=nl, int8_matmul=1),
+            "decode": dict(zero, int8_gemv=4 * nl * steps,
+                           decode_attention_int8=nl * steps,
+                           scatter_write=steps, int8_matmul=steps)}
+    t0 = time.perf_counter()
+    lines: list = []
+    with torch.inference_mode():
+        stages = pp.build_stages(params, cfg, 6)
+        walls = pp.time_stages(stages, warm=0, repeats=1)
+        for st, wall in zip(stages, walls):
+            r = pp.profile_stage(st, wall, lines, counters=kernels)
+            seen = [frag for frag in PHASE_KERNELS[st.name]
+                    if any(frag in row[0] for row in r["rows"])]
+            ok = (r["launches"] == want[st.name]
+                  and len(seen) == len(PHASE_KERNELS[st.name]))
+            log(f"[phase] {st.label}: launches as expected "
+                f"{r['launches'] == want[st.name]}, port kernels in the "
+                f"profile {seen} of {list(PHASE_KERNELS[st.name])} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError(f"phase profile {st.label}: launches "
+                                     f"{r['launches']} (expected "
+                                     f"{want[st.name]}), kernels {seen}")
+    log(f"[phase] {len(stages)} stages profiled in "
+        f"{time.perf_counter() - t0:.1f} s; {card}")
+
+
+def trace_phase(torch, params, cfg):
+    """One B = 1 decode step on the tree inside obs/profiler.device_trace,
+    in an annotate region: the trace written to build/chip_smoke_trace/
+    must hold the region and a port kernel."""
+    import glob
+
+    from grounded_video_llm_tpu_torch.cli import phase_profile as pp
+    from grounded_video_llm_tpu_torch.obs import profiler
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    trace_dir = os.path.join(root, "build", "chip_smoke_trace")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    region = "chip_smoke_decode_step"
+    with torch.inference_mode():
+        dec = pp.build_stages(params, cfg, 1, ["decode"], decode_steps=1)[0]
+        dec.fn()
+        with profiler.device_trace(trace_dir):
+            with profiler.annotate(region):
+                dec.fn()
+            profiler.sync(dec.probe)
+    files = glob.glob(os.path.join(trace_dir, "*.json"))
+    events = []
+    if files:
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+    annotated = any(e.get("name") == region for e in events)
+    port = sorted({frag for e in events if e.get("cat") == "kernel"
+                   for frag in PHASE_KERNELS["decode"]
+                   if frag in e.get("name", "")})
+    ok = len(files) == 1 and annotated and bool(port)
+    log(f"[phase] device_trace of one B=1 decode step: {len(files)} trace "
+        f"file(s), {len(events)} events, region {region!r} present "
+        f"{annotated}, port kernels {port} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("obs/profiler.device_trace: the trace lacks the"
+                             " annotation or the port's kernels")
+    shutil.rmtree(trace_dir, ignore_errors=True)
+
+
+def device_preprocess_phase(torch, frames, cfg, card):
+    """The device preprocessing route (ops/preprocess,
+    dual_stream_preprocess_device: the JAX package's preprocess_xla) of one
+    video on the card against the same function on the host, fp32, within
+    1e-5; both timed."""
+    from grounded_video_llm_tpu_torch.ops import preprocess
+
+    host_frames = torch.from_numpy(frames)
+    t0 = time.perf_counter()
+    host = preprocess.dual_stream_preprocess_device(
+        host_frames, cfg.num_segs, out_dtype=torch.float32)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    dev_frames = host_frames.cuda()
+    preprocess.dual_stream_preprocess_device(dev_frames, cfg.num_segs,
+                                             out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dev = preprocess.dual_stream_preprocess_device(
+        dev_frames, cfg.num_segs, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    dev_ms = (time.perf_counter() - t0) * 1e3
+    err = max(float((d.cpu() - h).abs().max()) for d, h in zip(dev, host))
+    ok = err <= 1e-5 and all(d.shape == h.shape for d, h in zip(dev, host))
+    log(f"[phase] device preprocessing (jax.image.resize's bicubic) of one "
+        f"video, {frames.shape[0]} frames of {frames.shape[1]}x"
+        f"{frames.shape[2]}: temporal {tuple(dev[0].shape)}, spatial "
+        f"{tuple(dev[1].shape)}; card {dev_ms:.2f} ms, host {host_ms:.1f} "
+        f"ms; max |card - host| {err:.3e} (<= 1e-05) "
+        f"{'OK' if ok else 'FAIL'}; {card}")
+    if not ok:
+        raise AssertionError("the device preprocessing route differs from "
+                             "its host run")
+
+
 def run_path(torch, kernels, name, fn, expect_fn):
     """Counts to 0, run fn() → timings, read the counts, hold them against
     expect_fn(timings)."""
@@ -4049,7 +4219,7 @@ def continuous_path(torch, kernels, zero, params, cfg, tok, temporal,
 
 # path H: the evaluation runner (cli/eval.py's in-process runner) at full
 # width, and beam search
-EVAL_VIDEOS = 35        # synthetic videos, each from its own seed
+EVAL_VIDEOS = 24        # synthetic videos, each from its own seed
 EVAL_PER_VIDEO = 3      # grounding items a video, listed together
 EVAL_NEW_TOKENS = 16
 EVAL_RERUN = 12         # the first items (4 videos) run again
@@ -4609,17 +4779,59 @@ def llama3_path(torch, kernels, zero, generate, temporal, spatial,
     cfg = vlm_config("llama3", stage="inference")
     L = cfg.llm
     tok = build_tokenizer(cfg)
-    t0 = time.perf_counter()
-    params = build_params(cfg, "cuda", torch.bfloat16, seed=SEED)
-    torch.cuda.synchronize()
-    log(f"[params] full-width llama3 bf16 built on the card in "
-        f"{time.perf_counter() - t0:.2f} s, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
-    encode_chunk_check(torch, vlm, params, cfg, temporal, spatial)
-
     gen_cfg = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False)
     gen_int8 = GenerateConfig(max_new_tokens=MAX_NEW_TOKENS, do_sample=False,
                               quantize_cache=True)
+
+    def timed(fn):
+        """(fn(), seconds, the peak's rise above what was allocated before,
+        what stays allocated after; both in GiB)"""
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return (out, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+                (torch.cuda.memory_allocated() - base) / 2 ** 30)
+
+    params, bf16_s, bf16_rise, bf16_gib = timed(
+        lambda: build_params(cfg, "cuda", torch.bfloat16, seed=SEED))
+    log(f"[params] full-width llama3 bf16 built on the card in "
+        f"{bf16_s:.2f} s, {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    # the set-up of mode A's tree two ways: the engine's quantization of the
+    # bf16 tree (the route every entry point took before build_params had
+    # quantize=), then the LLM built directly in int8; the LLMs bit-equal
+    engine_q, q_s, q_rise, _ = timed(lambda: InferenceEngine(
+        params, cfg, tok, gen_int8, seed=SEED, quantize="int8_full"))
+    quant_llm = engine_q.params["llm"]
+    del engine_q
+    direct, direct_s, direct_rise, _ = timed(lambda: build_params(
+        cfg, "cuda", torch.bfloat16, seed=SEED, quantize="int8_full"))
+    bad = tree_differences(torch, direct["llm"], quant_llm)
+    bad += ["not llm: " + p for p in tree_differences(
+        torch, {k: v for k, v in direct.items() if k != "llm"},
+        {k: v for k, v in params.items() if k != "llm"})]
+    # the route's peak above what was allocated before its bf16 build
+    route_rise = max(bf16_rise, bf16_gib + q_rise)
+    del quant_llm
+    torch.cuda.empty_cache()
+    ok = not bad and direct_rise < route_rise
+    log(f"[setup] llama3 mode A tree, built directly "
+        f"(build_params(quantize='int8_full')): {direct_s:.2f} s, peak rise "
+        f"{direct_rise:.2f} GiB; bf16 then the engine's quantization: "
+        f"build_params {bf16_s:.2f} s (peak rise {bf16_rise:.2f} GiB) + "
+        f"quantization {q_s:.2f} s (peak rise {q_rise:.2f} GiB above the "
+        f"{bf16_gib:.2f} GiB bf16 tree), {bf16_s + q_s:.2f} s and a peak "
+        f"rise of {route_rise:.2f} GiB in all; every leaf of the direct tree "
+        f"bit-equal (LLM to the engine-quantized one, the rest to the bf16 "
+        f"tree): {not bad} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"the direct int8 build: {bad[:8]} differ, or "
+                             f"its peak rise {direct_rise:.2f} GiB is not "
+                             f"below the route's {route_rise:.2f} GiB")
+    encode_chunk_check(torch, vlm, params, cfg, temporal, spatial)
     bf16 = InferenceEngine(params, cfg, tok, gen_cfg, seed=SEED)
     S_pre = (len(bf16.tokenize_prompt(bf16.build_prompt(
         MODES[0][1], MODES[0][0], 96.0))) - 1 + cfg.num_video_tokens)
@@ -4633,8 +4845,10 @@ def llama3_path(torch, kernels, zero, generate, temporal, spatial,
                + cfg.video.num_blocks_used + L.num_layers)
     n_vocab = L.vocab_size + L.num_extra_tokens
     launches = dict(zero)
-    full = InferenceEngine(params, cfg, tok, gen_int8, seed=SEED,
+    # mode A serves the direct tree; the engine quantizes its encoders
+    full = InferenceEngine(direct, cfg, tok, gen_int8, seed=SEED,
                            quantize="int8_full")
+    del direct
     for name, engine, batch, g, want in (
             ("llama3 bf16 B=1", bf16, [MODES[0]], gen_cfg,
              expect_counts(zero, L.num_layers, per_req, 0, False, 0)),
@@ -4755,11 +4969,39 @@ def roundtrip_phase(torch, workdir):
         + f"); written in {write_s:.2f} s, read onto the card by "
         f"build_params in {read_s:.2f} s; {len(want)} leaves bit-equal to "
         f"the bf16 source: {ok} {'OK' if ok else 'FAIL'}")
-    del src, got
-    torch.cuda.empty_cache()
-    shutil.rmtree(workdir, ignore_errors=True)
     if not ok:
         raise AssertionError(f"reference-format round trip: {bad[:8]} differ")
+    # the same files read again with the LLM built directly in int8: its
+    # leaves bit-equal to the quantized bf16 read-back, the rest equal to it
+    from grounded_video_llm_tpu_torch.serve.quantize import \
+        quantize_llm_for_serving
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = build_params(cfg, "cuda", torch.bfloat16, seed=SEED + 6,
+                     weight_root=paths["weight_root"],
+                     video_encoder_path=paths["video_encoder"],
+                     stage_ckpt=paths["stage_ckpt"], quantize="int8_full")
+    torch.cuda.synchronize()
+    q_s = time.perf_counter() - t0
+    q_rise = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    bad = tree_differences(torch, q, dict(got, llm=quantize_llm_for_serving(
+        got["llm"], w8a8=True)))
+    bf16_gib = sum(t.numel() * t.element_size()
+                   for t in have.values()) / 2 ** 30
+    log(f"[roundtrip] the same files read by build_params(quantize="
+        f"'int8_full') in {q_s:.2f} s, peak rise {q_rise:.2f} GiB (the bf16 "
+        f"read holds {bf16_gib:.2f} GiB): the LLM bit-equal to quantize_llm_for_serving of the bf16 "
+        f"read-back, every other leaf to it: {not bad} "
+        f"{'OK' if not bad else 'FAIL'}")
+    del src, got, q
+    torch.cuda.empty_cache()
+    shutil.rmtree(workdir, ignore_errors=True)
+    if bad:
+        raise AssertionError(f"int8 read of the reference files: {bad[:8]} "
+                             "differ")
 
 
 def trained_reload_path(torch, kernels, zero, generate, strat, tok, workdir):
@@ -5448,6 +5690,11 @@ def main() -> int:
         full, batch6, gen_int8), expect(per_req, 4 * nl, True, 1))
     launches = {k: launches[k] + got[k] for k in launches}
     t_a, tokens_a = dict(full.last_timings), full.last_tokens[0]
+    # the phase profile at the JAX script's configuration on path A's tree,
+    # obs/profiler's trace, the device preprocessing route
+    phase_profile_phase(torch, kernels, full.params, cfg, card)
+    trace_phase(torch, full.params, cfg)
+    device_preprocess_phase(torch, frames, cfg, card)
 
     # path D: mode A's batch with both serving opt-ins of the JAX package,
     # the fused W8A8 IV2 blocks (switch set only around it) and greedy

@@ -24,8 +24,11 @@ Annotation formats:
   charades_sta  — the public "id start end##query" text format
   jsonl         — one native dict per line
 
-It runs on one device (cuda by default). ``run_benchmark`` takes an engine
-already built, so other programs drive the same evaluation in-process.
+It runs on one device (cuda by default). ``--quantize`` builds the LLM
+directly in serving int8 (cli/model_loading.build_params), as the root
+eval.py does, in the served tree and in the quantized leg of
+``--quantize_ab``. ``run_benchmark`` takes an engine already built, so
+other programs drive the same evaluation in-process.
 ``--static_scales`` needs the int8_full tree (``--quantize int8_full``, or
 ``--quantize_ab``, whose quantized leg defaults to it) and is refused when
 the arguments are parsed otherwise; the root eval.py crashes in the A/B
@@ -141,9 +144,10 @@ def emit(result: dict, args) -> None:
             json.dump(result, f, indent=2)
 
 
-def _build(args, cfg):
+def _build(args, cfg, quantize=None):
     """The bf16 (fp32 with --debug_tiny) tree on --device, from the files
-    that are given and seeded random otherwise."""
+    that are given and seeded random otherwise; with quantize its LLM is
+    built directly in serving int8 (cli/model_loading.build_params)."""
     import torch
 
     from .model_loading import build_params
@@ -153,7 +157,7 @@ def _build(args, cfg):
         torch.float32 if args.debug_tiny else torch.bfloat16,
         weight_root=args.pretrained_vision_proj_llm_path or None,
         video_encoder_path=args.pretrained_video_path or None,
-        stage_ckpt=args.ckpt_path or None)
+        stage_ckpt=args.ckpt_path or None, quantize=quantize)
 
 
 def run_benchmark(engine, args) -> dict:
@@ -193,6 +197,8 @@ def run_quantize_ab(args, cfg) -> int:
     from ..serve import quant_ab
     from ..serve.calibrate import calibrate_and_apply
     from ..serve.engine import InferenceEngine
+    from ..serve.quantize import (quantize_clip_for_serving,
+                                  quantize_video_encoder_for_serving)
     from .model_loading import build_tokenizer
 
     quant = quantize_mode(args)
@@ -215,10 +221,13 @@ def run_quantize_ab(args, cfg) -> int:
             torch.cuda.empty_cache()
 
     def build_quant():
-        # the engine's own quantization: the tree int8 / int8_full serves
-        p2 = InferenceEngine(_build(args, cfg), cfg, tokenizer,
-                             device=torch.device(args.device),
-                             quantize=quant).params
+        # the tree int8 / int8_full serves: the LLM built in int8, the W8A8
+        # encoders for int8_full, then the static scales
+        p2 = _build(args, cfg, quant)
+        if quant == "int8_full":
+            p2 = dict(p2, video_encoder=quantize_video_encoder_for_serving(
+                p2["video_encoder"]), clip=quantize_clip_for_serving(
+                    p2["clip"]))
         if args.static_scales:
             p2 = calibrate_and_apply(p2, cfg, [temporal])
         return p2
@@ -270,7 +279,7 @@ def main(argv=None) -> int:
         return run_quantize_ab(args, cfg)
     tokenizer = build_tokenizer(cfg, args.tokenizer_path or None, expand=True)
     engine = InferenceEngine(
-        _build(args, cfg), cfg, tokenizer,
+        _build(args, cfg, args.quantize or None), cfg, tokenizer,
         GenerateConfig(max_new_tokens=args.max_new_tokens, do_sample=False,
                        temperature=0.0),
         device=torch.device(args.device), quantize=args.quantize or None,

@@ -15,7 +15,9 @@ It runs on one device (cuda by default; --debug_tiny on the CPU needs
 --device cpu). --pretrained_vision_proj_llm_path (the weight dumps' dir),
 --pretrained_video_path (the InternVideo2 .pt) and --ckpt_path (a stage
 checkpoint) load through cli/model_loading.build_params; what they do not
-give is seeded random at the config's width.
+give is seeded random at the config's width. --quantize builds the LLM
+there directly in serving int8 (its bf16 stack never exists whole on the
+device); the engine then quantizes the encoders for int8_full.
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def main(argv=None):
         seed=args.seed,
         weight_root=args.pretrained_vision_proj_llm_path or None,
         video_encoder_path=args.pretrained_video_path or None,
-        stage_ckpt=args.ckpt_path or None)
+        stage_ckpt=args.ckpt_path or None, quantize=args.quantize or None)
     tokenizer = build_tokenizer(cfg, args.tokenizer_path or None)
     gen_cfg = GenerateConfig(max_new_tokens=args.max_new_tokens,
                              do_sample=args.do_sample,

@@ -16,7 +16,10 @@ import torch
 from ..core import checkpoint as ckpt
 from ..core.config import VLMConfig
 from ..models import convert
-from ..models.from_jax import params_from_jax
+from ..models.convert import leaf_shape
+from ..models.from_jax import params_from_jax, vocab_config
+from ..ops.int8_matmul import Int8Embedding, Int8Weight
+from ..serve.quantize import init_llm_params_quantized, upload_llm_quantized
 from ..text.tokenizer import load_tokenizer
 
 
@@ -108,17 +111,64 @@ def read_weights(cfg: VLMConfig, weight_root: Optional[str] = None,
     return tree
 
 
+def _check_llm_shapes(host_llm: dict, expected: dict) -> None:
+    """Fail on an LLM entry of the files whose shape is not the one the
+    config gives (expected: the int8 tree's meta placeholders)."""
+    for name, leaf in host_llm.items():
+        want = expected[name]
+        pairs = ([(f"{name}/{k}", leaf.get(k), w) for k, w in want.items()]
+                 if isinstance(want, dict) else [(name, leaf, want)])
+        for path, got, w in pairs:
+            shape = tuple((w.q if isinstance(w, (Int8Weight, Int8Embedding))
+                           else w).shape)
+            if got is None or leaf_shape(got) != shape:
+                raise ValueError(f"build_params: llm/{path} in the files is "
+                                 f"{None if got is None else leaf_shape(got)}"
+                                 f", expected {shape}")
+
+
 def build_params(cfg: VLMConfig, device, dtype=torch.bfloat16,
                  seed: int = 42, weight_root: Optional[str] = None,
                  video_encoder_path: Optional[str] = None,
-                 stage_ckpt: Optional[str] = None) -> dict:
+                 stage_ckpt: Optional[str] = None,
+                 quantize: Optional[str] = None) -> dict:
     """The VLM tree on ``device``: every piece the files hold (read_weights)
     as float32 rounded to ``dtype``, every other piece seeded random at the
     config's width, made directly on the device. A piece read from a file
     is never drawn at random first. The tree's vocabulary is the files'
-    where they bring an embedding (models/from_jax._vocab_config)."""
+    where they bring an embedding (models/from_jax.vocab_config).
+
+    quantize ("int8" | "int8_full", as the JAX package's): the LLM is built
+    already in serving int8 (serve/quantize.py), so its bf16 stack never
+    exists whole on the device: the LLM entries the files hold (the dumps'
+    LLM, a stage checkpoint's embed and lm_head) stream through
+    upload_llm_quantized, the rest is drawn by init_llm_params_quantized.
+    The LLM is bit-equal to quantize_llm_for_serving of the tree built
+    without ``quantize``; int8_full marks its projections w8a8. The
+    encoders stay in ``dtype``: the engine quantizes them for int8_full
+    and keeps the pre-quantized LLM as it is."""
+    if quantize not in (None, "int8", "int8_full"):
+        raise ValueError(f"quantize={quantize!r}: expected None, 'int8' or "
+                         "'int8_full'")
     tree = read_weights(cfg, weight_root, video_encoder_path, stage_ckpt)
-    return params_from_jax(tree, cfg, device, dtype, seed=seed)
+    if not quantize:
+        return params_from_jax(tree, cfg, device, dtype, seed=seed)
+    cfg = vocab_config(tree, cfg)
+    host_llm = tree.pop("llm", {})
+    w8a8 = quantize == "int8_full"
+
+    def llm_init(llm_cfg, *, generator, device, dtype, skip):
+        present = frozenset((k,) for k in host_llm)
+        out = init_llm_params_quantized(llm_cfg, generator=generator,
+                                        device=device, dtype=dtype,
+                                        w8a8=w8a8, skip=skip | present)
+        _check_llm_shapes(host_llm, out)
+        out.update(upload_llm_quantized(host_llm, w8a8=w8a8, device=device,
+                                        dtype=dtype))
+        return out
+
+    return params_from_jax(tree, cfg, device, dtype, seed=seed,
+                           llm_init=llm_init)
 
 
 def build_tokenizer(cfg: VLMConfig, tokenizer_path: Optional[str] = None,

@@ -11,8 +11,8 @@ streaming over the slot pool, feature-cached video encode at admission.
          "prompt": "When does the dog jump?", "mode": "grounding"}'
 
 It serves on one device (cuda by default; --debug_tiny on the CPU needs
---device cpu). The weight flags load through cli/model_loading.build_params
-as in cli/inference.py.
+--device cpu). The weight flags and --quantize go through
+cli/model_loading.build_params as in cli/inference.py.
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ def main(argv=None):
         seed=args.seed,
         weight_root=args.pretrained_vision_proj_llm_path or None,
         video_encoder_path=args.pretrained_video_path or None,
-        stage_ckpt=args.ckpt_path or None)
+        stage_ckpt=args.ckpt_path or None, quantize=args.quantize or None)
     tokenizer = build_tokenizer(cfg, args.tokenizer_path or None)
     gen_cfg = GenerateConfig(max_new_tokens=args.max_new_tokens,
                              do_sample=args.do_sample,

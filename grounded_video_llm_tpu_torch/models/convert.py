@@ -57,6 +57,12 @@ class Stacked:
         return out if dtype is None else out.astype(dtype)
 
 
+def leaf_shape(leaf) -> tuple:
+    """The shape of a host leaf: a numpy array or a Stacked."""
+    return tuple(leaf.shape) if isinstance(leaf, Stacked) else tuple(
+        np.shape(leaf))
+
+
 def _t(w: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(w).T)
 

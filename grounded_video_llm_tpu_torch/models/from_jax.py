@@ -40,7 +40,7 @@ import torch
 from ..core.config import NUM_SPECIAL_TOKENS, VLMConfig, replace
 from ..ops.int8_matmul import Int8Embedding, Int8Weight, empty_int8_weight
 from . import vlm
-from .convert import Stacked
+from .convert import Stacked, leaf_shape
 
 _EMBED = ("llm", "embed")
 
@@ -102,7 +102,7 @@ def _int8_from_jax(path, pair: dict, shape, device):
     return Int8Weight(qt, st, "w8a8" in pair, xt)
 
 
-def _vocab_config(np_tree, cfg: VLMConfig) -> VLMConfig:
+def vocab_config(np_tree, cfg: VLMConfig) -> VLMConfig:
     """cfg with as many extra vocabulary rows as the tree's embedding has
     over the base vocabulary, where that is 0 or NUM_SPECIAL_TOKENS: a tree
     expanded by train/vocab.expand_vocab on a config without the extra rows,
@@ -111,15 +111,10 @@ def _vocab_config(np_tree, cfg: VLMConfig) -> VLMConfig:
     embed = np_tree.get("llm", {}).get("embed")
     if embed is None or _is_int8_pair(embed):
         return cfg
-    extra = _shape(embed)[0] - cfg.llm.vocab_size
+    extra = leaf_shape(embed)[0] - cfg.llm.vocab_size
     if extra in (0, NUM_SPECIAL_TOKENS) and extra != cfg.llm.num_extra_tokens:
         return replace(cfg, llm=replace(cfg.llm, num_extra_tokens=extra))
     return cfg
-
-
-def _shape(leaf) -> tuple:
-    return tuple(leaf.shape) if isinstance(leaf, Stacked) else tuple(
-        np.shape(leaf))
 
 
 def _dense_from_numpy(leaf, device, dtype) -> torch.Tensor:
@@ -147,14 +142,22 @@ def _present(np_tree) -> frozenset:
     return frozenset(out)
 
 
+def _on_meta(leaf) -> bool:
+    if isinstance(leaf, (Int8Weight, Int8Embedding)):
+        leaf = leaf.q
+    return leaf.is_meta
+
+
 def params_from_jax(np_tree, cfg: VLMConfig, device,
-                    dtype=torch.float32, seed: Optional[int] = None) -> dict:
+                    dtype=torch.float32, seed: Optional[int] = None,
+                    llm_init=None) -> dict:
     """np_tree: the JAX ``vlm.init_params`` pytree (serving-quantized or
     not) with numpy leaves (e.g. ``jax.tree_util.tree_map(np.asarray,
     params)``) → this package's params on ``device``, dense tensors in
     ``dtype``. Every leaf is used exactly once. With a seed, leaves the tree
-    lacks are the seeded random init instead of an error."""
-    cfg = _vocab_config(np_tree, cfg)
+    lacks are the seeded random init instead of an error, the LLM's drawn
+    by llm_init where it is given (models/vlm.init_params)."""
+    cfg = vocab_config(np_tree, cfg)
     if seed is None:
         expected = vlm.init_params(cfg, generator=None, device="meta",
                                    dtype=dtype)
@@ -162,18 +165,19 @@ def params_from_jax(np_tree, cfg: VLMConfig, device,
         generator = torch.Generator(device=device)
         generator.manual_seed(seed)
         expected = vlm.init_params(cfg, generator=generator, device=device,
-                                   dtype=dtype, skip=_present(np_tree))
+                                   dtype=dtype, skip=_present(np_tree),
+                                   llm_init=llm_init)
     lora = np_tree.get("llm", {}).get("layers", {}).get("lora")
     if lora is not None:
         from ..train.lora import attach_lora, init_lora
 
-        rank = _shape(lora["qkv"]["a"])[-1]
+        rank = leaf_shape(lora["qkv"]["a"])[-1]
         expected["llm"] = attach_lora(expected["llm"], init_lora(
             cfg.llm, generator=None, device="meta", rank=rank, dtype=dtype))
     want = _flatten(expected)
     have = _flatten(np_tree)
     missing = sorted(p for p in set(want) - set(have)
-                     if seed is None or want[p].is_meta)
+                     if seed is None or _on_meta(want[p]))
     extra = sorted(set(have) - set(want))
     if missing or extra:
         raise ValueError(f"params_from_jax: missing {missing}, "
@@ -187,9 +191,10 @@ def params_from_jax(np_tree, cfg: VLMConfig, device,
         if _is_int8_pair(src):
             value = _int8_from_jax(path, src, shape, device)
         else:
-            if _shape(src) != shape:
+            if leaf_shape(src) != shape:
                 raise ValueError(f"params_from_jax: {'/'.join(path)} has "
-                                 f"shape {_shape(src)}, expected {shape}")
+                                 f"shape {leaf_shape(src)}, expected "
+                                 f"{shape}")
             value = _dense_from_numpy(src, device, dtype)
         _set(expected, path, value)
         used += 1

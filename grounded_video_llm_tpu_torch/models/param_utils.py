@@ -35,9 +35,25 @@ def _sample(shape: Sequence[int], generator: torch.Generator, device,
     return out
 
 
+def normal_slices(shape, stddev: float, *, generator, device):
+    """The fp32 draws ``normal`` rounds into its dtype, in order: one per
+    leading slice of a shape of 3 or more dimensions, one whole draw of a
+    smaller one (serve/quantize.py quantizes them as they come)."""
+    shape = tuple(shape)
+    n, part = (shape[0], shape[1:]) if len(shape) >= 3 else (1, shape)
+    for _ in range(n):
+        yield torch.empty(part, dtype=torch.float32, device=device).normal_(
+            0.0, stddev, generator=generator)
+
+
 def normal(shape, stddev: float, *, generator, device, dtype):
-    return _sample(shape, generator, device, dtype,
-                   lambda t: t.normal_(0.0, stddev, generator=generator))
+    out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    rows = out.view(1, *out.shape) if out.dim() < 3 else out
+    for sl, draw in zip(rows, normal_slices(shape, stddev,
+                                            generator=generator,
+                                            device=device)):
+        sl.copy_(draw)
+    return out
 
 
 def truncated_normal(shape, stddev: float, *, generator, device, dtype):

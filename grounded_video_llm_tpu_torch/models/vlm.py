@@ -45,13 +45,16 @@ class Batch(NamedTuple):
 
 
 def init_params(cfg: VLMConfig, *, generator: Optional[torch.Generator],
-                device, dtype=torch.float32, skip=frozenset()):
+                device, dtype=torch.float32, skip=frozenset(),
+                llm_init=None):
     """The seeded random tree. Each piece (and each top-level entry of the
     LLM) draws from its own generator, seeded from ``generator`` in a fixed
     order, so a piece's values do not depend on which others are drawn.
     skip: paths — ("clip",), ("llm", "embed"), ... — left on the meta
     device (shapes only, nothing drawn), for pieces a caller fills from
-    files."""
+    files. llm_init: called as models/llm.init_params is, in its place,
+    with the LLM's own generator (serve/quantize.init_llm_params_quantized
+    draws the LLM directly in serving int8 there)."""
     H = cfg.llm.hidden_size
     C = cfg.clip.hidden_size
 
@@ -81,7 +84,7 @@ def init_params(cfg: VLMConfig, *, generator: Optional[torch.Generator],
         "video_projector": piece("video_projector",
                                  lambda **kw: projectors.init_video_projector(
                                      H, cfg.video.embed_dim, **kw)),
-        "llm": piece("llm", lambda **kw: llm_mod.init_params(
+        "llm": piece("llm", lambda **kw: (llm_init or llm_mod.init_params)(
             cfg.llm, skip=llm_skip, **kw)),
         "extras": piece("extras", extras),
     }

@@ -109,13 +109,21 @@ def _quantize_2d(w: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return scale
 
 
-def quantize_weights_int8(w: torch.Tensor
+def quantize_weights_int8(w: torch.Tensor,
+                          out: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """w [.., D, O] → (int8 values, fp32 scales [.., O]); symmetric absmax
     per output channel. A stacked weight is quantized one leading slice at
     a time (the scales are per slice), so no fp32 copy of the whole stack
-    is made. The values are stored as ``empty_int8_weight`` lays them out."""
-    q = empty_int8_weight(w.shape, w.device)
+    is made. The values are stored as ``empty_int8_weight`` lays them out,
+    or written into ``out`` (int8, w's shape; a slice of a larger buffer),
+    which is returned."""
+    if out is not None and (out.shape != w.shape
+                            or out.dtype != torch.int8):
+        raise ValueError(f"quantize_weights_int8: out is {out.dtype}"
+                         f"{tuple(out.shape)}, expected int8"
+                         f"{tuple(w.shape)}")
+    q = empty_int8_weight(w.shape, w.device) if out is None else out
     if w.dim() == 2:
         return q, _quantize_2d(w, q)
     lead = w.shape[:-2]

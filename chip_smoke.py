@@ -160,9 +160,25 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
         cache), num_beams=1 equal to the bf16 request's greedy tokens, ms
         per step beside the cache reorder's share, and the joint log-prob
         of the best beam and of greedy (a reading, not a gate).
+   Every serving loop runs through the step graphs
+   (serve/graphs.StepGraphs): on the card each decode step, verify pass,
+   pool chunk and beam step is a CUDA graph, captured at its key's second
+   step and replayed after. After path D, [graph] legs run each captured
+   loop at GRAPH_NEW_TOKENS (16) through the eager switch
+   (StepGraphs.eager()) and twice through the graphs: mode A's decode (B =
+   6), bf16 B=1, path D's verify passes, the cascade of paths F / H, path
+   G's decode and speculative chunks (pool 4, chunks of 8) and beams (bf16
+   B=1, K=4; beside it what the one-graph copy-back design would add), each
+   printing ms per step for both routes, the capture ms, the replays and
+   the graph pool's bytes, its greedy tokens bit-equal to the eager
+   loop's; mode A's captured step holds the same kernel nodes as one eager
+   step of its body (128 + 1 int8_mm_kernel, 32 K4, one K5); sampled draws
+   inside a graph (sample_logits and spec_accept_tokens from a registered
+   torch.Generator) stay in their top-p support, and whether they equal
+   the eager draws is printed; llama3's mode A has a leg too (phase 8).
    Each path runs with every launch count set to 0 just before it; its
    counts are read just after and held against the counts the config
-   implies. Phase times, peak device memory, and a shape/finiteness check of
+   implies (a replay adds what its capture counted). Phase times, peak device memory, and a shape/finiteness check of
    the features and logits. After path A, on its tree: the phase profile
    at the JAX script's configuration (cli/phase_profile.build_stages, B =
    6: internvideo2 on 72 clips, clip on 72 frames, encode, prefill at 63 +
@@ -259,6 +275,7 @@ with code 2 and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import os
@@ -1131,19 +1148,28 @@ class _KernelNodeParams(ctypes.Structure):
 
 def graph_kernels(torch, fn) -> list:
     """The device operations of one call of fn: the nodes of a CUDA graph
-    captured from the call, kernels by their mangled names
-    (cuFuncGetName), other nodes as "<node type N>". Exact however the
-    kernels overlap."""
+    captured from the call (graph_nodes). Exact however the kernels
+    overlap."""
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        fn()
+    names = graph_nodes(graph)
+    del graph
+    torch.cuda.empty_cache()
+    return names
+
+
+def graph_nodes(graph) -> list:
+    """The nodes of a captured torch.cuda.CUDAGraph(keep_graph=True):
+    kernels by their mangled names (cuFuncGetName), other nodes as
+    "<node type N>"."""
     cu = ctypes.CDLL("libcuda.so.1")
 
     def check(rc, what):
         if rc:
             raise RuntimeError(f"{what} failed: CUresult {rc}")
 
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph(keep_graph=True)
-    with torch.cuda.graph(graph):
-        fn()
     raw = ctypes.c_void_p(graph.raw_cuda_graph())
     n = ctypes.c_size_t(0)
     check(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)), "cuGraphGetNodes")
@@ -1170,8 +1196,6 @@ def graph_kernels(torch, fn) -> list:
                                      ctypes.c_void_p(p.kern)),
                   "cuKernelGetName")
         names.append(name.value.decode())
-    del graph
-    torch.cuda.empty_cache()
     return names
 
 
@@ -3049,6 +3073,322 @@ def run_path(torch, kernels, name, fn, expect_fn):
     return got
 
 
+GRAPH_NEW_TOKENS = 16   # [graph] legs: new tokens a request (<= 16 steps)
+
+
+def graph_leg(torch, name, graphs, run, card, unit="step"):
+    """The [graph] leg of a captured loop: run() drives one request through
+    the loop's entry point → (tokens on the host, steps, decode seconds);
+    once under graphs.eager(), then twice through the step graphs (the
+    first warms and captures the key, the second only replays). Greedy
+    tokens and steps must be bit-equal; ms per step of both routes (the
+    graph's from the second call), the capture ms, replays and the graph
+    pool's bytes are printed with the card."""
+    with graphs.eager():
+        tok_e, n_e, sec_e = run()
+    before = dict(graphs.stats)
+    tok_1, n_1, sec_1 = run()
+    tok_g, n_g, sec_g = run()
+    st = {k: graphs.stats[k] - before[k] for k in before}
+    st["pool_bytes"] = graphs.pool_bytes()
+    ok = (n_e == n_1 == n_g and torch.equal(tok_e, tok_1)
+          and torch.equal(tok_e, tok_g))
+    ms_e, ms_g = 1e3 * sec_e / max(n_e, 1), 1e3 * sec_g / max(n_g, 1)
+    log(f"[graph] {name}: eager {ms_e:.2f} ms/{unit}, graph {ms_g:.2f} "
+        f"ms/{unit} ({ms_e / ms_g:.2f}x), the capturing call "
+        f"{1e3 * sec_1 / max(n_1, 1):.2f} ms/{unit}; {n_g} {unit}s a "
+        f"request, {st['captures']} capture(s) {st['capture_ms']:.1f} ms, "
+        f"{st['replays']} replays, graph pool "
+        f"{st['pool_bytes'] / 2 ** 20:.1f} MiB; greedy tokens bit-equal "
+        f"{ok}; {card}")
+    if not ok:
+        raise AssertionError(f"[graph] {name}: the step graphs' tokens or "
+                             "steps differ from the eager loop's")
+    return ms_e, ms_g
+
+
+def engine_run(engine, call, key="decode_steps"):
+    """A graph_leg run over an engine route: call() serves one request;
+    the tokens, steps and decode seconds from the engine's last_timings."""
+    def run():
+        call()
+        t = engine.last_timings
+        return engine.last_tokens[0].clone(), t[key], t["decode"]
+    return run
+
+
+def clone_state(state):
+    """A copy of a step graph's state: its tensors cloned, NamedTuples and
+    tuples rebuilt."""
+    if hasattr(state, "clone"):
+        return state.clone()
+    if hasattr(state, "_fields"):
+        return type(state)(*[clone_state(x) for x in state])
+    if isinstance(state, tuple):
+        return tuple(clone_state(x) for x in state)
+    return state
+
+
+def captured_step_check(torch, graphs, nl, card):
+    """The kernel nodes of the decode step graph an engine captured (mode
+    A's: int8_full, int8 cache) against one eager step of the same body
+    (device_kernels): the same names and counts, and the per-step counts
+    gemv_phase times: 4 nl + 1 int8_mm_kernel (w8a8 projections, the
+    lm_head), nl K4, one K5."""
+    from collections import Counter
+
+    loop = next(lp for lp in graphs.loops()
+                if lp.key[0][0] == "decode" and 0 in lp.graphs)
+    got = graph_nodes(loop.graphs[0])
+    with torch.inference_mode():
+        # a copy of the finished loop's state, back at its second token
+        st = clone_state(loop.state)
+        st.step.fill_(1)
+        want, _ = device_kernels(torch, lambda: loop.bodies[0](st))
+
+    def count(names, frag):
+        return sum(frag in n for n in names)
+
+    per_step = {"int8_mm_kernel": 4 * nl + 1, "attention_kernel": nl,
+                "scatter_kernel": 1}
+    ok = (Counter(got) == Counter(want)
+          and all(count(got, f) == n for f, n in per_step.items()))
+    log(f"[graph] mode A's captured decode step: {len(got)} nodes, "
+        f"{sum(not n.startswith('<') for n in got)} kernels, "
+        + ", ".join(f"{f} {count(got, f)} (want {n})"
+                    for f, n in per_step.items())
+        + f"; one eager step of the body: {len(want)} nodes; same names "
+        f"and counts {Counter(got) == Counter(want)} "
+        f"{'OK' if ok else 'FAIL'}; {card}")
+    if not ok:
+        extra = Counter(got) - Counter(want)
+        missing = Counter(want) - Counter(got)
+        raise AssertionError(f"captured step: extra {dict(extra)}, missing "
+                             f"{dict(missing)}")
+
+
+def cascade_run(torch, engine, cfg, feats, prompts, n):
+    """A graph_leg run of the cascade (paths F and H's shared-prefix
+    decode): the prompts' shared [pre-image text | video] head built once
+    (build_prefix_kv), then generate_tokens_from_prefix(shared_prefix=True)
+    on the engine's graphs, greedy, n new tokens."""
+    from grounded_video_llm_tpu_torch.serve.generate import (
+        _ceil128, build_prefix_kv, generate_tokens_from_prefix)
+    from grounded_video_llm_tpu_torch.text.templates import IMAGE_TOKEN_INDEX
+
+    seqs = [engine.tokenize_prompt(p) for p in prompts]
+    img = [s.index(IMAGE_TOKEN_INDEX) for s in seqs]
+    pre = seqs[0][:img[0]]
+    if any(s[:a] != pre for s, a in zip(seqs, img)):
+        raise AssertionError("cascade leg: the prompts share no head")
+    posts = [s[a + 1:] for s, a in zip(seqs, img)]
+    Sq = _ceil128(max(len(p) for p in posts))
+    ids, mask = engine._pad_bucket_batch(posts, Sq)
+    Sp = len(pre) + cfg.num_video_tokens
+    hint = _ceil128(Sp + Sq + n)
+    pre_ids = torch.tensor([pre], device="cuda")
+    prefix = build_prefix_kv(engine.params, cfg, pre_ids,
+                             torch.ones_like(pre_ids),
+                             feats[None].to("cuda"), hint)
+    tok = engine.tokenizer
+    ids = torch.from_numpy(ids).long().cuda()
+    mask = torch.from_numpy(mask).long().cuda()
+
+    def run():
+        t = {}
+        out, _ = generate_tokens_from_prefix(
+            engine.params, cfg, ids, mask, *prefix, engine.generator,
+            max_new_tokens=n, do_sample=False, eos_token_id=tok.eos_token_id,
+            pad_token_id=tok.pad_token_id, quantize_cache=True,
+            shared_prefix=True, rope_hint=hint, timings=t,
+            graphs=engine.graphs)
+        return out.cpu(), t["decode_steps"], t["decode"]
+    return run
+
+
+def pool_run(torch, server, requests):
+    """A graph_leg run of a continuous pool: serve(requests) from an idle
+    pool → (the requests' tokens, pad -1, chunk steps, the chunks' host
+    seconds from launch to tokens landing)."""
+    def run():
+        before = dict(server.timings)
+        outs = server.serve(requests)
+        t = server.timings
+        toks = torch.full((len(outs), max(len(o) for o in outs)), -1,
+                          dtype=torch.int64)
+        for i, o in enumerate(outs):
+            toks[i, :len(o)] = torch.from_numpy(o.astype(np.int64))
+        return (toks, t["timed_steps"] - before.get("timed_steps", 0),
+                t["chunk"] - before.get("chunk", 0.0))
+    return run
+
+
+def sampled_graph_check(torch, card, V=32064, rows=6, draws=64):
+    """Sampling inside a step graph: `draws` draws of sample_logits
+    (temperature 0.7, top-p 0.9) and of spec_accept_tokens' sampled rule
+    on fixed logits, from a torch.Generator registered with the graph,
+    against the eager loop from the same seed. Every token must lie in the
+    top-p support computed on the host; graph draws equal to eager ones is
+    printed (a reading: the ROADMAP states it)."""
+    from typing import NamedTuple
+
+    from grounded_video_llm_tpu_torch.serve.generate import sample_logits
+    from grounded_video_llm_tpu_torch.serve.graphs import StepGraphs
+    from grounded_video_llm_tpu_torch.serve.speculative import (
+        spec_accept_tokens)
+
+    class Draws(NamedTuple):
+        logits: object
+        vlogits: object
+        drafts: object
+        out: object
+        acc: object
+        step: object
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+    logits = torch.randn(rows, V, generator=g, device="cuda") * 4.0
+    vlogits = torch.randn(rows, 5, V, generator=g, device="cuda") * 4.0
+    drafts = vlogits[:, :4].argmax(-1)
+
+    def body(st):
+        tok = sample_logits(st.logits, g, 0.7, 0.9, True)
+        a, em = spec_accept_tokens(st.vlogits, st.drafts, g, 0.7, 0.9, True)
+        st.out.index_copy_(0, st.step, tok[None])
+        st.acc.index_copy_(0, st.step, torch.cat([a[:, None], em], 1)[None])
+        st.step.add_(1)
+        return st
+
+    got = []
+    for eager in (True, False):
+        graphs = StepGraphs()
+        g.manual_seed(SEED + 1)
+        st = Draws(logits, vlogits, drafts,
+                   torch.zeros(draws, rows, dtype=torch.int64, device="cuda"),
+                   torch.zeros(draws, rows, 6, dtype=torch.int64,
+                               device="cuda"),
+                   torch.zeros(1, dtype=torch.int64, device="cuda"))
+        loop = graphs.loop(("sample",), st, body, generator=g)
+        with graphs.eager() if eager else contextlib.nullcontext():
+            for _ in range(draws):
+                loop.step()
+        torch.cuda.synchronize()
+        got.append((loop.state.out.cpu(), loop.state.acc.cpu()))
+    # the top-p support of each row, on the host
+    lg = logits.double().cpu() / 0.7
+    srt, idx = torch.sort(lg, dim=-1, descending=True)
+    p = torch.softmax(srt, -1)
+    keep = (torch.cumsum(p, -1) - p) < 0.9
+    support = [set(idx[r][keep[r]].tolist()) for r in range(rows)]
+    inside = all(int(t) in support[r] for out, _ in got
+                 for row in out for r, t in enumerate(row))
+    valid = all(bool(((acc[..., 1:] >= 0) & (acc[..., 1:] < V)).all())
+                and bool(((acc[..., 0] >= 1) & (acc[..., 0] <= 5)).all())
+                for _, acc in got)
+    same = (torch.equal(got[0][0], got[1][0])
+            and torch.equal(got[0][1], got[1][1]))
+    ok = inside and valid
+    log(f"[graph] sampled draws in a step graph ({draws} steps of "
+        f"sample_logits at [{rows}, {V}] and of spec_accept_tokens at "
+        f"[{rows}, 5, {V}], temperature 0.7, top-p 0.9, a registered "
+        f"torch.Generator): every token in its top-p support {inside}, "
+        f"accept counts and tokens valid {valid}; graph draws equal to the "
+        f"eager loop's from the same seed: {same} {'OK' if ok else 'FAIL'}; "
+        f"{card}")
+    if not ok:
+        raise AssertionError("sampling inside a step graph left the top-p "
+                             "support or the vocabulary")
+    return same
+
+
+def serving_graph_legs(torch, cfg, bf16, full, batch6, prompts, temporal,
+                       spatial, card):
+    """The [graph] legs of Phi-3.5's serving loops (GRAPH_NEW_TOKENS each):
+    mode A's decode (B = 6, then its captured step's kernel nodes), the
+    bf16 B = 1 decode, path D's verify passes, the cascade of paths F / H,
+    path G's decode and speculative chunks (pool 4, chunks of 8), beams
+    (bf16 B = 1, K = 4); then sampling inside a graph."""
+    from grounded_video_llm_tpu_torch.core.config import GenerateConfig
+    from grounded_video_llm_tpu_torch.serve.continuous import (
+        ContinuousServer, Request)
+    from grounded_video_llm_tpu_torch.serve.graphs import StepGraphs
+
+    n = GRAPH_NEW_TOKENS
+    g_bf16 = GenerateConfig(max_new_tokens=n, do_sample=False)
+    g_int8 = GenerateConfig(max_new_tokens=n, do_sample=False,
+                            quantize_cache=True)
+    g_spec = GenerateConfig(max_new_tokens=n, do_sample=False,
+                            quantize_cache=True,
+                            spec_draft_len=SPEC_DRAFT_LEN)
+    g_beam = GenerateConfig(max_new_tokens=n, do_sample=False, num_beams=4)
+    feats = full.encode_features(temporal, spatial)
+    feats_b = bf16.encode_features(temporal, spatial)
+    p6, p1 = prompts(batch6, full), prompts([MODES[0]], bf16)
+    out = {}
+    out["A"] = graph_leg(torch, "A int8_full int8-cache B=6 decode",
+                         full.graphs, engine_run(
+                             full, lambda: full.generate_from_features(
+                                 p6, feats, g_int8)), card)
+    captured_step_check(torch, full.graphs, cfg.llm.num_layers, card)
+    out["bf16"] = graph_leg(torch, "bf16 B=1 decode", bf16.graphs,
+                            engine_run(bf16, lambda: bf16.generate_from_features(
+                                p1, feats_b, g_bf16)), card)
+    out["D"] = graph_leg(torch, f"D spec{SPEC_DRAFT_LEN} B=6 verify",
+                         full.graphs, engine_run(
+                             full, lambda: full.generate_from_features(
+                                 p6, feats, g_spec), "verify_passes"),
+                         card, "pass")
+    out["F/H"] = graph_leg(torch, "F/H cascade B=6 decode", full.graphs,
+                           cascade_run(torch, full, cfg, feats, p6, n), card)
+    seqs = [full.tokenize_prompt(text) for text in p6[:4]]
+    bucket = -(-max(len(q) for q in seqs) // 64) * 64
+    for spec in (0, SPEC_DRAFT_LEN):
+        server = ContinuousServer(full.params, cfg, pool_size=4,
+                                  prompt_len=bucket,
+                                  max_new_tokens=n, chunk=POOL["chunk"],
+                                  eos_token_id=full.tokenizer.eos_token_id,
+                                  pad_token_id=full.tokenizer.pad_token_id,
+                                  spec_draft_len=spec)
+        reqs = [Request(*full._pad_bucket(q, bucket), None, None,
+                        max_new_tokens=n, features=feats) for q in seqs]
+        name = (f"G pool 4 spec{spec} chunk" if spec
+                else "G pool 4 decode chunk")
+        out[name] = graph_leg(torch, name, server.graphs,
+                              pool_run(torch, server, reqs), card,
+                              "chunk step")
+        del server
+    # a full-width beam cache with its spare (11.5 GB) is above an engine's
+    # kept state, so each beam call captures anew; the leg lends the engine
+    # a runner without that bound, so that its second call only replays
+    kept, bf16.graphs = bf16.graphs, StepGraphs(max_state_bytes=None)
+    try:
+        out["beam"] = graph_leg(torch, "beam4 bf16 B=1", bf16.graphs,
+                                engine_run(bf16, lambda: bf16.generate(
+                                    p1, temporal, spatial, g_beam)), card)
+        # the design not taken: one graph whose reorder writes the spare
+        # and copies it back (the cache's k and v once more a step)
+        st = next(lp for lp in bf16.graphs.loops()
+                  if lp.key[0][0] == "beam").state
+
+        def copy_back():
+            st.k[0].copy_(st.k[1])
+            st.v[0].copy_(st.v[1])
+
+        nbytes = 2 * (st.k[0].numel() * st.k[0].element_size())
+        with torch.inference_mode():   # the state tensors are inference's
+            copy_ms = graph_ms(torch, copy_back)
+        log(f"[graph] beam4 bf16 B=1: two graphs (one per direction of the "
+            f"buffer swap); the one-graph design's copy back of k and v "
+            f"({nbytes / 2 ** 20:.1f} MiB) would add {copy_ms:.4f} ms a "
+            f"step; {card}")
+        del st
+    finally:
+        bf16.graphs = kept
+    sampled_graph_check(torch, card)
+    torch.cuda.empty_cache()
+    return out
+
+
 def spec_path(torch, cfg, engine, batch, prompts, t_a, tokens_a, temporal,
               spatial):
     """After path D: its encode next to path A's, its passes and accepted
@@ -4756,7 +5096,7 @@ def llama3_kernel_phase(torch, fa, mm, da, cw, cfg, S_pre, max_len):
 
 
 def llama3_path(torch, kernels, zero, generate, temporal, spatial,
-                resize_ms):
+                resize_ms, card):
     """Full-width llama3 (vlm_config("llama3", stage="inference"):
     Meta-Llama-3-8B, 32 layers, 32 heads, 8 kv heads of 128; CLIP ViT-L/14
     and InternVideo2-1B as in the Phi-3.5 paths), seeded random bf16
@@ -4764,7 +5104,8 @@ def llama3_path(torch, kernels, zero, generate, temporal, spatial,
     check, the kernels at llama3's shapes, then a bf16 B=1 request and a
     mode A request (int8_full, int8 cache, B=6), their launch counts held
     to the config's, their tokens in the vocabulary and their texts
-    parsed. → (the summed launch counts, the bf16 params)."""
+    parsed; then mode A's [graph] leg. → (the summed launch counts, the
+    bf16 params)."""
     from grounded_video_llm_tpu_torch.cli.model_loading import (
         build_params, build_tokenizer)
     from grounded_video_llm_tpu_torch.core.config import (GenerateConfig,
@@ -4871,6 +5212,13 @@ def llama3_path(torch, kernels, zero, generate, temporal, spatial,
             f"[0, {n_vocab}): {in_range} {'OK' if in_range else 'FAIL'}")
         if not in_range:
             raise AssertionError(f"{name}: tokens outside the vocabulary")
+    g16 = GenerateConfig(max_new_tokens=GRAPH_NEW_TOKENS, do_sample=False,
+                         quantize_cache=True)
+    feats = full.encode_features(temporal, spatial)
+    p6 = [full.build_prompt(p, m, 96.0) for m, p in batch6]
+    graph_leg(torch, "llama3 A int8_full int8-cache B=6 decode", full.graphs,
+              engine_run(full, lambda: full.generate_from_features(
+                  p6, feats, g16)), card)
     del full, bf16
     torch.cuda.empty_cache()
     return launches, params
@@ -5718,6 +6066,9 @@ def main() -> int:
     launches = {k: launches[k] + got[k] for k in launches}
     spec_path(torch, cfg, full, batch6, prompts, t_a, tokens_a, temporal,
               spatial)
+    # the step graphs: each captured loop against the eager switch
+    serving_graph_legs(torch, cfg, bf16, full, batch6, prompts, temporal,
+                       spatial, card)
     # outputs of mode A's model: right shapes, finite
     with torch.inference_mode():
         feats = vlm.encode_video(
@@ -5821,7 +6172,7 @@ def main() -> int:
                            "build", "chip_smoke_checkpoints")
     roundtrip_phase(torch, os.path.join(scratch, "roundtrip"))
     got, params = llama3_path(torch, kernels, zero, generate, temporal,
-                              spatial, resize_ms)
+                              spatial, resize_ms, card)
     launches = {k: launches[k] + got[k] for k in launches}
 
     # ---- 9. llama3 grounded training on the same weights, then its

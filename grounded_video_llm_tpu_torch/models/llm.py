@@ -643,7 +643,8 @@ def prefill_continue(params, cfg: LLMConfig, chunk_embeds: torch.Tensor,
         tail_valid = torch.zeros(B, tail_len, dtype=torch.bool, device=dev)
         tail_valid[:, :Sq] = cmask
         return (logits, SharedPrefixCache(pk, pks, pv, pvs,
-                                          prefix_mask.to(torch.int32), tail),
+                                          prefix_mask.to(torch.int32,
+                                                         copy=True), tail),
                 tail_valid, pos_next)
 
     valid = torch.zeros(B, max_len, dtype=torch.bool, device=dev)

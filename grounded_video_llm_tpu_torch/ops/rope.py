@@ -27,11 +27,29 @@ def rope_inv_freq(head_dim: int, theta: float,
     return torch.from_numpy(inv_freq.astype(np.float32)).to(device)
 
 
+# rope_inv_freq's tables, made once on each device and kept: a CUDA graph
+# that reads one holds its address, and a capture cannot copy from pageable
+# host memory
+_INV_FREQ: dict = {}
+
+
+def _inv_freq_on(head_dim: int, theta: float,
+                 factors: Optional[Tuple[float, ...]],
+                 device: torch.device) -> torch.Tensor:
+    key = (head_dim, float(theta), tuple(factors) if factors else None,
+           device)
+    table = _INV_FREQ.get(key)
+    if table is None:
+        table = _INV_FREQ[key] = rope_inv_freq(head_dim, theta, factors,
+                                               device)
+    return table
+
+
 def rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
                 factors: Optional[Tuple[float, ...]] = None,
                 mscale: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
     """cos/sin fp32 tables for positions [..., S] → [..., S, head_dim]."""
-    inv_freq = rope_inv_freq(head_dim, theta, factors, positions.device)
+    inv_freq = _inv_freq_on(head_dim, theta, factors, positions.device)
     freqs = positions[..., None].float() * inv_freq         # [..., S, D/2]
     emb = torch.cat([freqs, freqs], dim=-1)                 # [..., S, D]
     return torch.cos(emb) * mscale, torch.sin(emb) * mscale

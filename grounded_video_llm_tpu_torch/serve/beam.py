@@ -8,7 +8,10 @@ reused unchanged, on a KVCache in the activations' dtype (bf16 for a bf16,
 int8 or int8_full tree, as in the JAX package). Each step reorders the cache by beam
 parent: a gather of [L, B·K, max_len, Hkv, Dh] into a second, preallocated
 buffer, the two swapped afterwards, so the reorder never holds more than two
-caches. The loop is a host loop, like the port's other decode loops.
+caches. The loop is JAX's beam ``while_loop`` over a ``BeamState`` written
+in place, run through serve/graphs.StepGraphs: the swap makes two step
+bodies, one per direction (buffer 0 → 1 and 1 → 0), each its own CUDA graph
+on the card, stepped in turn.
 
 Two differences from the JAX function, both where it departs from its own
 greedy path (serve/generate.py):
@@ -25,7 +28,7 @@ greedy path (serve/generate.py):
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -33,8 +36,26 @@ from ..core.config import VLMConfig
 from ..models import llm as llm_mod
 from ..models import vlm
 from .generate import _ceil128, _PhaseClock
+from .graphs import StepGraphs, assign
 
 NEG = -1e9
+
+
+class BeamState(NamedTuple):
+    """The beam loop's state (rows b·K + j: beam j of sample b); a step
+    writes it in place. The cache's k/v live in two buffers, the one a step
+    reads and the one its reorder writes."""
+    k: tuple                    # two [L, B·K, max_len, Hkv, Dh] buffers
+    v: tuple
+    length: torch.Tensor        # [B·K] int32
+    valid: torch.Tensor         # [B·K, max_len] bool
+    positions: torch.Tensor     # [B·K] int32
+    tok: torch.Tensor           # [B·K] int64
+    out: torch.Tensor           # [B·K, max_new_tokens] int64
+    step: torch.Tensor          # [1] int64 next column of out
+    done: torch.Tensor          # [B·K] bool
+    scores: torch.Tensor        # [B·K] fp32 summed log-probs
+    live: torch.Tensor          # [1] bool: JAX's cond
 
 
 def beam_search_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,
@@ -44,7 +65,8 @@ def beam_search_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,
                        max_new_tokens: int, num_beams: int = 4,
                        eos_token_id: int = 2, pad_token_id: int = 0,
                        return_scores: bool = False,
-                       timings: Optional[dict] = None):
+                       timings: Optional[dict] = None,
+                       graphs: Optional[StepGraphs] = None):
     """→ (tokens [B, max_new_tokens] of the best beam, lengths [B]), and
     with return_scores the best beam's summed log-prob [B] fp32.
 
@@ -72,8 +94,8 @@ def beam_search_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,
         # the beams along the batch: row b·K + j is beam j of sample b
         k = cache.k.repeat_interleave(K, dim=1)
         v = cache.v.repeat_interleave(K, dim=1)
-        cache = llm_mod.KVCache(k, v, cache.length.repeat_interleave(K))
-        spare = (torch.empty_like(k), torch.empty_like(v))
+        length = cache.length.repeat_interleave(K)
+        del cache
         valid = torch.zeros(B * K, max_len, dtype=torch.bool, device=dev)
         valid[:, :S_full] = mask.bool().repeat_interleave(K, dim=0)
         positions = mask.sum(dim=-1).to(torch.int32).repeat_interleave(K)
@@ -88,37 +110,60 @@ def beam_search_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,
                          dtype=torch.int64, device=dev)
         out[:, 0] = tok
         done = tok == eos_token_id
-        # a finished beam continues with pad only, its score unchanged
-        frozen = torch.full((V,), NEG, dtype=torch.float32, device=dev)
-        frozen[pad_token_id] = 0.0
-        base = (torch.arange(B, device=dev) * K)[:, None]
-        step = 1
-        while step < max_new_tokens and not bool(done.all()):
-            token_embeds = llm_mod.embed_lookup(params["llm"]["embed"],
-                                                tok)[:, None, :]
-            logits, cache, valid = llm_mod.decode_step(
-                params["llm"], cfg.llm, token_embeds.to(cache.k.dtype), cache,
-                valid, positions)
-            logp = torch.log_softmax(logits.float(), dim=-1)   # [B·K, V]
-            logp = torch.where(done[:, None], frozen[None, :], logp)
-            cand = (scores[:, None] + logp).reshape(B, K * V)
-            new_scores, flat = torch.topk(cand, K, dim=-1)     # [B, K]
-            gidx = (base + flat // V).reshape(B * K)
-            tok = (flat % V).reshape(B * K)
-            # reorder the cache by parent into the spare buffers, then swap
-            torch.index_select(cache.k, 1, gidx, out=spare[0])
-            torch.index_select(cache.v, 1, gidx, out=spare[1])
-            spare, cache = (cache.k, cache.v), llm_mod.KVCache(
-                spare[0], spare[1], cache.length[gidx])
-            valid = valid[gidx]
-            out = out[gidx]
-            out[:, step] = tok
-            done = done[gidx] | (tok == eos_token_id)
-            positions = positions[gidx] + 1
-            scores = new_scores.reshape(B * K)
-            step += 1
+        step = torch.ones(1, dtype=torch.int64, device=dev)
+        state = BeamState((k, torch.empty_like(k)), (v, torch.empty_like(v)),
+                          length, valid, positions, tok, out, step, done,
+                          scores, (step < max_new_tokens) & ~done.all())
+        del k, v
+        lp = params["llm"]
+
+        def body(src: int):
+            dst = 1 - src
+
+            def run(st: BeamState) -> BeamState:
+                token_embeds = llm_mod.embed_lookup(lp["embed"],
+                                                    st.tok)[:, None, :]
+                logits, cache, valid = llm_mod.decode_step(
+                    lp, cfg.llm, token_embeds.to(st.k[src].dtype),
+                    llm_mod.KVCache(st.k[src], st.v[src], st.length),
+                    st.valid, st.positions)
+                logp = torch.log_softmax(logits.float(), dim=-1)  # [B·K, V]
+                # a finished beam continues with pad only, its score
+                # unchanged
+                frozen = torch.full((V,), NEG, dtype=torch.float32,
+                                    device=dev)
+                frozen[pad_token_id].fill_(0.0)
+                logp = torch.where(st.done[:, None], frozen[None, :], logp)
+                cand = (st.scores[:, None] + logp).reshape(B, K * V)
+                new_scores, flat = torch.topk(cand, K, dim=-1)  # [B, K]
+                base = (torch.arange(B, device=dev) * K)[:, None]
+                gidx = (base + flat // V).reshape(B * K)
+                tok = (flat % V).reshape(B * K)
+                # reorder the cache by parent into the other buffers
+                torch.index_select(st.k[src], 1, gidx, out=st.k[dst])
+                torch.index_select(st.v[src], 1, gidx, out=st.v[dst])
+                out = st.out[gidx]
+                out.index_copy_(1, st.step, tok[:, None])
+                done = st.done[gidx] | (tok == eos_token_id)
+                step = st.step + 1
+                return assign(st, st._replace(
+                    length=cache.length[gidx], valid=valid[gidx],
+                    positions=st.positions[gidx] + 1, tok=tok, out=out,
+                    step=step, done=done, scores=new_scores.reshape(B * K),
+                    live=(step < max_new_tokens) & ~done.all()))
+            return run
+
+        graphs = StepGraphs() if graphs is None else graphs
+        loop = graphs.loop(("beam", K, eos_token_id, pad_token_id), state,
+                           (body(0), body(1)), refs=(lp, cfg), params=lp)
+        steps = 0
+        while loop.read(loop.state.live):
+            loop.step(steps % 2)
+            steps += 1
         clock.mark("decode")
-        clock.count("decode_steps", step - 1)
+        clock.count("decode_steps", steps)
+        st = loop.state
+        scores, out = st.scores.clone(), st.out.clone()
 
         # the best beam of each sample (length penalty 1.0: the raw score)
         best = scores.reshape(B, K).argmax(dim=-1)             # [B]

@@ -15,11 +15,16 @@ max_len, Dh]) and:
     every row of one launch) and per-row EOS retirement: finished and free
     slots idle under ``llm.decode_step``'s ``active`` mask.
 
-A chunk is a host loop of decode steps (JAX runs one compiled fori_loop).
-EOS retirement, the active mask, positions and the drafting buffers stay on
-the device and the loop reads nothing back: the host fetches a chunk's
-tokens once, through a pinned buffer and a CUDA event on the card.
-Retirement on budget and admission are host bookkeeping between chunks.
+A chunk of ``chunk`` steps is one step of serve/graphs.StepGraphs (JAX
+runs one compiled fori_loop): the body writes the pool's state in place, and
+on the card the whole chunk is one CUDA graph, keyed also by its length, so
+``chunk_long`` has a graph of its own. EOS retirement, the active mask,
+positions and the drafting buffers stay on the device and the chunk reads
+nothing back: the host fetches a chunk's tokens once, through a pinned
+buffer and a CUDA event on the card. Retirement on budget and admission are
+host bookkeeping between chunks; admissions write into the state tensors
+(``_insert_row_impl``), and a reset or a repin drops the pool's graphs with
+its state.
 
 Speculative chunks (``spec_draft_len``) verify n-gram drafts from each
 slot's committed-token buffer in one pass (``llm.verify_step``: K8 scores,
@@ -56,6 +61,7 @@ from ..models import vlm
 from ..ops.int8_matmul import Int8Embedding
 from ..text.templates import IMAGE_TOKEN_INDEX
 from .generate import sample_logits
+from .graphs import StepGraphs, assign
 from .speculative import ngram_draft, spec_accept_tokens
 
 
@@ -73,6 +79,16 @@ class PoolState(NamedTuple):
     # One column past buf_len takes the writes a row cannot keep.
     buf: torch.Tensor           # [B, buf_len + 1] int64
     ptr: torch.Tensor           # [B] int64
+
+
+class ChunkState(NamedTuple):
+    """A chunk's step-graph state: the pool's, the slots retired since the
+    last chunk (copied in before each chunk) and the chunk's outputs."""
+    pool: PoolState
+    deactivate: torch.Tensor    # [B] bool
+    toks: torch.Tensor          # [B, chunk] (speculative: [B, chunk * S_v
+    #                             + 1], one spare column)
+    counts: Optional[torch.Tensor]   # [B] tokens a row emitted (speculative)
 
 
 class _InflightChunk(NamedTuple):
@@ -252,26 +268,26 @@ def _admit_one_prefix(params, state: PoolState, cfg: VLMConfig, input_ids,
                             slot, 0, pad_token), first
 
 
-def _decode_chunk(params, state: PoolState, cfg: VLMConfig, deactivate, *,
-                  chunk: int, generator, temperature: float, top_p,
-                  do_sample: bool, eos_token_id: int, pad_token_id: int,
-                  rope_len: Optional[int] = None):
-    """`chunk` pool-wide decode steps → (state, tokens [B, chunk] with
-    pad_token_id on inactive rows).
+def _decode_chunk(params, cs: ChunkState, cfg: VLMConfig, *, chunk: int,
+                  generator, temperature: float, top_p, do_sample: bool,
+                  eos_token_id: int, pad_token_id: int,
+                  rope_len: Optional[int] = None) -> ChunkState:
+    """`chunk` pool-wide decode steps, in place → cs, its toks [B, chunk]
+    the sampled tokens with pad_token_id on inactive rows.
 
-    deactivate [B] bool: slots the host retired since the last chunk,
+    cs.deactivate [B] bool: slots the host retired since the last chunk,
     applied at entry. A retired-but-still-active row decodes garbage into
     its own slot for at most one chunk (two, pipelined), which the max_len
     margin covers and the next insert overwrites. Shared-prefix pools
     decode through llm.decode_step_shared, rope_len the equivalent single
     cache's max_len."""
-    lp, B = params["llm"], state.cur_token.shape[0]
-    shared = isinstance(state.cache, llm_mod.SharedPrefixCache)
-    st = state._replace(active=state.active & ~deactivate)
+    lp = params["llm"]
+    st = cs.pool
+    B = st.cur_token.shape[0]
+    shared = isinstance(st.cache, llm_mod.SharedPrefixCache)
+    st.active.logical_and_(~cs.deactivate)
     buf_len = st.buf.shape[1] - 1
     rows = torch.arange(B, device=st.buf.device)
-    out = torch.full((B, chunk), pad_token_id, dtype=torch.int64,
-                     device=st.buf.device)
     for i in range(chunk):
         emb = llm_mod.embed_lookup(lp["embed"], st.cur_token)[:, None, :]
         if shared:
@@ -284,40 +300,42 @@ def _decode_chunk(params, state: PoolState, cfg: VLMConfig, deactivate, *,
                 active=st.active)
         nxt = sample_logits(logits, generator, temperature, top_p, do_sample)
         nxt = torch.where(st.active, nxt, pad_token_id)
-        out[:, i] = nxt
+        cs.toks[:, i] = nxt
         # buf/ptr ride along, so a later speculative chunk sees the whole
         # committed stream
         bcol = torch.where(st.active, st.ptr.clamp_max(buf_len - 1), buf_len)
         st.buf[rows, bcol] = nxt
         adv = st.active.to(torch.int32)
-        st = PoolState(cache, valid, st.positions + adv, nxt,
-                       st.active & (nxt != eos_token_id), st.buf,
-                       st.ptr + adv)
-    return st, out
+        st = assign(st, PoolState(cache, valid, st.positions + adv, nxt,
+                                  st.active & (nxt != eos_token_id), st.buf,
+                                  st.ptr + adv))
+    return cs
 
 
-def _spec_chunk(params, state: PoolState, cfg: VLMConfig, deactivate, *,
-                chunk: int, draft_len: int, generator, temperature: float,
-                top_p, do_sample: bool, eos_token_id: int, pad_token_id: int,
-                rope_len: Optional[int] = None):
-    """`chunk` speculative verify passes over the pool → (state, tokens
-    [B, chunk * (draft_len + 1)] compacted per row, counts [B]).
+def _spec_chunk(params, cs: ChunkState, cfg: VLMConfig, *, chunk: int,
+                draft_len: int, generator, temperature: float, top_p,
+                do_sample: bool, eos_token_id: int, pad_token_id: int,
+                rope_len: Optional[int] = None) -> ChunkState:
+    """`chunk` speculative verify passes over the pool, in place → cs, its
+    toks [B, chunk * (draft_len + 1)] (plus a spare column) compacted per
+    row and counts [B].
 
     Each pass drafts per slot from the pool's committed-token buffers
     (ngram_draft), verifies every row's drafts in one pass
     (llm.verify_step, or verify_step_shared on the tail) and commits per-row
     accepted counts, 0 on inactive rows."""
-    lp, B = params["llm"], state.cur_token.shape[0]
-    shared = isinstance(state.cache, llm_mod.SharedPrefixCache)
-    st = state._replace(active=state.active & ~deactivate)
+    lp = params["llm"]
+    st = cs.pool
+    shared = isinstance(st.cache, llm_mod.SharedPrefixCache)
+    st.active.logical_and_(~cs.deactivate)
     dev = st.buf.device
     buf_len = st.buf.shape[1] - 1
     S_v = draft_len + 1
     out_w = chunk * S_v
     iidx = torch.arange(S_v, device=dev)[None, :]
-    out = torch.full((B, out_w + 1), pad_token_id, dtype=torch.int64,
-                     device=dev)
-    cnt = torch.zeros(B, dtype=torch.int64, device=dev)
+    out, cnt = cs.toks, cs.counts
+    out.fill_(pad_token_id)
+    cnt.zero_()
     for _ in range(chunk):
         drafts = ngram_draft(st.buf[:, :buf_len], st.ptr, draft_len)
         cur = st.buf.gather(1, (st.ptr - 1).clamp_min(0)[:, None])
@@ -351,10 +369,10 @@ def _spec_chunk(params, state: PoolState, cfg: VLMConfig, deactivate, *,
         st.buf.scatter_(1, torch.where(within & (col < buf_len), col,
                                        buf_len), emitted)
         active = st.active & ~(is_eos & within).any(dim=-1)
-        st = PoolState(cache, valid, st.positions + e.to(torch.int32),
-                       st.cur_token, active, st.buf, st.ptr + e)
-        cnt = cnt + e
-    return st, out[:, :out_w], cnt
+        st = assign(st, PoolState(cache, valid, st.positions + e.to(torch.int32),
+                                  st.cur_token, active, st.buf, st.ptr + e))
+        cnt.add_(e)
+    return cs
 
 
 def _params_device(params) -> torch.device:
@@ -468,13 +486,17 @@ class ContinuousServer:
         self._seed = seed
         self.generator = torch.Generator(device=self.device)
         self.timings: dict = {}
+        # the chunks' step graphs (chunk and chunk_long), over the pool's
+        # state tensors: no budget, the state is the pool's own
+        self.graphs = StepGraphs(max_state_bytes=None)
         self._reset()
 
     def _reset(self) -> None:
         """A fresh pool (as a new server's): the state (None for a
         shared-prefix pool, assembled at its first pin), the slot table and
-        the sampling generator's seed."""
+        the sampling generator's seed; the graphs go with the old state."""
         self._pinned_prefix = None
+        self.graphs.clear()
         self.state = None      # the old pool goes before the new one exists
         self.state = None if self.shared_prefix else self._init_state(
             llm_mod.QuantKVCache.create(self.cfg.llm, self.pool_size,
@@ -516,7 +538,8 @@ class ContinuousServer:
                 "server with a larger prefix_len")
         # the old pool and its pin go together: a repin that fails below
         # leaves no pin, so the next request repins instead of admitting
-        # into a pool that is gone
+        # into a pool that is gone; its graphs go with it
+        self.graphs.clear()
         self.state = self._pinned_prefix = None
         pkq, pks, pvq, pvs, pmask = _quantize_prefix_hd(*prefix)
         tail = llm_mod.QuantKVCache.create(self.cfg.llm, self.pool_size,
@@ -846,19 +869,45 @@ class ContinuousServer:
         deact = _to_device(np.asarray([r is None for r in self._slot_req],
                                       bool), self.device, 1)
         rope_len = self.max_len if self.shared_prefix else None
-        if self.spec_draft_len:
-            self.state, toks, counts = _spec_chunk(
-                self.params, self.state, self.cfg, deact, chunk=chunk,
-                draft_len=self.spec_draft_len, generator=self.generator,
-                rope_len=rope_len, **self.gen_kwargs)
+        B, dev = self.pool_size, self.device
+        # the body closes over no self: the server owns the graphs that own
+        # the body
+        params, cfg, spec = self.params, self.cfg, self.spec_draft_len
+        kw = dict(chunk=chunk, generator=self.generator, rope_len=rope_len,
+                  **self.gen_kwargs)
+        if spec:
+            width = chunk * self._toks_per_iter
+            cs = ChunkState(self.state, deact,
+                            torch.empty(B, width + 1, dtype=torch.int64,
+                                        device=dev),
+                            torch.empty(B, dtype=torch.int64, device=dev))
+
+            def body(cs):
+                return _spec_chunk(params, cs, cfg, draft_len=spec, **kw)
         else:
-            self.state, toks = _decode_chunk(
-                self.params, self.state, self.cfg, deact, chunk=chunk,
-                generator=self.generator, rope_len=rope_len,
-                **self.gen_kwargs)
-            counts = None
+            width = chunk
+            cs = ChunkState(self.state, deact,
+                            torch.empty(B, chunk, dtype=torch.int64,
+                                        device=dev), None)
+
+            def body(cs):
+                return _decode_chunk(params, cs, cfg, **kw)
+        lp = params["llm"]
+        loop = self.graphs.loop(
+            ("chunk", chunk, spec, rope_len,
+             *sorted(self.gen_kwargs.items())), cs, body,
+            refs=(lp, cfg, self.generator), params=lp,
+            generator=self.generator)
+        loop.step()
+        cs = loop.state
+        self.state = cs.pool
+        toks, counts = cs.toks[:, :width], cs.counts
         host = done = None
-        if cuda:
+        if not cuda:
+            # the next chunk writes the same buffers
+            toks = toks.clone()
+            counts = None if counts is None else counts.clone()
+        else:
             stream = torch.cuda.current_stream(self.device)
             events[1].record(stream)
             host = tuple(None if x is None else

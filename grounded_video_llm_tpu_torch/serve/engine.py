@@ -58,6 +58,13 @@ cache, or, with the pool's max_len as ``prefix_rope_hint``, a prefix-backed
 one whose prefix K/V come from a device LRU of ``prefix_kv_cache_size``
 entries (``prefix_kv_cached``).
 
+Decode loops (decode, verify passes, beams) run through the engine's
+``graphs`` (serve/graphs.StepGraphs): on the card each loop body is a CUDA
+graph, captured at a key's second step and replayed afterwards, kept for
+later requests of the same shapes (up to the runner's bound on the state it
+keeps); ``with engine.graphs.eager():`` runs the same loops eagerly, the
+comparison switch.
+
 ``GenerateConfig.num_beams > 1`` runs beam search (serve/beam.py) in
 ``generate`` and the routes built on it (run, run_frames, run_batch,
 run_stream), on a cache in the activations' dtype whatever
@@ -92,6 +99,7 @@ from .calibrate import calibrate_and_apply
 from .generate import (_ceil128, _PhaseClock, build_prefix_kv, decode_texts,
                        generate_tokens, generate_tokens_from_features,
                        generate_tokens_from_prefix)
+from .graphs import StepGraphs
 from .quantize import (is_quantized, quantize_clip_for_serving,
                        quantize_llm_for_serving,
                        quantize_video_encoder_for_serving)
@@ -147,6 +155,7 @@ class InferenceEngine:
                   else embed).device)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        self.graphs = StepGraphs()
         self.last_timings: dict = {}
         self.last_tokens = None
         # host-feature LRU (encode_video_cached): (path, mtime, size) →
@@ -230,7 +239,8 @@ class InferenceEngine:
             tokens, lengths = beam_search_tokens(
                 *args[:-1], max_new_tokens=g.max_new_tokens,
                 num_beams=g.num_beams, eos_token_id=kw["eos_token_id"],
-                pad_token_id=kw["pad_token_id"], timings=timings)
+                pad_token_id=kw["pad_token_id"], timings=timings,
+                graphs=self.graphs)
         elif g.spec_draft_len > 0:
             # greedy emits the model's own argmax whatever the drafts;
             # sampling uses the delta-draft rejection rule
@@ -263,7 +273,7 @@ class InferenceEngine:
                     do_sample=g.do_sample,
                     eos_token_id=self.tokenizer.eos_token_id,
                     pad_token_id=self.tokenizer.pad_token_id,
-                    timings=timings)
+                    timings=timings, graphs=self.graphs)
 
     @staticmethod
     def _note_tokens(timings: dict, tokens, lengths, prompt_len: int):

@@ -7,6 +7,13 @@ prompt+video+max_new slots rounded up to 128; the decode loop is a Python
 loop with per-row EOS (finished rows emit pad) that stops when every row is
 done. Only new tokens are returned.
 
+The decode loop is JAX's ``while_loop`` over a ``DecodeState``: each step
+(JAX's body) writes the state in place and runs through
+``serve/graphs.StepGraphs``, as a captured CUDA graph on the card; the host
+reads JAX's ``cond`` (a device flag) after each step and stops where JAX's
+loop stops. ``graphs``: the caller's runner (an engine's), else one for the
+call; ``StepGraphs.eager()`` is the eager loop on the card.
+
 Sampling draws from an explicit torch.Generator. Greedy decoding is
 token-exact against the JAX package; sampled decoding is not (the two
 frameworks' random streams differ).
@@ -27,7 +34,7 @@ that share the dict.
 from __future__ import annotations
 
 import time
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -35,6 +42,7 @@ import torch
 from ..core.config import VLMConfig
 from ..models import llm as llm_mod
 from ..models import vlm
+from .graphs import StepGraphs, assign
 
 
 def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
@@ -54,7 +62,31 @@ def sample_logits(logits: torch.Tensor, generator: Optional[torch.Generator],
             dim=-1, keepdim=True)
         logits = torch.where(logits < threshold, -torch.inf, logits)
     probs = torch.softmax(logits.float(), dim=-1)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0]
+    return draw_categorical(probs, generator)
+
+
+def draw_categorical(probs: torch.Tensor,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+    """One draw per row of probs [N, V] (non-negative, no row all zero) →
+    [N] int64: torch.multinomial(probs, 1)'s own algorithm (the argmax of
+    probs over Exp(1) noise) without its host-side checks of the
+    probabilities, which a CUDA graph cannot capture. The same generator
+    state gives multinomial's draws."""
+    noise = torch.empty_like(probs).exponential_(1, generator=generator)
+    return torch.argmax(probs / noise, dim=-1)
+
+
+class DecodeState(NamedTuple):
+    """The decode loop's state, JAX's DecodeState without its key (draws
+    come from the caller's torch.Generator). A step writes it in place."""
+    cache: object               # KVCache, QuantKVCache or SharedPrefixCache
+    valid_mask: torch.Tensor    # [B, max_len] ([B, tail] for the cascade)
+    positions: torch.Tensor     # [B] int32 position of the next token
+    cur_token: torch.Tensor     # [B] int64 last sampled token
+    out_tokens: torch.Tensor    # [B, max_new_tokens] int64
+    step: torch.Tensor          # [1] int64 next column of out_tokens
+    done: torch.Tensor          # [B] bool
+    live: torch.Tensor          # [1] bool: JAX's cond
 
 
 class _PhaseClock:
@@ -91,7 +123,7 @@ def _ceil128(n: int) -> int:
 def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
                             video_features, generator, *, max_new_tokens,
                             temperature, top_p, do_sample, eos_token_id,
-                            pad_token_id, quantize_cache, clock):
+                            pad_token_id, quantize_cache, clock, graphs):
     """splice → prefill → decode loop."""
     B, S = input_ids.shape
     embeds, _, mask = vlm.splice_multimodal(
@@ -118,7 +150,7 @@ def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
         params, cfg, logits, cache, valid0, pos0, generator,
         max_new_tokens=max_new_tokens, temperature=temperature, top_p=top_p,
         do_sample=do_sample, eos_token_id=eos_token_id,
-        pad_token_id=pad_token_id)
+        pad_token_id=pad_token_id, graphs=graphs)
     clock.mark("decode")
     clock.count("decode_steps", steps)
     return out, lengths
@@ -126,34 +158,55 @@ def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
 
 def _decode_loop(params, cfg: VLMConfig, logits, cache, valid0, pos0,
                  generator, *, max_new_tokens, temperature, top_p, do_sample,
-                 eos_token_id, pad_token_id, step_fn=llm_mod.decode_step
+                 eos_token_id, pad_token_id, step_fn=llm_mod.decode_step,
+                 step_key: tuple = ("decode_step",),
+                 graphs: Optional[StepGraphs] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """Sample the first token from the prefill logits, then decode until
     max_new_tokens or every row has emitted EOS → (tokens, lengths, number
     of decode steps). step_fn(params, cfg, embeds, cache, valid, positions)
-    is llm.decode_step or the cascade's decode_step_shared."""
+    is llm.decode_step or the cascade's decode_step_shared; step_key names
+    it in the step graph's key (with what it closes over). The loop owns
+    cache, valid0 and pos0 and writes them in place."""
     B = logits.shape[0]
+    dev = logits.device
+    lp = params["llm"]
     tok = sample_logits(logits, generator, temperature, top_p, do_sample)
     out = torch.full((B, max_new_tokens), pad_token_id, dtype=torch.int64,
-                     device=logits.device)
+                     device=dev)
     out[:, 0] = tok
     done = tok == eos_token_id
-    valid, positions = valid0, pos0
-    step = 1
-    while step < max_new_tokens and not bool(done.all()):
-        token_embeds = llm_mod.embed_lookup(params["llm"]["embed"],
-                                            tok)[:, None, :]
-        logits, cache, valid = step_fn(params["llm"], cfg.llm, token_embeds,
-                                       cache, valid, positions)
+    step = torch.ones(1, dtype=torch.int64, device=dev)
+    state = DecodeState(cache, valid0.bool(), pos0.to(torch.int32), tok,
+                        out, step, done,
+                        (step < max_new_tokens) & ~done.all())
+
+    def body(st: DecodeState) -> DecodeState:
+        token_embeds = llm_mod.embed_lookup(lp["embed"],
+                                            st.cur_token)[:, None, :]
+        logits, cache, valid = step_fn(lp, cfg.llm, token_embeds, st.cache,
+                                       st.valid_mask, st.positions)
         nxt = sample_logits(logits, generator, temperature, top_p, do_sample)
-        nxt = torch.where(done, pad_token_id, nxt)
-        out[:, step] = nxt
-        done = done | (nxt == eos_token_id)
-        positions = positions + 1
-        tok = nxt
-        step += 1
+        nxt = torch.where(st.done, pad_token_id, nxt)
+        st.out_tokens.index_copy_(1, st.step, nxt[:, None])
+        done = st.done | (nxt == eos_token_id)
+        step = st.step + 1
+        return assign(st, DecodeState(
+            cache, valid, st.positions + 1, nxt, st.out_tokens, step, done,
+            (step < max_new_tokens) & ~done.all()))
+
+    graphs = StepGraphs() if graphs is None else graphs
+    key = ("decode", *step_key, temperature, top_p, do_sample, eos_token_id,
+           pad_token_id)
+    loop = graphs.loop(key, state, body, refs=(lp, cfg, generator),
+                       params=lp, generator=generator)
+    steps = 0
+    while loop.read(loop.state.live):
+        loop.step()
+        steps += 1
+    out = loop.state.out_tokens.clone()
     lengths = (out != pad_token_id).sum(dim=-1)
-    return out, lengths, step - 1
+    return out, lengths, steps
 
 
 def generate_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,
@@ -164,7 +217,8 @@ def generate_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,
                     top_p: Optional[float] = None, do_sample: bool = True,
                     eos_token_id: int = 2, pad_token_id: int = 0,
                     quantize_cache: bool = False,
-                    timings: Optional[dict] = None
+                    timings: Optional[dict] = None,
+                    graphs: Optional[StepGraphs] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """→ (tokens [B, max_new_tokens] pad-filled after EOS, lengths [B]).
 
@@ -181,7 +235,7 @@ def generate_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,
             max_new_tokens=max_new_tokens, temperature=temperature,
             top_p=top_p, do_sample=do_sample, eos_token_id=eos_token_id,
             pad_token_id=pad_token_id, quantize_cache=quantize_cache,
-            clock=clock)
+            clock=clock, graphs=graphs)
 
 
 def generate_tokens_from_features(params, cfg: VLMConfig,
@@ -196,7 +250,8 @@ def generate_tokens_from_features(params, cfg: VLMConfig,
                                   eos_token_id: int = 2,
                                   pad_token_id: int = 0,
                                   quantize_cache: bool = False,
-                                  timings: Optional[dict] = None
+                                  timings: Optional[dict] = None,
+                                  graphs: Optional[StepGraphs] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """generate_tokens from precomputed vlm.encode_video features."""
     clock = _PhaseClock(timings, input_ids.device)
@@ -206,7 +261,7 @@ def generate_tokens_from_features(params, cfg: VLMConfig,
             max_new_tokens=max_new_tokens, temperature=temperature,
             top_p=top_p, do_sample=do_sample, eos_token_id=eos_token_id,
             pad_token_id=pad_token_id, quantize_cache=quantize_cache,
-            clock=clock)
+            clock=clock, graphs=graphs)
 
 
 def build_prefix_kv(params, cfg: VLMConfig, pre_ids: torch.Tensor,
@@ -252,7 +307,8 @@ def generate_tokens_from_prefix(params, cfg: VLMConfig,
                                 quantize_cache: bool = False,
                                 shared_prefix: bool = False,
                                 rope_hint: Optional[int] = None,
-                                timings: Optional[dict] = None
+                                timings: Optional[dict] = None,
+                                graphs: Optional[StepGraphs] = None
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Generation over a cached prefix (build_prefix_kv): each row prefills
     only its left-padded question chunk post_ids/post_mask [B, Sq] →
@@ -288,17 +344,19 @@ def generate_tokens_from_prefix(params, cfg: VLMConfig,
 
             def step_fn(*args):
                 return llm_mod.decode_step_shared(*args, rope_hint=hint)
+            step_key = ("decode_step_shared", hint)
         else:
             logits, cache, valid0, pos0 = llm_mod.prefill_continue(
                 lp, cfg.llm, chunk_embeds, post_mask, prefix_k, prefix_v,
                 prefix_mask, hint, quantize_cache=quantize_cache)
-            step_fn = llm_mod.decode_step
+            step_fn, step_key = llm_mod.decode_step, ("decode_step",)
         clock.mark("prefill")
         out, lengths, steps = _decode_loop(
             params, cfg, logits, cache, valid0, pos0, generator,
             max_new_tokens=max_new_tokens, temperature=temperature,
             top_p=top_p, do_sample=do_sample, eos_token_id=eos_token_id,
-            pad_token_id=pad_token_id, step_fn=step_fn)
+            pad_token_id=pad_token_id, step_fn=step_fn, step_key=step_key,
+            graphs=graphs)
         clock.mark("decode")
         clock.count("decode_steps", steps)
     return out, lengths

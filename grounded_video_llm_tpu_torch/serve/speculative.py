@@ -23,9 +23,12 @@ Contracts:
     applied). The draws come from an explicit torch.Generator, so they
     differ from the JAX package's jax.random streams.
 
-The loop is a host loop of verify passes, the way serve/generate's decode
-loop steps decode_step, with per-row EOS and token-budget cuts; the cache
-keeps a draft margin of K + 1 slots past prompt + max_new_tokens.
+The loop is JAX's draft / verify ``while_loop``: one draft → verify →
+accept → commit pass over a ``SpecState`` is the step, written in place and
+run through serve/graphs.StepGraphs (a captured CUDA graph on the card),
+with per-row EOS and token-budget cuts; the host reads whether a row is
+still alive after each pass. The cache keeps a draft margin of K + 1 slots
+past prompt + max_new_tokens.
 ``generate_tokens_spec_from_prefix`` runs the same loop over the cascade
 cache of prefix-KV serving (llm.verify_step_shared, commits on the tail).
 ``timings`` gets the phases (encode, prefill, decode) on the synchronised
@@ -41,7 +44,8 @@ import torch
 from ..core.config import VLMConfig
 from ..models import llm as llm_mod
 from ..models import vlm
-from .generate import _ceil128, _PhaseClock, sample_logits
+from .generate import _ceil128, _PhaseClock, draw_categorical, sample_logits
+from .graphs import StepGraphs, assign
 
 
 def ngram_draft(buf: torch.Tensor, ptr: torch.Tensor,
@@ -128,8 +132,7 @@ def spec_accept_tokens(logits: torch.Tensor, drafts: torch.Tensor,
         resid = torch.where(resid.sum(dim=-1, keepdim=True) > 0.0, resid,
                             1.0 / V)
         weights = torch.cat([resid, p[:, K:]], dim=1).reshape(B * S_v, V)
-        fresh = torch.multinomial(weights, 1, generator=generator)
-        fresh = fresh.reshape(B, S_v)
+        fresh = draw_categorical(weights, generator).reshape(B, S_v)
     else:
         fresh = torch.argmax(logits, dim=-1)                 # [B, S_v]
         accept = drafts == fresh[:, :-1]
@@ -140,13 +143,15 @@ def spec_accept_tokens(logits: torch.Tensor, drafts: torch.Tensor,
 
 
 class SpecState(NamedTuple):
-    cache: object               # QuantKVCache
-    valid_mask: torch.Tensor    # [B, max_len]
+    """The draft / verify loop's state; a pass writes it in place."""
+    cache: object               # QuantKVCache or SharedPrefixCache
+    valid_mask: torch.Tensor    # [B, max_len] (the cascade: [B, tail])
     pos_next: torch.Tensor      # [B] position id of the next fed token
     buf: torch.Tensor           # [B, S_prompt + max_new + 1] committed ids
     step: torch.Tensor          # [B] tokens emitted per row
     done: torch.Tensor          # [B]
-    passes: int                 # verify passes run
+    live: torch.Tensor          # [1] bool: a row is still alive (JAX's cond)
+    table: Optional[torch.Tensor]   # external drafts, or None (n-grams)
 
 
 def _commit_shared(cache, valid_mask, n_accept, draft_len):
@@ -160,14 +165,19 @@ def _spec_loop(lp, cfg, logits, cache, valid0, pos0, prompt_ids, generator,
                verify, commit, *, max_new_tokens: int, draft_len: int,
                temperature: float, top_p: Optional[float], do_sample: bool,
                eos_token_id: int, pad_token_id: int,
-               draft_table: Optional[torch.Tensor]
+               draft_table: Optional[torch.Tensor],
+               verify_key: tuple = ("verify_step",),
+               graphs: Optional[StepGraphs] = None
                ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """The draft / verify loop after a prefill (logits [B, V]) →
     (tokens [B, max_new_tokens], lengths [B], verify passes). prompt_ids
     [B, S] start the committed buffer the drafts are looked up in;
     verify(lp, cfg, embeds, cache, valid, positions) → (logits, cache) and
     commit(cache, valid, n_accept, S_v) → (cache, valid) are
-    llm.verify_step and llm.commit_verify, or their cascade forms."""
+    llm.verify_step and llm.commit_verify, or their cascade forms, which
+    verify_key names in the step graph's key. The loop owns cache, valid0
+    and pos0 and writes them in place. passes counts the passes run, each
+    with a live row."""
     B, S = prompt_ids.shape
     K = draft_len
     S_v = K + 1                                           # tokens per pass
@@ -178,18 +188,19 @@ def _spec_loop(lp, cfg, logits, cache, valid0, pos0, prompt_ids, generator,
     buf = torch.full((B, C + 1), pad_token_id, dtype=torch.long, device=dev)
     buf[:, :S] = prompt_ids
     buf[:, S] = tok0
-    st = SpecState(cache, valid0, pos0, buf,
-                   torch.ones(B, dtype=torch.long, device=dev),
-                   tok0 == eos_token_id, 0)
-    iidx = torch.arange(S_v, device=dev)[None, :]
+    step = torch.ones(B, dtype=torch.long, device=dev)
+    done = tok0 == eos_token_id
+    state = SpecState(cache, valid0.bool(), pos0.to(torch.int32), buf, step,
+                      done, (~done & (step < max_new_tokens)).any()[None],
+                      None if draft_table is None
+                      else draft_table.to(torch.long, copy=True))
 
-    while True:
+    def body(st: SpecState) -> SpecState:
+        iidx = torch.arange(S_v, device=dev)[None, :]
         alive = ~st.done & (st.step < max_new_tokens)
-        if not bool(alive.any()):
-            break
         ptr = S + st.step
-        if draft_table is not None:
-            drafts = table_draft(draft_table, ptr, K)
+        if st.table is not None:
+            drafts = table_draft(st.table, ptr, K)
         else:
             drafts = ngram_draft(st.buf[:, :C], ptr, K)
         cur = st.buf.gather(1, (ptr - 1)[:, None])
@@ -211,19 +222,30 @@ def _spec_loop(lp, cfg, logits, cache, valid0, pos0, prompt_ids, generator,
         e = torch.where(alive, e, 0)
         keep = iidx < e[:, None]
         cols = torch.where(keep, S + st.step[:, None] + iidx, C)
-        buf = st.buf.scatter(1, cols, torch.where(keep, emitted, pad_token_id))
+        st.buf.scatter_(1, cols, torch.where(keep, emitted, pad_token_id))
         done = st.done | (is_eos & keep).any(dim=-1)
-        st = SpecState(cache, valid, st.pos_next + e.to(torch.int32), buf,
-                       st.step + e, done, st.passes + 1)
+        step = st.step + e
+        return assign(st, SpecState(
+            cache, valid, st.pos_next + e.to(torch.int32), st.buf, step,
+            done, (~done & (step < max_new_tokens)).any()[None], st.table))
 
-    out = st.buf[:, S:C]
+    graphs = StepGraphs() if graphs is None else graphs
+    key = ("spec", *verify_key, K, S, max_new_tokens, temperature, top_p,
+           do_sample, eos_token_id, pad_token_id)
+    loop = graphs.loop(key, state, body, refs=(lp, cfg, generator),
+                       params=lp, generator=generator)
+    passes = 0
+    while loop.read(loop.state.live):
+        loop.step()
+        passes += 1
+    out = loop.state.buf[:, S:C].clone()
     lengths = (out != pad_token_id).sum(dim=-1)
-    return out, lengths, st.passes
+    return out, lengths, passes
 
 
 def _spec_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
                         video_features, generator, *, max_new_tokens: int,
-                        draft_len: int, clock, **kw
+                        draft_len: int, clock, graphs, **kw
                         ) -> Tuple[torch.Tensor, torch.Tensor, int]:
     """splice → prefill (int8 cache) → draft / verify loop →
     (tokens [B, max_new_tokens], lengths [B], verify passes)."""
@@ -244,7 +266,8 @@ def _spec_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
     out = _spec_loop(lp, cfg, logits, cache, valid0,
                      mask.sum(dim=-1).to(torch.int32), input_ids, generator,
                      llm_mod.verify_step, llm_mod.commit_verify,
-                     max_new_tokens=max_new_tokens, draft_len=draft_len, **kw)
+                     max_new_tokens=max_new_tokens, draft_len=draft_len,
+                     graphs=graphs, **kw)
     clock.mark("decode")
     clock.count("verify_passes", out[2])
     return out
@@ -258,7 +281,8 @@ def generate_tokens_spec_from_features(
         top_p: Optional[float] = None, do_sample: bool = False,
         eos_token_id: int = 2, pad_token_id: int = 0,
         draft_table: Optional[torch.Tensor] = None, with_stats: bool = False,
-        timings: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
+        timings: Optional[dict] = None,
+        graphs: Optional[StepGraphs] = None) -> Tuple[torch.Tensor, ...]:
     """Speculative generation from precomputed vlm.encode_video features →
     (tokens [B, max_new_tokens] pad-filled after EOS, lengths [B]), plus
     the verify-pass count with with_stats. draft_table [B, >= S + max_new]:
@@ -270,7 +294,7 @@ def generate_tokens_spec_from_features(
             max_new_tokens=max_new_tokens, draft_len=draft_len,
             temperature=temperature, top_p=top_p, do_sample=do_sample,
             eos_token_id=eos_token_id, pad_token_id=pad_token_id,
-            draft_table=draft_table, clock=clock)
+            draft_table=draft_table, clock=clock, graphs=graphs)
     return (out, lengths, passes) if with_stats else (out, lengths)
 
 
@@ -286,7 +310,8 @@ def generate_tokens_spec(params, cfg: VLMConfig, input_ids: torch.Tensor,
                          pad_token_id: int = 0,
                          draft_table: Optional[torch.Tensor] = None,
                          with_stats: bool = False,
-                         timings: Optional[dict] = None
+                         timings: Optional[dict] = None,
+                         graphs: Optional[StepGraphs] = None
                          ) -> Tuple[torch.Tensor, ...]:
     """Speculative generation from pixels, the contract of
     serve/generate.generate_tokens with quantize_cache=True (verify_step
@@ -301,7 +326,7 @@ def generate_tokens_spec(params, cfg: VLMConfig, input_ids: torch.Tensor,
             max_new_tokens=max_new_tokens, draft_len=draft_len,
             temperature=temperature, top_p=top_p, do_sample=do_sample,
             eos_token_id=eos_token_id, pad_token_id=pad_token_id,
-            draft_table=draft_table, clock=clock)
+            draft_table=draft_table, clock=clock, graphs=graphs)
     return (out, lengths, passes) if with_stats else (out, lengths)
 
 
@@ -315,7 +340,8 @@ def generate_tokens_spec_from_prefix(
         eos_token_id: int = 2, pad_token_id: int = 0,
         draft_table: Optional[torch.Tensor] = None, with_stats: bool = False,
         rope_hint: Optional[int] = None,
-        timings: Optional[dict] = None) -> Tuple[torch.Tensor, ...]:
+        timings: Optional[dict] = None,
+        graphs: Optional[StepGraphs] = None) -> Tuple[torch.Tensor, ...]:
     """Speculative generation over the cascade cache: the question chunk
     post_ids/post_mask [B, Sq] prefilled against a batch-1 prefix
     (serve/generate.build_prefix_kv), then verify passes of
@@ -350,7 +376,8 @@ def generate_tokens_spec_from_prefix(
             max_new_tokens=max_new_tokens, draft_len=draft_len,
             temperature=temperature, top_p=top_p, do_sample=do_sample,
             eos_token_id=eos_token_id, pad_token_id=pad_token_id,
-            draft_table=draft_table)
+            draft_table=draft_table,
+            verify_key=("verify_step_shared", hint), graphs=graphs)
         clock.mark("decode")
         clock.count("verify_passes", passes)
     return (out, lengths, passes) if with_stats else (out, lengths)

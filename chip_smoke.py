@@ -145,11 +145,11 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
         tokens/s, admission and chunk-step times, time to first token and
         peak memory, tagged with the card.
      H  the evaluation runner, cli/eval.py's in-process run_benchmark, in
-        path A's configuration (16 new tokens, feature LRU of 8) over 24
+        path A's configuration (16 new tokens, feature LRU of 8) over 12
         synthetic videos (96 frames of 240x320 each, durations 30-120 s,
         behind placeholder files under build/chip_smoke_eval/, resized
-        natively by the engine's preprocessing): 72 Charades-STA items
-        from a charades_sta annotation file with --prefix_cache (24
+        natively by the engine's preprocessing): 36 Charades-STA items
+        from a charades_sta annotation file with --prefix_cache (12
         prefixes; the encodes the LRU implies), the first 12 again (their
         videos re-encode), multiple choice and grounded QA (6 items each)
         through run_stream_cached, dense captioning of 2 videos through
@@ -191,6 +191,23 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    device preprocessing route (ops/preprocess.dual_stream_preprocess_device,
    the JAX package's preprocess_xla) on the card against its host run
    within 1e-5;
+   Path J, after B and C: tensor-split compute (parallel/tensor.py) on a
+   (1, 1, 2) mesh of two gloo ranks that share the card (NCCL takes no two
+   ranks on one card; gloo stages each collective through the host), the
+   script's full-width Phi-3.5 bf16 tree sharded head-aligned: each rank
+   serves the bf16 B=1 request through InferenceEngine (eager: the step
+   graphs refuse a sharded tree) and takes one grounded step (B=1, the
+   train path's first sample, LoRA r=128, remat, count 0); every
+   parameter, activation and cache of a rank on cuda:0, every cache of 16
+   kv heads; the ranks' tokens equal, the first equal to the bf16 B=1
+   request's (the count of equal greedy tokens printed), the prefill
+   logits within ROUTE_FLOOR_RATIO times the single-process prefill's own
+   re-batching drift of the single-process logits, the loss and global
+   gradient norm within BOUND_TP_LOSS / BOUND_TP_GRAD_NORM of the
+   single-process step on the same tree and batch; K1 (8 heads), K2 and K7
+   (16 heads) in the launch shapes and the step's device kernels; times
+   and peaks labelled as two gloo ranks on one card, not a measure of
+   tensor parallelism over NVLink ([tp] lines);
 6. the training path on the same weights: vlm_config("phi3.5",
    stage="grounded") at full width, LoRA r=128 attached, the grounded
    preset at a global batch of 2 in microbatches of 1 (grad_accum 2),
@@ -248,12 +265,13 @@ Phases, each printed on its own lines; any failure raises (exit code != 0):
    (the spliced length printed), held to their plain versions, K7 launched
    twice bit-equal, graph-timed beside SDPA's fastest causal forward and
    backward (enable_gqa or K/V expanded, named) and the bound; and the
-   reference-format round trip: a full-width llama3 tree (LLM 2 of 32
-   layers, CLIP 2 of 24, InternVideo2 2 of 40 blocks; width, vocabulary
+   reference-format round trip: a full-width llama3 tree (LLM 1 of 32
+   layers, CLIP 1 of 24, InternVideo2 1 of 40 blocks; width, vocabulary
    and the q/k/v split kept) written in the weights-day layout by
-   models/export.write_weight_dumps and read back by build_params
-   (weight_root, video_encoder_path, stage_ckpt) onto the card, every leaf
-   bit-equal to the bf16 source, bytes and seconds printed; then read
+   models/export.write_weight_dumps and its weight dumps read back by
+   build_params (weight_root, video_encoder_path; the stage checkpoint is
+   phase 9's [reload]) onto the card, every leaf they hold bit-equal to
+   the bf16 source, bytes and seconds printed; then read
    again with quantize="int8_full": the LLM bit-equal to
    quantize_llm_for_serving of the bf16 read-back, seconds and peak rise
    printed;
@@ -746,6 +764,18 @@ def flash_cases(cfg, S_pre):
                                   D=cfg.llm.head_dim, causal=True,
                                   pads=(0, 237), expect_dead=True, seed=4,
                                   timed=False),
+        # path J's rank-local heads: the encoders' and the LLM's heads over
+        # a tensor axis of TP_RANKS
+        "clip_rank": dict(B=2, Sq=cfg.clip.num_patches + 1,
+                          H=cfg.clip.num_heads // TP_RANKS,
+                          D=cfg.clip.head_dim, seed=5, timed=False),
+        "internvideo2_bounded_rank": dict(
+            B=2, Sq=cfg.video.seq_len, H=cfg.video.num_heads // TP_RANKS,
+            D=cfg.video.head_dim, bounded=True, seed=6, timed=False),
+        "prefill_causal_rank": dict(B=1, Sq=S_pre,
+                                    H=cfg.llm.num_heads // TP_RANKS,
+                                    D=cfg.llm.head_dim, causal=True,
+                                    pads=(0,), seed=7, timed=False),
     }
     for i, (name, kw) in enumerate(FLASH_EDGE_CASES):
         cases[name] = dict(kw, seed=100 + i, timed=False)
@@ -1066,6 +1096,10 @@ def flash_bwd_phase(torch, fa, cfg, S_train):
     r = check_flash_bwd(torch, fa, "train_causal", 1, S_train, L.num_heads,
                         L.head_dim, pads=(37,), window=L.sliding_window,
                         seed=50, timed=True)
+    # path J's rank-local heads at the training shape
+    check_flash_bwd(torch, fa, "train_causal_rank", 1, S_train,
+                    L.num_heads // TP_RANKS, L.head_dim, pads=(37,),
+                    window=L.sliding_window, seed=53)
     check_flash_bwd(torch, fa, "b2_rightpad", 2, 1500, L.num_heads,
                     L.head_dim, pads=(0, 211), window=L.sliding_window,
                     seed=51)
@@ -2304,9 +2338,9 @@ def small_reference(torch, cfg_full, seed, quantize):
 
     n_frames = cfg_full.video.num_frames       # one segment
     cfg = replace(cfg_full, num_frames=n_frames, num_segs=1,
-                  clip=replace(cfg_full.clip, num_layers=3),
-                  video=replace(cfg_full.video, depth=2, num_blocks_used=2),
-                  llm=replace(cfg_full.llm, num_layers=2))
+                  clip=replace(cfg_full.clip, num_layers=2),
+                  video=replace(cfg_full.video, depth=1, num_blocks_used=1),
+                  llm=replace(cfg_full.llm, num_layers=1))
     tok = build_tokenizer(cfg)
     eng = InferenceEngine(build_params(cfg, "cuda", torch.bfloat16, seed),
                           cfg, tok, quantize=quantize)
@@ -2351,9 +2385,8 @@ def small_reference(torch, cfg_full, seed, quantize):
     ok = max(errs) <= bound
     what = (f"{quantize} + int8 cache, card kernels vs host plain versions"
             if quantize else "card bf16 vs host fp32")
-    log(f"[small-ref] {cfg_full.llm_name} depth-cut full width (CLIP 2 of "
-        f"3 layers, IV2 2 "
-        f"blocks, LLM 2 layers, 1 segment), {what}, rel L2: "
+    log(f"[small-ref] {cfg_full.llm_name} depth-cut full width (CLIP 1 of "
+        f"2 layers, IV2 1 block, LLM 1 layer, 1 segment), {what}, rel L2: "
         f"video features {errs[0]:.3e}, prefill logits {errs[1]:.3e}, "
         f"decode-step logits {errs[2]:.3e} (<= {bound}) "
         f"{'OK' if ok else 'FAIL'}")
@@ -2644,7 +2677,7 @@ def small_reference_static_iv2(torch, cfg_full, seed, temporal):
 
 def small_reference_quant_ab(torch, cfg_full, seed):
     """serve/quant_ab on the depth-cut full-width model of small_reference
-    (CLIP 2 of 3 layers, IV2 2 blocks, LLM 2 layers, 1 segment): bf16
+    (CLIP 1 of 2 layers, IV2 1 block, LLM 1 layer, 1 segment): bf16
     against int8_full with static scales calibrated on the same frames,
     two prompts, 8 greedy tokens, on the card. With random weights the
     metrics are readings; no verdict is asserted."""
@@ -2658,9 +2691,9 @@ def small_reference_quant_ab(torch, cfg_full, seed):
 
     n_frames = cfg_full.video.num_frames
     cfg = replace(cfg_full, num_frames=n_frames, num_segs=1,
-                  clip=replace(cfg_full.clip, num_layers=3),
-                  video=replace(cfg_full.video, depth=2, num_blocks_used=2),
-                  llm=replace(cfg_full.llm, num_layers=2))
+                  clip=replace(cfg_full.clip, num_layers=2),
+                  video=replace(cfg_full.video, depth=1, num_blocks_used=1),
+                  llm=replace(cfg_full.llm, num_layers=1))
     tok = build_tokenizer(cfg)
     bf16 = build_params(cfg, "cuda", torch.bfloat16, seed)
     eng = InferenceEngine(bf16, cfg, tok, quantize="int8_full")
@@ -2793,9 +2826,9 @@ def small_reference_train(torch, cfg_full, seed):
 
     n_frames = cfg_full.video.num_frames       # one segment
     cfg = replace(cfg_full, num_frames=n_frames, num_segs=1,
-                  clip=replace(cfg_full.clip, num_layers=3),
-                  video=replace(cfg_full.video, depth=2, num_blocks_used=2),
-                  llm=replace(cfg_full.llm, num_layers=2))
+                  clip=replace(cfg_full.clip, num_layers=2),
+                  video=replace(cfg_full.video, depth=1, num_blocks_used=1),
+                  llm=replace(cfg_full.llm, num_layers=1))
     tok = build_tokenizer(cfg)
     params = build_params(cfg, "cuda", torch.bfloat16, seed)
     g = torch.Generator(device="cuda")
@@ -2831,8 +2864,8 @@ def small_reference_train(torch, cfg_full, seed):
     worst = max(errs, key=errs.get)
     ok = loss_err <= BOUND_TRAIN_LOSS and errs[worst] <= BOUND_TRAIN_GRAD
     spliced = out["cpu"][3] - 1 + cfg.num_video_tokens
-    log(f"[small-ref] train {cfg.llm_name}: depth-cut full width (CLIP 2 of "
-        f"3 layers, IV2 2 blocks, LLM 2 layers, LoRA r=128 with B != 0, 1 "
+    log(f"[small-ref] train {cfg.llm_name}: depth-cut full width (CLIP 1 of "
+        f"2 layers, IV2 1 block, LLM 1 layer, LoRA r=128 with B != 0, 1 "
         f"segment, spliced "
         f"length {spliced}), card bf16 kernels vs host fp32 plain versions: "
         f"loss {float(out['cuda'][0]):.5f} vs {float(out['cpu'][0]):.5f} "
@@ -4559,7 +4592,7 @@ def continuous_path(torch, kernels, zero, params, cfg, tok, temporal,
 
 # path H: the evaluation runner (cli/eval.py's in-process runner) at full
 # width, and beam search
-EVAL_VIDEOS = 24        # synthetic videos, each from its own seed
+EVAL_VIDEOS = 12        # synthetic videos, each from its own seed
 EVAL_PER_VIDEO = 3      # grounding items a video, listed together
 EVAL_NEW_TOKENS = 16
 EVAL_RERUN = 12         # the first items (4 videos) run again
@@ -5270,23 +5303,26 @@ def llama3_train_kernel_phase(torch, fa, cfg):
 
 def roundtrip_phase(torch, workdir):
     """The reference formats at full llama3 width: a vlm_config("llama3",
-    stage="grounded") tree, depth cut (LLM 2 of 32 layers, CLIP 2 of 24,
-    InternVideo2 2 of 40 blocks; width, the 128,558-row vocabulary and
+    stage="grounded") tree, depth cut (LLM 1 of 32 layers, CLIP 1 of 24,
+    InternVideo2 1 of 40 blocks; width, the 128,558-row vocabulary and
     the q/k/v split kept), seeded random bf16 on the card, written by
     models/export.write_weight_dumps in the weights-day layout (float32,
-    as the reference ships), then read back by build_params(weight_root=,
-    video_encoder_path=, stage_ckpt=) onto the card: every leaf must be
-    bit-equal to its source. Prints the bytes written and the seconds
-    spent writing and reading."""
+    as the reference ships), then the weight dumps read back by
+    build_params(weight_root=, video_encoder_path=) onto the card: every
+    leaf they hold must be bit-equal to its source. The stage checkpoint
+    among the files (the projectors, embed and lm_head again) is read by
+    the [reload] check of the trained export instead, so the video
+    projector, which only it holds, is seeded here. Prints the bytes
+    written and the seconds spent writing and reading."""
     from grounded_video_llm_tpu_torch.cli.model_loading import build_params
     from grounded_video_llm_tpu_torch.core.config import replace, vlm_config
     from grounded_video_llm_tpu_torch.models.export import write_weight_dumps
     from grounded_video_llm_tpu_torch.train.optimizer import tree_items
 
     full = vlm_config("llama3", stage="grounded")
-    cfg = replace(full, llm=replace(full.llm, num_layers=2),
-                  clip=replace(full.clip, num_layers=2),
-                  video=replace(full.video, depth=2, num_blocks_used=2))
+    cfg = replace(full, llm=replace(full.llm, num_layers=1),
+                  clip=replace(full.clip, num_layers=1),
+                  video=replace(full.video, depth=1, num_blocks_used=1))
     src = build_params(cfg, "cuda", torch.bfloat16, seed=SEED + 5)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -5299,24 +5335,25 @@ def roundtrip_phase(torch, workdir):
     t0 = time.perf_counter()
     got = build_params(cfg, "cuda", torch.bfloat16, seed=SEED + 6,
                        weight_root=paths["weight_root"],
-                       video_encoder_path=paths["video_encoder"],
-                       stage_ckpt=paths["stage_ckpt"])
+                       video_encoder_path=paths["video_encoder"])
     torch.cuda.synchronize()
     read_s = time.perf_counter() - t0
     want, have = dict(tree_items(src)), dict(tree_items(got))
-    bad = sorted(p for p, t in want.items()
-                 if p not in have or have[p].dtype != t.dtype
-                 or not torch.equal(have[p], t))
+    held = {p for p in want if not p.startswith("video_projector/")}
+    bad = sorted(p for p in held
+                 if p not in have or have[p].dtype != want[p].dtype
+                 or not torch.equal(have[p], want[p]))
     ok = not bad and set(want) == set(have)
     log(f"[roundtrip] llama3 full width (hidden {cfg.llm.hidden_size}, "
         f"vocabulary {cfg.llm.padded_vocab_size}, q/k/v "
         f"{cfg.llm.q_dim}/{cfg.llm.kv_dim}/{cfg.llm.kv_dim}), depth cut: LLM "
-        f"2 of 32 layers, CLIP 2 of 24, InternVideo2 2 of 40 blocks; "
+        f"1 of 32 layers, CLIP 1 of 24, InternVideo2 1 of 40 blocks; "
         f"{sum(sizes.values())} bytes in {len(sizes)} files ("
         + ", ".join(f"{f} {n}" for f, n in sorted(sizes.items()))
-        + f"); written in {write_s:.2f} s, read onto the card by "
-        f"build_params in {read_s:.2f} s; {len(want)} leaves bit-equal to "
-        f"the bf16 source: {ok} {'OK' if ok else 'FAIL'}")
+        + f"); written in {write_s:.2f} s, the weight dumps (all but "
+        f"stage_grounded.pth) read onto the card by build_params in "
+        f"{read_s:.2f} s; their {len(held)} leaves bit-equal to the bf16 "
+        f"source: {ok} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"reference-format round trip: {bad[:8]} differ")
     # the same files read again with the LLM built directly in int8: its
@@ -5331,7 +5368,7 @@ def roundtrip_phase(torch, workdir):
     q = build_params(cfg, "cuda", torch.bfloat16, seed=SEED + 6,
                      weight_root=paths["weight_root"],
                      video_encoder_path=paths["video_encoder"],
-                     stage_ckpt=paths["stage_ckpt"], quantize="int8_full")
+                     quantize="int8_full")
     torch.cuda.synchronize()
     q_s = time.perf_counter() - t0
     q_rise = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
@@ -5879,6 +5916,368 @@ def stage_path(torch, kernels, params, temporal, spatial, workdir):
         shutil.rmtree(workdir, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# path J: tensor-split compute, two gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+TP_RANKS = 2                    # the tensor axis of path J's (1, 1, 2) mesh
+TP_NEW_TOKENS = 16              # path J's greedy tokens a request
+# the request, and its re-batch mate: the same question with more words,
+# so that the request's row is left-padded when the two share a batch
+TP_PROMPTS = (MODES[0], (MODES[0][0], MODES[0][1] + " Answer with the "
+                         "timestamps of the whole event, from its very "
+                         "first second to its last."))
+# split vs single-process grounded step, both bf16 on the card: the loss as
+# the card-vs-host bar (BOUND_TRAIN_LOSS); the global gradient norm at a
+# tenth of the per-leaf gradient bar, since it sums every leaf's squares
+BOUND_TP_LOSS = BOUND_TRAIN_LOSS
+BOUND_TP_GRAD_NORM = 1e-2
+
+
+def tp_lora(torch, cfg):
+    """The adapters of path J's step (r=128, B drawn non-zero), the same
+    draws in every process: a cuda generator seeded from SEED."""
+    from grounded_video_llm_tpu_torch.train import lora as lora_mod
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED + 7)
+    lora = lora_mod.init_lora(cfg.llm, generator=g, device="cuda",
+                              dtype=torch.bfloat16)
+    for la in lora.values():
+        la["b"].normal_(0.0, 0.02, generator=g)
+    return lora
+
+
+def tp_request_logits(torch, params, cfg, eng, prompts, feats):
+    """First-step fp32 logits of prompts on one video's features [1, NV, H]
+    through the tree: splice, prefill into a bf16 cache of the rank's kv
+    heads."""
+    from grounded_video_llm_tpu_torch.models import llm, vlm
+
+    with torch.inference_mode():
+        ids, am = (torch.from_numpy(a).long().cuda()
+                   for a in eng._batch_ids(prompts))
+        B = len(prompts)
+        embeds, _, m = vlm.splice_multimodal(
+            ids, None, am, feats.expand(B, *feats.shape[1:]),
+            params["llm"]["embed"])
+        max_len = -(-(embeds.shape[1] + MAX_NEW_TOKENS) // 128) * 128
+        cache = llm.KVCache.create(llm.rank_config(params["llm"], cfg.llm), B,
+                                   max_len, dtype=embeds.dtype, device="cuda")
+        logits, _ = llm.prefill(params["llm"], cfg.llm, embeds, m, cache)
+    return logits.float().cpu()
+
+
+def tp_step(torch, params, cfg_g, tok, temporal, spatial, mesh=None):
+    """One grounded optimizer step at count 0 (lr 0: nothing moves) on
+    params with tp_lora attached, B=1 (the train path's first sample),
+    remat on, the stage's LoRA dropout, sharded on mesh where given →
+    (loss, grad_norm, seconds, (peak, allocated before it) GiB, the train
+    state, the text length)."""
+    from grounded_video_llm_tpu_torch.core.config import STAGE_PRESETS
+    from grounded_video_llm_tpu_torch.data.collate import collate
+    from grounded_video_llm_tpu_torch.text.templates import get_template
+    from grounded_video_llm_tpu_torch.train import lora as lora_mod
+    from grounded_video_llm_tpu_torch.train.optimizer import make_optimizer
+    from grounded_video_llm_tpu_torch.train.step import (create_train_state,
+                                                         make_train_step,
+                                                         shard_batch)
+
+    stage = STAGE_PRESETS["grounded"]
+    tree = dict(params, llm=lora_mod.attach_lora(params["llm"],
+                                                 tp_lora(torch, cfg_g)))
+    opt, _ = make_optimizer(stage, 100, tree)
+    state = create_train_state(tree, opt, mesh=mesh, cfg=cfg_g)
+    step = make_train_step(cfg_g, opt, grad_accum=1, remat=True,
+                           lora_dropout=stage.lora_dropout,
+                           dropout_seed=SEED, mesh=mesh)
+    mb = collate(train_samples(temporal, spatial, 1, 40, SEED)[:1], tok,
+                 get_template("phi3.5"), max_txt_len=cfg_g.max_txt_len,
+                 device="cuda")
+    if mesh is not None:
+        mb = shard_batch(mb, mesh)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state, m = step(state, mb)
+    torch.cuda.synchronize()
+    return (float(m["loss"]), float(m["grad_norm"]),
+            time.perf_counter() - t0,
+            (torch.cuda.max_memory_allocated() / 2 ** 30, base), state,
+            mb.input_ids.shape[1])
+
+
+def tp_references(torch, params, cfg, tok, eng, temporal, spatial, card):
+    """Path J's single-process side on the script's bf16 tree: the
+    request's prefill logits alone and re-batched with its mate (the full
+    prefill's own drift), and the grounded step (its loss, global gradient
+    norm and peak). The step's count is 0, so it moves no leaf."""
+    from grounded_video_llm_tpu_torch.core.config import vlm_config
+    from grounded_video_llm_tpu_torch.models import vlm
+    from grounded_video_llm_tpu_torch.train.optimizer import tree_items
+
+    prompts = [eng.build_prompt(p, m, 96.0) for m, p in TP_PROMPTS]
+    with torch.inference_mode():
+        feats = vlm.encode_video(
+            params, cfg, torch.from_numpy(spatial[None]).cuda(),
+            torch.from_numpy(temporal[None]).cuda())
+    alone = tp_request_logits(torch, params, cfg, eng, prompts[:1], feats)
+    both = tp_request_logits(torch, params, cfg, eng, prompts, feats)
+    del feats
+    drift = rel_err(torch, both[:1], alone)
+    pad = len(eng.tokenize_prompt(prompts[1])) - len(
+        eng.tokenize_prompt(prompts[0]))
+    cfg_g = vlm_config("phi3.5", stage="grounded")
+    loss, gnorm, step_s, peak, state, S_text = tp_step(
+        torch, params, cfg_g, tok, temporal, spatial)
+    for _, leaf in tree_items(params):
+        leaf.requires_grad_(False)
+    del state
+    torch.cuda.empty_cache()
+    log(f"[tp] single process: request prefill logits re-batched with its "
+        f"mate (B=2, the request left-padded by {pad} tokens) vs alone rel "
+        f"L2 {drift:.3e}; grounded step B=1 "
+        f"(S_text {S_text}): loss {loss:.5f} grad_norm {gnorm:.4f} "
+        f"step_s={step_s:.3f} peak_device_memory={peak[0]:.2f} GiB "
+        f"({peak[1]:.2f} GiB allocated before the step); {card}")
+    return {"prompts": prompts, "logits": alone, "drift": drift,
+            "loss": loss, "grad_norm": gnorm, "peak_gib": peak,
+            "step_s": step_s}
+
+
+def tp_rank(rank, world, prompts, temporal, spatial):
+    """One rank of path J (spawned; gloo, both ranks on cuda:0): the
+    script's bf16 tree sharded on a (1, 1, world) mesh, then (1) the
+    request through InferenceEngine (eager: step graphs refuse a sharded
+    tree) and its prefill logits, (2) the grounded step, its launch shapes
+    and its device kernels. → plain data for the parent."""
+    import collections
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from grounded_video_llm_tpu_torch.cli.model_loading import (
+        build_params, build_tokenizer)
+    from grounded_video_llm_tpu_torch.core.config import (GenerateConfig,
+                                                          vlm_config)
+    from grounded_video_llm_tpu_torch.models import llm, vlm
+    from grounded_video_llm_tpu_torch.ops import flash_attention as fa
+    from grounded_video_llm_tpu_torch.parallel.mesh import build_mesh
+    from grounded_video_llm_tpu_torch.parallel.partitioning import (
+        local, shard_params)
+    from grounded_video_llm_tpu_torch.serve.engine import InferenceEngine
+    from grounded_video_llm_tpu_torch.train.optimizer import tree_items
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = build_mesh(1, 1, world, device="cuda")
+    cfg = vlm_config("phi3.5", stage="inference")
+    tok = build_tokenizer(cfg)
+    out = {"rank": rank}
+    t0 = time.perf_counter()
+    params = shard_params(build_params(cfg, "cuda", torch.bfloat16,
+                                       seed=SEED), mesh, cfg)
+    torch.cuda.empty_cache()        # the whole tree's blocks, for the other
+    torch.cuda.synchronize()        # rank
+    out["shard_s"] = time.perf_counter() - t0
+    out["param_devices"] = sorted({str(local(t).device)
+                                   for _, t in tree_items(params)})
+    out["param_gib"] = torch.cuda.memory_allocated() / 2 ** 30
+    caches = []
+    creates = {c: c.create for c in (llm.KVCache, llm.QuantKVCache)}
+
+    def watch(cls):
+        def make(*a, **kw):
+            c = creates[cls](*a, **kw)
+            caches.append((str(c.k.device), c.k.shape[
+                3 if cls is llm.KVCache else 2]))
+            return c
+        return make
+
+    for cls in creates:
+        cls.create = watch(cls)
+    shapes = collections.Counter()
+    fwd, bwd = fa.flash_fwd, fa.flash_bwd
+
+    def flash_fwd(q, k, v, bias, scale, causal, bounded=False, *a, **kw):
+        shapes[("K2" if causal else "K1", tuple(q.shape), bool(bounded))] += 1
+        return fwd(q, k, v, bias, scale, causal, bounded, *a, **kw)
+
+    def flash_bwd(q, *a, **kw):
+        shapes[("K7", tuple(q.shape), False)] += 1
+        return bwd(q, *a, **kw)
+
+    encode, feats = vlm.encode_video, []
+
+    def encode_video(*a, **kw):
+        feats.append(encode(*a, **kw))
+        return feats[-1]
+
+    fa.flash_fwd, fa.flash_bwd = flash_fwd, flash_bwd
+    vlm.encode_video = encode_video
+    try:
+        eng = InferenceEngine(params, cfg, tok, GenerateConfig(
+            max_new_tokens=TP_NEW_TOKENS, do_sample=False), seed=SEED)
+        counters = {"flash_fwd": fa.FLASH_FWD, "flash_bwd": fa.FLASH_BWD}
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with eng.graphs.eager():
+            eng.generate(prompts[:1], temporal, spatial)
+        torch.cuda.synchronize()
+        out["serve_s"] = time.perf_counter() - t0
+        out["serve_timings"] = dict(eng.last_timings)
+        out["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["serve_launches"] = {n: c.launches for n, c in counters.items()}
+        out["tokens"] = eng.last_tokens[0][0].clone()
+        out["serve_shapes"] = dict(shapes)
+        shapes.clear()
+        # the request's prefill logits on the features the engine encoded
+        out["feats_device"] = str(feats[0].device)
+        out["logits"] = tp_request_logits(torch, params, cfg, eng,
+                                          prompts[:1], feats[0])
+        del eng, feats[:]
+        torch.cuda.empty_cache()
+
+        shapes.clear()
+        for c in counters.values():
+            c.launches = 0
+        # the step under the profiler (device kernels only): its launch
+        # counts, launch shapes and device kernel list
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            loss, gnorm, step_s, peak, state, _ = tp_step(
+                torch, params, vlm_config("phi3.5", stage="grounded"), tok,
+                temporal, spatial, mesh)
+        out.update(loss=loss, grad_norm=gnorm, step_s=step_s,
+                   step_peak_gib=peak,
+                   step_launches={n: c.launches for n, c in counters.items()},
+                   step_shapes=dict(shapes),
+                   state_devices=sorted({str(local(t).device) for _, t in
+                                         tree_items(state.params)}))
+        del state
+        torch.cuda.empty_cache()
+        names = collections.Counter(
+            e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "flash" in e.name)
+        out["step_kernels"] = {
+            re.sub(r"^void |\(anonymous namespace\)::|\(.*$", "", n): c
+            for n, c in names.items()}
+    finally:
+        fa.flash_fwd, fa.flash_bwd = fwd, bwd
+        vlm.encode_video = encode
+        for cls, fn in creates.items():
+            cls.create = fn
+    out["caches"] = sorted(set(caches))
+    return out
+
+
+def tensor_path(torch, kernels, zero, params, cfg, tok, eng, greedy,
+                temporal, spatial, per_req, card):
+    """Path J: the (1, 1, 2) mesh's split compute on the card, at full width
+    and depth, against the single-process route on the same tree
+    (tp_references): two gloo ranks (parallel/launch.spawn, NCCL takes no
+    two ranks on one card), both on cuda:0, gloo staging every collective
+    through the host. Each rank serves the bf16 B=1 request through
+    InferenceEngine and takes one grounded step. Raises unless every
+    parameter, activation and cache of a rank is on cuda:0, every cache
+    holds num_kv_heads / 2 heads, both ranks give the same tokens and the
+    single-process first token, the prefill logits are within
+    ROUTE_FLOOR_RATIO times the full prefill's own re-batching drift, the
+    loss and gradient norm within BOUND_TP_LOSS / BOUND_TP_GRAD_NORM, and
+    the launches are the path's at the rank's head counts. → (rank 0's
+    launches, as a path's)."""
+    from grounded_video_llm_tpu_torch.parallel.launch import spawn
+
+    ref = tp_references(torch, params, cfg, tok, eng, temporal, spatial,
+                        card)
+    t0 = time.perf_counter()
+    ranks = spawn(tp_rank, TP_RANKS, ref["prompts"], temporal, spatial,
+                  timeout=900.0, collective_timeout=600.0)
+    wall = time.perf_counter() - t0
+    L, nl = cfg.llm, cfg.llm.num_layers
+    n_clip = cfg.clip.num_layers + cfg.clip.feature_layer + 1
+    nb = cfg.video.num_blocks_used
+    h_llm, h_enc = L.num_heads // TP_RANKS, cfg.clip.num_heads // TP_RANKS
+    fails = []
+    label = f"{TP_RANKS} gloo ranks on one card, host-staged collectives"
+    for r in ranks:
+        devs = set(r["param_devices"]) | set(r["state_devices"]) | {
+            r["feats_device"]} | {d for d, _ in r["caches"]}
+        heads = {h for _, h in r["caches"]}
+        first = int(r["tokens"][0]) == int(greedy[0])
+        n = min(len(r["tokens"]), len(greedy))
+        equal = int((r["tokens"][:n] == greedy[:n]).sum())
+        lerr = rel_err(torch, r["logits"], ref["logits"])
+        dl = abs(r["loss"] - ref["loss"]) / abs(ref["loss"])
+        dg = abs(r["grad_norm"] - ref["grad_norm"]) / abs(ref["grad_norm"])
+        t = r["serve_timings"]
+        log(f"[tp] rank {r['rank']}: devices {sorted(devs)}; caches "
+            f"{r['caches']} (want {L.num_kv_heads // TP_RANKS} kv heads); "
+            f"sharded tree {r['param_gib']:.2f} GiB in {r['shard_s']:.2f} s")
+        log(f"[tp] rank {r['rank']} serve bf16 B=1: first token equal "
+            f"{first}, greedy tokens equal to the single process "
+            f"{equal} of {n}; prefill logits rel L2 {lerr:.3e} (<= "
+            f"{ROUTE_FLOOR_RATIO} x the re-batching drift {ref['drift']:.3e}"
+            f"); encode_ms={t.get('encode', 0.0) * 1e3:.1f} prefill_ms="
+            f"{t['prefill'] * 1e3:.1f} decode_ms={t['decode'] * 1e3:.1f} "
+            f"({t['decode_steps']} steps) wall_s={r['serve_s']:.3f} "
+            f"peak_device_memory={r['serve_peak_gib']:.2f} GiB; {label}; "
+            f"{card}")
+        log(f"[tp] rank {r['rank']} grounded step B=1 (under the profiler, "
+            f"device kernels only): loss {r['loss']:.5f} "
+            f"(single process {ref['loss']:.5f}, rel {dl:.3e} <= "
+            f"{BOUND_TP_LOSS}) grad_norm {r['grad_norm']:.4f} (single "
+            f"process {ref['grad_norm']:.4f}, rel {dg:.3e} <= "
+            f"{BOUND_TP_GRAD_NORM}); step_s={r['step_s']:.3f} (single "
+            f"process {ref['step_s']:.3f}) peak_device_memory="
+            f"{r['step_peak_gib'][0]:.2f} GiB, {r['step_peak_gib'][1]:.2f} "
+            f"allocated before the step (single process "
+            f"{ref['peak_gib'][0]:.2f}, {ref['peak_gib'][1]:.2f}); {label}; "
+            f"{card}")
+        log(f"[tp] rank {r['rank']} launch shapes: serve "
+            f"{r['serve_shapes']}; step {r['step_shapes']}")
+        log(f"[tp] rank {r['rank']} device kernels of one step: "
+            f"{r['step_kernels']}")
+        want_serve = {"flash_fwd": per_req, "flash_bwd": 0}
+        want_step = {"flash_fwd": n_clip + nb + 2 * nl, "flash_bwd": nl}
+        heads_seen = {(k, s[2]) for k, s, _ in
+                      [*r["serve_shapes"], *r["step_shapes"]]}
+        want_heads = {("K1", h_enc), ("K2", h_llm), ("K7", h_llm)}
+        checks = {
+            "devices": devs == {"cuda:0"},
+            "cache heads": heads == {L.num_kv_heads // TP_RANKS},
+            "tokens between ranks": torch.equal(r["tokens"],
+                                                ranks[0]["tokens"]),
+            "first token": first,
+            "prefill logits": lerr <= ROUTE_FLOOR_RATIO * ref["drift"],
+            "loss": dl <= BOUND_TP_LOSS,
+            "grad_norm": dg <= BOUND_TP_GRAD_NORM,
+            "serve launches": r["serve_launches"] == want_serve,
+            "step launches": r["step_launches"] == want_step,
+            "head counts": heads_seen == want_heads,
+            "step kernels": any("flash_bwd" in n for n in r["step_kernels"])
+            and any("flash_fwd" in n for n in r["step_kernels"]),
+        }
+        fails += [f"rank {r['rank']}: {k}" for k, ok in checks.items()
+                  if not ok]
+    log(f"[path] J tensor split (1, 1, {TP_RANKS}) full-width phi3.5 bf16: "
+        f"{len(ranks)} ranks in {wall:.1f} s (start, build, shard, serve, "
+        f"step); {'OK' if not fails else 'FAIL ' + str(fails)}; {label}; "
+        f"{card}")
+    if fails:
+        raise AssertionError(f"path J: {fails}")
+    r0 = ranks[0]
+    got = dict(zero)
+    for c in (r0["serve_launches"], r0["step_launches"]):
+        for k, v in c.items():
+            got[k] += v
+    return got
+
+
 def main() -> int:
     import torch
 
@@ -5903,6 +6302,11 @@ def main() -> int:
     # fp32 references below must not drop to TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+
+    t_start = time.perf_counter()
+
+    def stamp(name):
+        log(f"[time] {name} done at {time.perf_counter() - t_start:.1f} s")
 
     # ---- 1. the card
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -5946,6 +6350,7 @@ def main() -> int:
                 log(f"[ptxas] {src} {entry}: {line.strip()}")
 
     sass_phase(kernels)
+    stamp("build")
 
     cfg = vlm_config("phi3.5", stage="inference")
     tok = build_tokenizer(cfg)
@@ -5989,6 +6394,7 @@ def main() -> int:
     m2 = flash_variant_phase(torch, fa, cfg)
     families = {f.name: f for f in (flash, k7, k3, k6, k4, k5, k8, k9, *k10,
                                     m1, m2, *m3)}
+    stamp("kernels")
 
     frames = synthetic_video(SEED, cfg.num_frames)
     temporal, spatial, resize_ms = resize_phase(bf16, frames, card)
@@ -6003,6 +6409,7 @@ def main() -> int:
     small_reference_static_iv2(torch, cfg, SEED, temporal)
     small_reference_quant_ab(torch, cfg, SEED)
     small_reference_train(torch, cfg, SEED)
+    stamp("small references")
 
     # ---- 5. main path
     nl = cfg.llm.num_layers
@@ -6096,6 +6503,7 @@ def main() -> int:
         raise AssertionError("main path outputs are malformed")
     del full, feats, logits, cache, embeds
     torch.cuda.empty_cache()
+    stamp("paths A, D and the graph legs")
 
     # path E: path A with calibrated static W8A8 scales (one calibration
     # pass over the IV2 blocks at the first request: nb more K1 launches)
@@ -6103,16 +6511,19 @@ def main() -> int:
                       prompts, temporal, spatial, t_a,
                       expect(per_req + nb, 4 * nl, True, 1))
     launches = {k: launches[k] + got[k] for k in launches}
+    stamp("path E")
 
     # path F: feature-cached and prefix-KV serving (mode A's configuration)
     got = prefix_path(torch, kernels, zero, params, cfg, tok, temporal,
                       spatial, per_req, card)
     launches = {k: launches[k] + got[k] for k in launches}
+    stamp("path F")
 
     # path G: continuous batching and the HTTP server (mode A's tree)
     got = continuous_path(torch, kernels, zero, params, cfg, tok, temporal,
                           spatial, per_req, card)
     launches = {k: launches[k] + got[k] for k in launches}
+    stamp("path G")
 
     # path H: the evaluation runner (mode A's tree), then beam search
     got, full = eval_path(torch, kernels, zero, params, cfg, tok, per_req,
@@ -6121,6 +6532,7 @@ def main() -> int:
     got = beam_path(torch, kernels, zero, bf16, full, cfg, temporal, spatial,
                     greedy_bf16, per_req, card)
     launches = {k: launches[k] + got[k] for k in launches}
+    stamp("path H and beams")
     del full
     torch.cuda.empty_cache()
 
@@ -6134,24 +6546,36 @@ def main() -> int:
         got = run_path(torch, kernels, name, generate(weight_only, [MODES[0]],
                                                       g), x)
         launches = {k: launches[k] + got[k] for k in launches}
-    del weight_only, bf16
+    del weight_only
     torch.cuda.empty_cache()
+    stamp("paths A-H, B, C")
+
+    # path J: tensor-split compute on two gloo ranks sharing the card
+    got = tensor_path(torch, kernels, zero, params, cfg, tok, bf16,
+                      greedy_bf16[0], temporal, spatial, per_req, card)
+    launches = {k: launches[k] + got[k] for k in launches}
+    del bf16
+    torch.cuda.empty_cache()
+    stamp("path J")
 
     # ---- 6. the training path, on the same bf16 weights; then path I:
     # the pretrain and sft stages on a 1-rank NCCL mesh
     got = train_path(torch, kernels, vlm_config("phi3.5", stage="grounded"),
                      params, tok, temporal, spatial)[0]
     launches = {k: launches[k] + got[k] for k in launches}
+    stamp("train path")
     got = stage_path(torch, kernels, params, temporal, spatial, os.path.join(
         os.path.dirname(os.path.abspath(__file__)), "build",
         "chip_smoke_stages"))
     launches = {k: launches[k] + got[k] for k in launches}
+    stamp("path I")
 
     # ---- 7. the microbenchmarks: the path of M1, M2, M3 and M3d
     del params
     torch.cuda.empty_cache()
     got = microbench_path(torch, kernels, cfg, zero)
     launches = {k: launches[k] + got[k] for k in launches}
+    stamp("microbenchmarks")
 
     # ---- 8. llama3 and vicuna: depth-cut references, then full-width
     # llama3 on the same frames, every Phi-3.5 tree and engine freed
@@ -6168,12 +6592,15 @@ def main() -> int:
                           SEED)
     llama3_train_kernel_phase(torch, fa, vlm_config("llama3",
                                                     stage="grounded"))
+    stamp("llama3 and vicuna references, llama3 K2/K7")
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "build", "chip_smoke_checkpoints")
     roundtrip_phase(torch, os.path.join(scratch, "roundtrip"))
+    stamp("round trip")
     got, params = llama3_path(torch, kernels, zero, generate, temporal,
                               spatial, resize_ms, card)
     launches = {k: launches[k] + got[k] for k in launches}
+    stamp("llama3 path")
 
     # ---- 9. llama3 grounded training on the same weights, then its
     # reference-format export read back and served
@@ -6191,6 +6618,7 @@ def main() -> int:
     launches = {k: launches[k] + got[k] for k in launches}
     del strat
     torch.cuda.empty_cache()
+    stamp("llama3 training and reload")
     log(f"[main] launches over every path: {launches}")
     missing = [n for n, c in launches.items() if c == 0]
     if missing:

@@ -9,7 +9,8 @@ every rank runs three legs and checks them:
   * one grounded train step with LoRA (rank 8), grad_accum 2, remat and the
     stage's LoRA dropout, the parameters sharded by
     parallel/partitioning.shard_params and each rank on its rows of the
-    batch: loss and grad_norm finite, the same on every rank;
+    batch, the two tensor ranks of a row computing their own heads and
+    MLP columns: loss and grad_norm finite, the same on every rank;
   * greedy generate_tokens on the sharded tree equal to the unsharded
     tree's;
   * a 4-request ContinuousServer pool (2 slots) on the sharded tree equal
@@ -63,7 +64,7 @@ def train_leg(mesh, cfg, n: int):
                                           device="cpu", dtype=torch.float32))
     stage = STAGE_PRESETS["grounded"]
     opt, _ = make_optimizer(stage, 10, params)
-    state = create_train_state(params, opt, mesh=mesh)
+    state = create_train_state(params, opt, mesh=mesh, cfg=cfg)
     sharded = sum(is_sharded(t) for _, t in tree_items(state.params))
     accum, B, S = 2, max(2, n), 12
     rng = np.random.default_rng(0)
@@ -94,7 +95,7 @@ def generate_leg(mesh, cfg, params):
             torch.zeros(2, cfg.num_segs, 336, 336, 3),
             torch.zeros(2, cfg.num_frames, 224, 224, 3), None)
     want, _ = generate_tokens(params, cfg, *args, **_gen_kw(4))
-    got, _ = generate_tokens(shard_params(params, mesh), cfg, *args,
+    got, _ = generate_tokens(shard_params(params, mesh, cfg), cfg, *args,
                              **_gen_kw(4))
     if not torch.equal(want, got):
         raise AssertionError(f"sharded generate {got.tolist()} != "
@@ -117,7 +118,7 @@ def pool_leg(mesh, cfg, params):
                             * 0.1).astype(np.float32),
             temporal_pixels=(rng.normal(size=(cfg.num_frames, 224, 224, 3))
                              * 0.1).astype(np.float32)))
-    got = ContinuousServer(shard_params(params, mesh), cfg, pool_size=2,
+    got = ContinuousServer(shard_params(params, mesh, cfg), cfg, pool_size=2,
                            prompt_len=10, max_new_tokens=4, chunk=2,
                            eos_token_id=-2, pad_token_id=0).serve(reqs)
     for i, r in enumerate(reqs):

@@ -144,9 +144,10 @@ def build_stages(params, cfg: VLMConfig, batch: int, stages=STAGES, *,
         mask = torch.ones(batch, S, dtype=torch.int32, device=device)
 
         def prefill():
-            cache = (llm.QuantKVCache.create(cfg.llm, batch, max_len,
+            rcfg = llm.rank_config(lp, cfg.llm)
+            cache = (llm.QuantKVCache.create(rcfg, batch, max_len,
                                              device=device) if int8_llm
-                     else llm.KVCache.create(cfg.llm, batch, max_len,
+                     else llm.KVCache.create(rcfg, batch, max_len,
                                              dtype=act, device=device))
             return llm.prefill(lp, cfg.llm, embeds, mask, cache)
 

@@ -7,9 +7,10 @@ Two formats:
     same paths and shapes (the JAX package keeps orbax checkpoints here).
     In a process group of more than one rank the path is a directory and
     every rank writes its own file, rank{r}-of-{n}.pt: its view of the
-    tree, each sharded leaf (parallel/partitioning) as its local shard,
-    each replicated leaf whole; it is read back by the same ranks on the
-    same mesh. save_pytree_async snapshots the tree into host memory
+    tree, each sharded leaf (parallel/partitioning) as its local shard
+    (a fused leaf's tensor shard in its head-aligned order), each
+    replicated leaf whole; it is read back by the same ranks on the same
+    mesh. save_pytree_async snapshots the tree into host memory
     before it returns and writes it on a background thread;
   * interop — the reference's split-by-module layout
     ({stage}_{model}_{llm}_{dataset}.pth holding {"model": {module:

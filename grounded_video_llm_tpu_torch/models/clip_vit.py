@@ -25,6 +25,8 @@ from ..core.config import CLIPVisionConfig
 from ..ops.attention import mha
 from ..ops.int8_matmul import matmul_any
 from ..ops.normalization import layer_norm
+from ..parallel import tensor as tp
+from ..parallel.tensor import tensor_group
 from .param_utils import layer_slice, normal
 
 
@@ -67,25 +69,38 @@ def init_params(cfg: CLIPVisionConfig, *, generator: torch.Generator,
     }
 
 
-def _layer(x, lp, cfg: CLIPVisionConfig):
+def _layer(x, lp, cfg: CLIPVisionConfig, tg=None):
+    """One layer. tg: the layer is split over this tensor group: q, k, v
+    and fc1 give this rank's heads and columns (their biases sliced to
+    match), o and fc2 are row-split, their biases added once after the
+    reduce."""
     B, S, D = x.shape
-    H = cfg.num_heads
+    H = cfg.num_heads if tg is None else cfg.num_heads // tg.size
+
+    def cols(h, name):
+        if tg is None:
+            return matmul_any(h, lp[name]["kernel"]) + lp[name]["bias"]
+        return h @ lp[name]["kernel"] + tp.column_slice(lp[name]["bias"], tg)
+
+    def rows(h, name):
+        y = (matmul_any(h, lp[name]["kernel"]) if tg is None
+             else tp.row_product(h, lp[name]["kernel"], tg))
+        return y + lp[name]["bias"]
+
     residual = x
     h = layer_norm(x, lp["ln1"]["scale"], lp["ln1"]["bias"],
                    cfg.layer_norm_eps)
-    q = (matmul_any(h, lp["q"]["kernel"]) + lp["q"]["bias"]).reshape(
-        B, S, H, -1)
-    k = (matmul_any(h, lp["k"]["kernel"]) + lp["k"]["bias"]).reshape(
-        B, S, H, -1)
-    v = (matmul_any(h, lp["v"]["kernel"]) + lp["v"]["bias"]).reshape(
-        B, S, H, -1)
-    attn = mha(q, k, v, causal=False).reshape(B, S, D)
-    x = residual + (matmul_any(attn, lp["o"]["kernel"]) + lp["o"]["bias"])
+    if tg is not None:
+        h = tp.copy(h, tg)
+    q, k, v = (cols(h, n).reshape(B, S, H, cfg.head_dim) for n in "qkv")
+    attn = mha(q, k, v, causal=False).reshape(B, S, H * cfg.head_dim)
+    x = residual + rows(attn, "o")
     residual = x
     h = layer_norm(x, lp["ln2"]["scale"], lp["ln2"]["bias"],
                    cfg.layer_norm_eps)
-    h = quick_gelu(matmul_any(h, lp["fc1"]["kernel"]) + lp["fc1"]["bias"])
-    return residual + (matmul_any(h, lp["fc2"]["kernel"]) + lp["fc2"]["bias"])
+    if tg is not None:
+        h = tp.copy(h, tg)
+    return residual + rows(quick_gelu(cols(h, "fc1")), "fc2")
 
 
 def embed(params, cfg: CLIPVisionConfig, pixels: torch.Tensor) -> torch.Tensor:
@@ -110,6 +125,7 @@ def features(params, cfg: CLIPVisionConfig,
     x = layer_norm(x, params["pre_ln"]["scale"], params["pre_ln"]["bias"],
                    cfg.layer_norm_eps)
     n_used = cfg.num_layers + cfg.feature_layer + 1     # -2 → N-1 layers
+    tg = tensor_group(params["layers"]["q"]["kernel"])
     for i in range(n_used):
-        x = _layer(x, layer_slice(params["layers"], i), cfg)
+        x = _layer(x, layer_slice(params["layers"], i), cfg, tg)
     return x[:, 1:, :]

@@ -44,6 +44,8 @@ from ..ops.fused_block import (fused_norm_quant_gemm,
                                fused_quant_gemm_ls_residual, qk_norm_tile)
 from ..ops.int8_matmul import Int8Weight, matmul_any
 from ..ops.normalization import layer_norm, layer_scale, rms_norm
+from ..parallel import tensor as tp
+from ..parallel.tensor import tensor_group
 from .param_utils import layer_slice, truncated_normal
 
 
@@ -280,14 +282,19 @@ def _absmax(t: torch.Tensor) -> torch.Tensor:
     return t.float().abs().amax(dim=tuple(range(t.dim() - 1)))
 
 
-def _block(x, bp, cfg: InternVideo2Config, stats=None):
+def _block(x, bp, cfg: InternVideo2Config, stats=None, tg=None):
     """One block. stats: a dict that receives, per GEMM leg ("qkv",
     "proj", "fc1", "fc2"), the per-channel fp32 absmax of that GEMM's input
-    (the calibration pass); a stats request takes the unfused route."""
+    (the calibration pass); a stats request takes the unfused route.
+
+    tg: the block is split over this tensor group: qkv gives this rank's
+    heads of q, k and v (the head-aligned shard), QK-RMSNorm sums its
+    squares over the group, proj and fc2 are row-split with the bias,
+    LayerScale and residual after the reduce, fc1 column-split."""
     if stats is None and _fused_int8_ok(bp, cfg):
         return _block_fused_int8(x, bp, cfg)
     B, S, D = x.shape
-    H = cfg.num_heads
+    H = cfg.num_heads if tg is None else cfg.num_heads // tg.size
     Dh = cfg.head_dim
 
     def record(leg, t):
@@ -295,27 +302,42 @@ def _block(x, bp, cfg: InternVideo2Config, stats=None):
             stats[leg] = _absmax(t)
         return t
 
+    def rows(h, name):
+        if tg is None:
+            return matmul_any(h, bp[name]["kernel"]) + bp[name]["bias"]
+        return tp.row_product(h, bp[name]["kernel"], tg) + bp[name]["bias"]
+
     h = record("qkv", rms_norm(x, bp["norm1_w"], cfg.rms_eps))
-    q, k, v = matmul_any(h, bp["qkv_kernel"]).split(D, dim=-1)  # [B,S,D]
+    if tg is not None:
+        h = tp.copy(h, tg)
+    q, k, v = matmul_any(h, bp["qkv_kernel"]).split(H * Dh, dim=-1)
     if cfg.qk_normalization:
         # RMSNorm over the flattened head dim
-        q = rms_norm(q, bp["q_norm_w"], cfg.rms_eps)
-        k = rms_norm(k, bp["k_norm_w"], cfg.rms_eps)
+        if tg is None:
+            q = rms_norm(q, bp["q_norm_w"], cfg.rms_eps)
+            k = rms_norm(k, bp["k_norm_w"], cfg.rms_eps)
+        else:
+            q = tp.split_rms_norm(q, tp.column_slice(bp["q_norm_w"], tg),
+                                  cfg.rms_eps, D, tg)
+            k = tp.split_rms_norm(k, tp.column_slice(bp["k_norm_w"], tg),
+                                  cfg.rms_eps, D, tg)
     q = q.reshape(B, S, H, Dh)
     k = k.reshape(B, S, H, Dh)
     v = v.reshape(B, S, H, Dh)
     # QK-RMSNorm bounds the scores, so the kernel keeps a fixed softmax offset
     attn = record("proj", mha(q, k, v, causal=False,
                               bounded_softmax=cfg.qk_normalization)
-                  .reshape(B, S, D))
-    attn = matmul_any(attn, bp["proj"]["kernel"]) + bp["proj"]["bias"]
-    x = x + layer_scale(attn, bp["ls1"])
+                  .reshape(B, S, H * Dh))
+    x = x + layer_scale(rows(attn, "proj"), bp["ls1"])
 
     h = record("fc1", rms_norm(x, bp["norm2_w"], cfg.rms_eps))
-    h = record("fc2", F.gelu(matmul_any(h, bp["fc1"]["kernel"])
-                             + bp["fc1"]["bias"], approximate="none"))
-    h = matmul_any(h, bp["fc2"]["kernel"]) + bp["fc2"]["bias"]
-    return x + layer_scale(h, bp["ls2"])
+    if tg is not None:
+        h = tp.copy(h, tg)
+        h = h @ bp["fc1"]["kernel"] + tp.column_slice(bp["fc1"]["bias"], tg)
+    else:
+        h = matmul_any(h, bp["fc1"]["kernel"]) + bp["fc1"]["bias"]
+    h = record("fc2", F.gelu(h, approximate="none"))
+    return x + layer_scale(rows(h, "fc2"), bp["ls2"])
 
 
 def patch_embed(params, cfg: InternVideo2Config,
@@ -338,9 +360,14 @@ def _trunk(params, cfg: InternVideo2Config, pixels: torch.Tensor,
     cls = params["cls_token"].to(x.dtype).expand(B, 1, cfg.embed_dim)
     x = torch.cat([cls, x], dim=1)
     x = x + params["pos_embed"].to(x.dtype)
+    tg = tensor_group(params["blocks"]["qkv_kernel"])
+    if tg is not None and stats is not None:
+        raise NotImplementedError("features_absmax on a tensor-split "
+                                  "encoder (calibrate on one device)")
     for i in range(cfg.num_blocks_used):
         block_stats = None if stats is None else {}
-        x = _block(x, layer_slice(params["blocks"], i), cfg, block_stats)
+        x = _block(x, layer_slice(params["blocks"], i), cfg, block_stats,
+                   tg)
         if stats is not None:
             stats.append(block_stats)
     return x

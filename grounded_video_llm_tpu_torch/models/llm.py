@@ -45,6 +45,7 @@ a valid slot, so it idles in place.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -63,7 +64,11 @@ from ..ops.int8_matmul import (INT8_GEMM_MIN_ROWS, Int8Embedding, Int8Weight,
                                dynamic_int8_matmul, int8_matmul)
 from ..ops.normalization import rms_norm
 from ..ops.rope import apply_rope, llm_rope_tables
+from ..parallel import tensor as tp
 from ..parallel.partitioning import gather
+from ..parallel.tensor import (TensorGroup, ce_local_grad, ce_local_logits,
+                               ce_local_sums, local_columns, tensor_group,
+                               vocab_shard)
 from .param_utils import child_generator, layer_slice, normal
 
 
@@ -155,17 +160,43 @@ def init_params(cfg: LLMConfig, *, generator: Optional[torch.Generator],
 
 def embed_lookup(embed, token_ids: torch.Tensor,
                  dtype=torch.bfloat16) -> torch.Tensor:
-    """Embedding gather; an int8 table dequantizes its rows into dtype, a
-    sharded table is gathered whole first."""
+    """Embedding gather; an int8 table dequantizes its rows into dtype. A
+    sharded table is gathered over fsdp; one whose hidden dim 'tensor'
+    splits gives this rank's columns of the rows, then all-gathers
+    them."""
     if isinstance(embed, Int8Embedding):
         rows = embed.q[token_ids].float()
         return (rows * embed.scale[token_ids][..., None]).to(dtype)
-    return gather(embed)[token_ids]
+    rows = gather(embed)[token_ids]
+    tg = tensor_group(embed)
+    return rows if tg is None else tp.gather_last(rows, tg)
 
 
 def embed_dtype(embed) -> torch.dtype:
     """Activation dtype implied by an embedding table (int8 → bf16)."""
     return torch.bfloat16 if isinstance(embed, Int8Embedding) else embed.dtype
+
+
+def _rank_view(params, cfg: LLMConfig):
+    """(the tensor group that splits the layers or None, rank_config).
+    parallel/partitioning.shard_params has checked that t divides the
+    heads and the MLP width."""
+    tg = tensor_group(params["layers"]["qkv_kernel"])
+    if tg is None:
+        return None, cfg
+    t = tg.size
+    return tg, dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // t,
+        num_kv_heads=cfg.num_kv_heads // t,
+        intermediate_size=cfg.intermediate_size // t)
+
+
+def rank_config(params, cfg: LLMConfig) -> LLMConfig:
+    """This rank's view of cfg: the heads, kv heads and MLP width over the
+    'tensor' axis that splits params' layers (cfg itself where none does;
+    the hidden size is whole). The layers run on it, and KVCache.create /
+    QuantKVCache.create from it hold the rank's kv heads."""
+    return _rank_view(params, cfg)[1]
 
 
 def _matmul_maybe_int8(x: torch.Tensor, kernel,
@@ -198,22 +229,38 @@ def mix_seed(*ints: int) -> int:
                .generate_state(2, np.uint64)[0] >> np.uint64(1))
 
 
-def lora_dropout(x: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
+def lora_dropout(x: torch.Tensor, rate: float, seed: int,
+                 cols=None) -> torch.Tensor:
     """Inverted dropout, keep probability 1 - rate, kept values scaled by
     1 / (1 - rate). The mask is drawn from a torch.Generator seeded with
     ``seed`` on x's device, so an activation-checkpoint recompute draws the
-    same mask whatever the global RNG state is."""
+    same mask whatever the global RNG state is. cols (width, first): x is
+    those columns of a wider input (a row-split product's), and its mask
+    is the same columns of the mask the whole input draws."""
     g = torch.Generator(device=x.device)
     g.manual_seed(seed)
-    keep = torch.rand(x.shape, generator=g, device=x.device) < 1.0 - rate
+    shape = x.shape if cols is None else x.shape[:-1] + (cols[0],)
+    keep = torch.rand(shape, generator=g, device=x.device) < 1.0 - rate
+    if cols is not None:
+        keep = keep[..., cols[1]:cols[1] + x.shape[-1]]
     return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
 
 
-def _dense(x, kernel, lp, name: str, drop=None, w8a8_decode: bool = False):
+def _dense(x, kernel, lp, name: str, drop=None, w8a8_decode: bool = False,
+           tg: Optional[TensorGroup] = None, blocks=None):
     """x @ kernel plus the LoRA overlay ((x @ A) @ B) * scale when the layer
     carries one for ``name``; the delta matrix is never formed. drop:
     (rate, layer seed) for training-only dropout on the LoRA branch input,
-    as peft does (the frozen base path sees x untouched)."""
+    as peft does (the frozen base path sees x untouched).
+
+    tg: the layer is split over it. With blocks (the leaf's whole column
+    blocks) the product is column-split: x is whole and the kernel holds
+    this rank's columns; without, row-split: x is this rank's columns of
+    the input and the kernel its rows."""
+    if tg is not None:
+        return (_dense_columns(x, kernel, lp, name, drop, tg, blocks)
+                if blocks is not None
+                else _dense_rows(x, kernel, lp, name, drop, tg))
     y = _matmul_maybe_int8(x, kernel, w8a8_decode)
     lora = lp.get("lora")
     if lora is not None and name in lora:
@@ -226,10 +273,55 @@ def _dense(x, kernel, lp, name: str, drop=None, w8a8_decode: bool = False):
     return y
 
 
-def _qkv(x, lp, cfg: LLMConfig, w8a8_decode: bool = False, drop=None):
+def _dense_columns(x, kernel, lp, name, drop, tg: TensorGroup, blocks):
+    """A column-split _dense: the whole x through tp.copy (its gradient is
+    summed over the group), this rank's columns out. The LoRA B is
+    replicated and sliced to the same columns; A and B go through tp.copy,
+    as each rank's gradient of them is a part."""
+    x = tp.copy(x, tg)
+    y = x @ kernel
+    la = lp.get("lora", {}).get(name)
+    if la is not None:
+        xl = x
+        if drop is not None:
+            rate, seed = drop
+            xl = lora_dropout(x, rate, mix_seed(seed, _LORA_SLOT[name]))
+        b = local_columns(tp.copy(la["b"], tg), blocks, tg.size, tg.rank)
+        y = y + ((xl @ tp.copy(la["a"], tg)) @ b) * la["scale"][..., None,
+                                                               None]
+    return y
+
+
+def _dense_rows(x, kernel, lp, name, drop, tg: TensorGroup):
+    """A row-split _dense: this rank's partial product of its input
+    columns, accumulated in fp32 with its partial LoRA term ((x @ A's rows)
+    @ B), then one fp32 all-reduce over the group and one rounding to x's
+    dtype: the single-process product up to the order of its sum. A
+    dropout mask is the slice of the mask the whole input draws."""
+    n = x.shape[-1]
+    y = tp.partial_product(x, kernel)
+    la = lp.get("lora", {}).get(name)
+    if la is not None:
+        xl = x
+        if drop is not None:
+            rate, seed = drop
+            xl = lora_dropout(x, rate, mix_seed(seed, _LORA_SLOT[name]),
+                              cols=(n * tg.size, n * tg.rank))
+        a = tp.copy(la["a"], tg).narrow(-2, n * tg.rank, n)
+        h = tp.partial_product(xl, a).to(x.dtype)
+        y = y + (tp.partial_product(h, tp.copy(la["b"], tg))
+                 * la["scale"].float())
+    return tp.reduce(y, tg).to(x.dtype)
+
+
+def _qkv(x, lp, cfg: LLMConfig, w8a8_decode: bool = False, drop=None,
+         tg: Optional[TensorGroup] = None):
+    """cfg: the rank's (rank_config); under tg this rank's heads."""
     B, S, _ = x.shape
+    blocks = None if tg is None else tuple(
+        tg.size * n for n in (cfg.q_dim, cfg.kv_dim, cfg.kv_dim))
     q, k, v = _dense(x, lp["qkv_kernel"], lp, "qkv", drop,
-                     w8a8_decode).split(
+                     w8a8_decode, tg, blocks).split(
         [cfg.q_dim, cfg.kv_dim, cfg.kv_dim], dim=-1)
     return (q.reshape(B, S, cfg.num_heads, cfg.head_dim),
             k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim),
@@ -243,24 +335,31 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1.0 / (1.0 + torch.exp(-x)))
 
 
-def _mlp(h, lp, cfg: LLMConfig, w8a8_decode: bool = False, drop=None):
+def _mlp(h, lp, cfg: LLMConfig, w8a8_decode: bool = False, drop=None,
+         tg: Optional[TensorGroup] = None):
+    """Under tg: this rank's gate and up columns (gate_up's shard is gate
+    block r then up block r), down row-split."""
+    blocks = (None if tg is None
+              else (tg.size * cfg.intermediate_size,) * 2)
     gate, up = _dense(h, lp["gate_up_kernel"], lp, "gate_up", drop,
-                      w8a8_decode).chunk(2, dim=-1)
+                      w8a8_decode, tg, blocks).chunk(2, dim=-1)
     return _dense(silu(gate) * up, lp["down_kernel"], lp, "down", drop,
-                  w8a8_decode)
+                  w8a8_decode, tg)
 
 
-def _layer_full(x, lp, cfg: LLMConfig, cos, sin, attn_mask, drop=None):
-    """Full-sequence (train / prefill) layer → (x, (k, v))."""
+def _layer_full(x, lp, cfg: LLMConfig, cos, sin, attn_mask, drop=None,
+                tg: Optional[TensorGroup] = None):
+    """Full-sequence (train / prefill) layer → (x, (k, v)); cfg and the
+    k/v are the rank's."""
     B, S, D = x.shape
     h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
-    q, k, v = _qkv(h, lp, cfg, drop=drop)
+    q, k, v = _qkv(h, lp, cfg, drop=drop, tg=tg)
     q, k = apply_rope(q, k, cos, sin)
     attn = mha(q, k, v, causal=True, mask=attn_mask,
                sliding_window=cfg.sliding_window).reshape(B, S, cfg.q_dim)
-    x = x + _dense(attn, lp["o_kernel"], lp, "o", drop)
+    x = x + _dense(attn, lp["o_kernel"], lp, "o", drop, tg=tg)
     h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
-    x = x + _mlp(h, lp, cfg, drop=drop)
+    x = x + _mlp(h, lp, cfg, drop=drop, tg=tg)
     return x, (k, v)
 
 
@@ -301,7 +400,12 @@ def forward_hidden(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
 
     rope_hint overrides the capacity (or S) as the LongRoPE factor choice:
     build_prefix_kv fills a cache of the prefix's own length but must pick
-    the factors of the continuation's capacity."""
+    the factors of the continuation's capacity.
+
+    On a mesh whose 'tensor' axis splits the layers, each rank runs its
+    heads and MLP columns (rank_config) and the cache holds its kv
+    heads."""
+    tg, cfg = _rank_view(params, cfg)
     # left-padded prompts: position = cumsum(mask) - 1, clamped
     positions = (torch.cumsum(attn_mask.long(), dim=-1) - 1).clamp_min(0)
     S = inputs_embeds.shape[1]
@@ -318,7 +422,7 @@ def forward_hidden(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
                              "cache-free training forward")
         for i in range(L):
             x, (k, v) = _layer_full(x, layer_slice(lay, i), cfg, cos, sin,
-                                    attn_mask)
+                                    attn_mask, tg=tg)
             _write_prompt_kv(cache, i, k, v)
         return rms_norm(x, params["final_norm_w"], cfg.rms_eps)
 
@@ -330,7 +434,7 @@ def forward_hidden(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
     def run(h, first, count):
         for i in range(first, first + count):
             h, _ = _layer_full(h, layer_slice(lay, i), cfg, cos, sin,
-                               attn_mask, drop_for(i))
+                               attn_mask, drop_for(i), tg)
         return h
 
     group = remat_group if remat else 1
@@ -350,11 +454,18 @@ def forward_hidden(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
 def logits_from_hidden(params, hidden: torch.Tensor) -> torch.Tensor:
     """fp32 logits. A dense lm_head accumulates in fp32 over its stored
     dtype (no fp32 copy of the [D, V] matrix per step); an int8 lm_head
-    gives x's dtype first, then fp32, as in the JAX package."""
+    gives x's dtype first, then fp32, as in the JAX package. An lm_head
+    whose hidden dim 'tensor' splits: this rank's hidden columns times its
+    rows, the partial fp32 logits all-reduced, so every rank of the group
+    holds the whole vocabulary (and samples the same token)."""
     lm_head = params["lm_head"]
     if isinstance(lm_head, Int8Weight):
         return _matmul_maybe_int8(hidden, lm_head).float()
-    return matmul_f32(hidden, gather(lm_head))
+    tg = tensor_group(lm_head)
+    if tg is None:
+        return matmul_f32(hidden, gather(lm_head))
+    return tp.reduce(tp.partial_product(tp.split_last(hidden, tg),
+                                        gather(lm_head)), tg)
 
 
 def forward_logits(params, cfg: LLMConfig, inputs_embeds: torch.Tensor,
@@ -443,6 +554,90 @@ class _ChunkedCE(torch.autograd.Function):
         return d_hidden, d_head, None, None, None
 
 
+def _vp_logits(h: torch.Tensor, lm_head: torch.Tensor, tg: TensorGroup,
+               n: int, real: int) -> torch.Tensor:
+    """This rank's [B, c, n] fp32 chunk logits: its hidden columns times
+    its lm_head rows, the partial logits (V padded to n·t) reduce-scattered
+    over the vocabulary; padding columns at -inf."""
+    partial = matmul_f32(h, lm_head)
+    pad = n * tg.size - partial.shape[-1]
+    if pad:
+        partial = torch.nn.functional.pad(partial, (0, pad))
+    return ce_local_logits(tp.reduce_scatter(partial, partial.dim() - 1,
+                                             tg.size, tg.group), real)
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """_ChunkedCE over a tensor group (the JAX package's vocabulary-split
+    chunk logits): hidden is this rank's columns [B, S, D/t], lm_head its
+    rows [D/t, V]. Each chunk's logits are reduce-scattered over V, so a
+    rank holds [B, c, V/t]; the row maxima are all-reduced (max), then the
+    sums of exponentials and the target logit, which only the label's
+    owner holds (sum). The backward recomputes the rank's logits, takes
+    its columns of softmax - onehot from the saved log-sum-exp,
+    all-gathers them over V, and gives d hidden for its columns and
+    d lm_head for its rows. (total, count) as _ChunkedCE's, the same on
+    every rank of the group."""
+
+    @staticmethod
+    def forward(ctx, hidden, lm_head, labels, ignore_index, chunk, tg):
+        B, S, _ = hidden.shape
+        n, v0, real = vocab_shard(lm_head.shape[-1], tg.size, tg.rank)
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        count = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        lses = []
+        for c0 in range(0, S - 1, chunk):
+            c1 = min(c0 + chunk, S - 1)
+            logits = _vp_logits(hidden[:, c0:c1], lm_head, tg, n, real)
+            lab = labels[:, c0 + 1:c1 + 1]
+            valid = lab != ignore_index
+            safe = torch.where(valid, lab, 0).long()
+            row_max = logits.amax(dim=-1)
+            dist.all_reduce(row_max, op=dist.ReduceOp.MAX, group=tg.group)
+            sums = torch.stack(ce_local_sums(logits, safe, v0, row_max))
+            dist.all_reduce(sums, group=tg.group)
+            lse = row_max + torch.log(sums[0])
+            total = total + torch.where(valid, lse - sums[1], 0.0).sum()
+            count = count + valid.sum()
+            lses.append(lse)
+        ctx.save_for_backward(hidden, lm_head, labels, torch.cat(lses, 1))
+        ctx.ignore_index, ctx.chunk, ctx.tg = ignore_index, chunk, tg
+        ctx.mark_non_differentiable(count)
+        return total, count
+
+    @staticmethod
+    def backward(ctx, g_total, _g_count):
+        hidden, lm_head, labels, lse = ctx.saved_tensors
+        tg = ctx.tg
+        B, S, D = hidden.shape
+        V = lm_head.shape[-1]
+        n, v0, real = vocab_shard(V, tg.size, tg.rank)
+        d_hidden = torch.zeros_like(hidden) if ctx.needs_input_grad[0] \
+            else None
+        d_head = (torch.zeros(lm_head.shape, dtype=torch.float32,
+                              device=lm_head.device)
+                  if ctx.needs_input_grad[1] else None)
+        for c0 in range(0, S - 1, ctx.chunk):
+            c1 = min(c0 + ctx.chunk, S - 1)
+            h_c = hidden[:, c0:c1]
+            logits = _vp_logits(h_c, lm_head, tg, n, real)
+            lab = labels[:, c0 + 1:c1 + 1]
+            valid = lab != ctx.ignore_index
+            safe = torch.where(valid, lab, 0).long()
+            g = ce_local_grad(logits, safe, v0, lse[:, c0:c1])
+            g = (g * (valid[..., None] * g_total)).to(hidden.dtype)
+            g = tp.all_gather(g, g.dim() - 1, tg.size, tg.group)[..., :V]
+            if d_hidden is not None:
+                d_hidden[:, c0:c1] = matmul_f32(g, lm_head.t()).to(
+                    hidden.dtype)
+            if d_head is not None:
+                d_head += matmul_f32(h_c.reshape(-1, D).t(),
+                                     g.reshape(-1, V))
+        if d_head is not None:
+            d_head = d_head.to(lm_head.dtype)
+        return d_hidden, d_head, None, None, None, None
+
+
 def causal_lm_loss_from_hidden(params, hidden: torch.Tensor,
                                labels: torch.Tensor, ignore_index: int = -100,
                                chunk: int = 1024, mesh=None) -> torch.Tensor:
@@ -455,9 +650,17 @@ def causal_lm_loss_from_hidden(params, hidden: torch.Tensor,
     is summed over the batch ranks (data x fsdp) and this rank's total is
     divided by that global count, so the ranks' losses sum to the loss of
     the whole batch and their summed gradients are its gradient (the
-    train step sums both)."""
-    total, count = _ChunkedCE.apply(hidden, gather(params["lm_head"]),
-                                    labels, ignore_index, chunk)
+    train step sums both). An lm_head whose hidden dim 'tensor' splits
+    takes the vocabulary-parallel route (_VocabParallelCE)."""
+    lm_head = params["lm_head"]
+    tg = tensor_group(lm_head)
+    if tg is None:
+        total, count = _ChunkedCE.apply(hidden, gather(lm_head), labels,
+                                        ignore_index, chunk)
+    else:
+        total, count = _VocabParallelCE.apply(
+            tp.split_last(hidden, tg), gather(lm_head), labels, ignore_index,
+            chunk, tg)
     if mesh is not None:
         count = count.clone()
         dist.all_reduce(count, group=mesh.batch_group)
@@ -583,7 +786,9 @@ def prefill_continue(params, cfg: LLMConfig, chunk_embeds: torch.Tensor,
     broadcast to B), valid mask [B, max_len]; or, with tail_len, a
     SharedPrefixCache whose tail holds the chunk at slots [0, Sq) of
     tail_len, valid mask [B, tail_len] over the tail (requires
-    quantize_cache and Bp = 1)."""
+    quantize_cache and Bp = 1). Under a 'tensor' split the prefix and the
+    caches hold the rank's kv heads."""
+    tg, cfg = _rank_view(params, cfg)
     B, Sq, _ = chunk_embeds.shape
     L, Bp, Sp, Hkv, Dh = prefix_k.shape
     dev = chunk_embeds.device
@@ -616,15 +821,15 @@ def prefill_continue(params, cfg: LLMConfig, chunk_embeds: torch.Tensor,
     for i in range(L):
         lp = layer_slice(lay, i)
         h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg)
+        q, k, v = _qkv(h, lp, cfg, tg=tg)
         q, k = apply_rope(q, k, cos, sin)
         attn = _rect_attention(q, prefix_k[i].to(k.dtype),
                                prefix_v[i].to(v.dtype), k, v, keep,
                                cfg.head_dim ** -0.5)
         x = x + _dense(attn.reshape(B, Sq, cfg.q_dim), lp["o_kernel"], lp,
-                       "o")
+                       "o", tg=tg)
         h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg)
+        x = x + _mlp(h, lp, cfg, tg=tg)
         new_ks.append(k)
         new_vs.append(v)
     new_ks, new_vs = torch.stack(new_ks), torch.stack(new_vs)
@@ -685,7 +890,10 @@ def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
     active [B] bool (continuous-pool rows still generating; QuantKVCache
     only): an inactive row's k/v are written at its clamped slot as any
     row's, but its length does not advance and no valid slot is set, so the
-    next step writes the same slot again. None: every row active."""
+    next step writes the same slot again. None: every row active.
+
+    Under a 'tensor' split the cache holds the rank's kv heads."""
+    tg, cfg = _rank_view(params, cfg)
     quant = isinstance(cache, QuantKVCache)
     if active is not None and not quant:
         # the bf16 write below is one shared slot for every row (uniform
@@ -715,7 +923,7 @@ def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
     for i in range(lay["input_norm_w"].shape[0]):
         lp = layer_slice(lay, i)
         h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg, w8a8_decode=quant)
+        q, k, v = _qkv(h, lp, cfg, w8a8_decode=quant, tg=tg)
         q, k = apply_rope(q, k, cos, sin)
         if quant:
             attn = decode_attention_int8(
@@ -725,9 +933,9 @@ def decode_step(params, cfg: LLMConfig, token_embeds: torch.Tensor,
             attn = decode_attention(q, cache.k[i], cache.v[i], attn_valid,
                                     k_new=k, v_new=v)
         x = x + _dense(attn.reshape(B, 1, cfg.q_dim), lp["o_kernel"], lp,
-                       "o", w8a8_decode=quant)
+                       "o", w8a8_decode=quant, tg=tg)
         h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg, w8a8_decode=quant)
+        x = x + _mlp(h, lp, cfg, w8a8_decode=quant, tg=tg)
         new_ks.append(k[:, 0])
         new_vs.append(v[:, 0])
 
@@ -775,7 +983,9 @@ def verify_step(params, cfg: LLMConfig, token_embeds: torch.Tensor, cache,
     positions [B, S]. All S candidates' k/v are written at slots
     base..base+S-1, base = min(length, max_len - S), in place; length and
     valid_mask do not move (commit_verify does that). Requires a
-    QuantKVCache; S <= 128."""
+    QuantKVCache; S <= 128. Under a 'tensor' split the cache holds the
+    rank's kv heads."""
+    tg, cfg = _rank_view(params, cfg)
     if not isinstance(cache, QuantKVCache):
         raise NotImplementedError(
             "verify_step requires a QuantKVCache (int8 serving path)")
@@ -800,15 +1010,15 @@ def verify_step(params, cfg: LLMConfig, token_embeds: torch.Tensor, cache,
     for i in range(lay["input_norm_w"].shape[0]):
         lp = layer_slice(lay, i)
         h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg, w8a8_decode=True)
+        q, k, v = _qkv(h, lp, cfg, w8a8_decode=True, tg=tg)
         q, k = apply_rope(q, k, cos, sin)
         attn = verify_attention_int8(
             q, cache.k[i], cache.k_scale[i], cache.v[i], cache.v_scale[i],
             attn_valid, k, v, scale=cfg.head_dim ** -0.5)
         x = x + _dense(attn.reshape(B, S, cfg.q_dim), lp["o_kernel"], lp,
-                       "o", w8a8_decode=True)
+                       "o", w8a8_decode=True, tg=tg)
         h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg, w8a8_decode=True)
+        x = x + _mlp(h, lp, cfg, w8a8_decode=True, tg=tg)
         new_ks.append(k)
         new_vs.append(v)
 
@@ -897,14 +1107,16 @@ def _shared_layers(params, cfg: LLMConfig, x: torch.Tensor,
                    sin):
     """The decoder layers of a cascade step on x [B, S, D] → (hidden after
     the final norm, the S tokens' k and v [L, B, S, Hkv, Dh]). Projections
-    of an int8 tree run K3, w8a8 under the marker."""
+    of an int8 tree run K3, w8a8 under the marker; under a 'tensor' split
+    the rank's heads."""
+    tg, cfg = _rank_view(params, cfg)
     B, S, _ = x.shape
     lay, tail = params["layers"], cache.tail
     new_ks, new_vs = [], []
     for i in range(lay["input_norm_w"].shape[0]):
         lp = layer_slice(lay, i)
         h = rms_norm(x, lp["input_norm_w"], cfg.rms_eps)
-        q, k, v = _qkv(h, lp, cfg, w8a8_decode=True)
+        q, k, v = _qkv(h, lp, cfg, w8a8_decode=True, tg=tg)
         q, k = apply_rope(q, k, cos, sin)
         attn = _cascade_attention(
             q, k, v, keep_new,
@@ -912,9 +1124,9 @@ def _shared_layers(params, cfg: LLMConfig, x: torch.Tensor,
             keep_p, (tail.k[i], tail.k_scale[i], tail.v[i], tail.v_scale[i]),
             keep_t, cfg.head_dim ** -0.5)
         x = x + _dense(attn.reshape(B, S, cfg.q_dim), lp["o_kernel"], lp,
-                       "o", w8a8_decode=True)
+                       "o", w8a8_decode=True, tg=tg)
         h = rms_norm(x, lp["post_norm_w"], cfg.rms_eps)
-        x = x + _mlp(h, lp, cfg, w8a8_decode=True)
+        x = x + _mlp(h, lp, cfg, w8a8_decode=True, tg=tg)
         new_ks.append(k)
         new_vs.append(v)
     return (rms_norm(x, params["final_norm_w"], cfg.rms_eps),

@@ -2,8 +2,8 @@
 the JAX package's schemes (jax.nn.initializers.normal, truncated_normal and
 lecun_normal) drawn from an explicit torch.Generator, and per-layer slicing
 of stacked parameter trees (dense tensors, ``Int8Weight``s and the
-sharded leaves of parallel/partitioning.shard_params, gathered one layer at
-a time).
+sharded leaves of parallel/partitioning.shard_params, gathered over fsdp one
+layer at a time).
 
 Samples are drawn in fp32 one leading-axis slice at a time and cast into a
 tensor of the target dtype, so a stacked [L, ...] weight never exists twice
@@ -86,8 +86,9 @@ def child_generator(generator, device):
 
 def layer_slice(tree, i: int):
     """Layer i of a tree of stacked [L, ...] tensors or int8 weights, as
-    views; a sharded leaf's layer i gathered whole (only its shards
-    move)."""
+    views; a sharded leaf's layer i gathered over fsdp (only its shards
+    move): whole, or this rank's tensor shard of a leaf that 'tensor'
+    splits, which the layers compute with (parallel/tensor.py)."""
     if isinstance(tree, dict):
         return {k: layer_slice(v, i) for k, v in tree.items()}
     if isinstance(tree, Int8Weight):

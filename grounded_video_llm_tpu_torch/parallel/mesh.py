@@ -5,9 +5,9 @@ One process per device, as torchrun starts them. The axes:
   data   — batch / replica axis: parameters replicated, batch rows split
   fsdp   — parameter and optimizer-state sharding (ZeRO-3): parameters split,
            batch rows split too (the batch rank runs over data x fsdp)
-  tensor — the rules of parallel/partitioning.py store weights split over
-           it; ranks of one tensor group hold the same batch rows and, in
-           this port, compute with the gathered weights
+  tensor — Megatron-style split compute (parallel/tensor.py): a rank
+           holds and computes its heads and MLP columns; ranks of one
+           tensor group hold the same batch rows
 Where the JAX package lets XLA insert the all-gathers and reduce-scatters,
 the port runs them itself (parallel/partitioning.gather and the train
 step) on the process groups this module builds.
@@ -58,6 +58,15 @@ class Mesh:
         return self.device_mesh.get_group(axis)
 
     @property
+    def tensor_group(self):
+        """This rank's parallel/tensor.TensorGroup: the tensor axis's size,
+        this rank's index on it and its process group."""
+        from .tensor import TensorGroup
+
+        return TensorGroup(self.shape[TENSOR_AXIS], self.coord[TENSOR_AXIS],
+                           self.group(TENSOR_AXIS))
+
+    @property
     def size(self) -> int:
         return self.device_mesh.mesh.numel()
 
@@ -76,10 +85,14 @@ class Mesh:
                 f"{dist.get_backend()}, device {self.device})")
 
 
-def build_mesh(data: int = 1, fsdp: int = -1, tensor: int = 1) -> Mesh:
+def build_mesh(data: int = 1, fsdp: int = -1, tensor: int = 1,
+               device=None) -> Mesh:
     """A (data, fsdp, tensor) mesh over the initialized process group;
-    fsdp=-1 takes up the remaining ranks. The device type follows the
-    backend: NCCL → cuda (each rank on its current device), else cpu."""
+    fsdp=-1 takes up the remaining ranks. device: the ranks' device type;
+    by default it follows the backend: NCCL → cuda (each rank on its
+    current device), else cpu. A gloo group may hold CUDA tensors
+    (device="cuda"): gloo stages their collectives through the host, and
+    it takes two ranks on one card, which NCCL refuses."""
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs an initialized process group "
                            "(initialize_distributed, or torchrun)")
@@ -93,7 +106,8 @@ def build_mesh(data: int = 1, fsdp: int = -1, tensor: int = 1) -> Mesh:
         fsdp = n // (data * tensor)
     if data * fsdp * tensor != n:
         raise ValueError(f"mesh {data}x{fsdp}x{tensor} != {n} ranks")
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    device_type = device or ("cuda" if dist.get_backend() == "nccl"
+                             else "cpu")
     return Mesh(init_device_mesh(device_type, (data, fsdp, tensor),
                                  mesh_dim_names=MESH_AXES))
 

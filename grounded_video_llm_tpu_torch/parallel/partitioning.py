@@ -13,14 +13,16 @@ world size 1 every leaf stays a plain tensor.
 
 ``shard_params`` turns every leaf that keeps an axis into a DTensor holding
 this rank's shard (no communication: every rank holds the same full tree
-when it is called). The model reads such a leaf through ``gather`` (one
-stacked layer at a time, ``gather_layer``): an all-gather over each axis
-that splits it, whose backward takes this rank's slice of the gradient
-over 'tensor' (tensor ranks hold the same rows, so their gradients agree)
-and reduce-scatters it over 'fsdp' (summing the fsdp ranks' rows). The
-kernels only ever see plain, contiguous, gathered tensors. The sum over
-'data' (and over 'fsdp' for leaves fsdp does not split) is the train
-step's, once per optimizer step.
+when it is called). A fused leaf's 'tensor' shard is head-aligned: the
+rank's 1/t of each of its blocks (q | k | v, gate | up), where JAX's
+contiguous chunk would cut across them. The model reads a sharded leaf
+through ``gather`` (one stacked layer at a time, ``gather_layer``): an
+all-gather over 'fsdp' whose backward reduce-scatters the gradient over
+fsdp (summing the fsdp ranks' rows). A 'tensor' split stays in place: the
+layers compute with the rank's shard (parallel/tensor.py), so the kernels
+run at the rank's heads and columns. ``full_tree`` gathers every leaf
+whole, in JAX's layout. The sum over 'data' (and over 'fsdp' for leaves
+fsdp does not split) is the train step's, once per optimizer step.
 """
 
 from __future__ import annotations
@@ -29,10 +31,11 @@ import re
 from typing import Dict, Tuple
 
 import torch
-import torch.distributed as dist
 from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from .mesh import FSDP_AXIS, MESH_AXES, TENSOR_AXIS
+from .tensor import (all_gather, local_columns, reduce_scatter,
+                     unpermute_columns)
 
 # (regex over the '/'-joined path, axes of the trailing dims)
 _RULES: Tuple[Tuple[str, Tuple], ...] = (
@@ -105,10 +108,78 @@ def param_specs(params, mesh):
                      if isinstance(x, torch.Tensor) else (), params)
 
 
-def shard_params(params, mesh):
+def _leaf(params, path: str):
+    """The leaf of params at a '/'-joined path, or None."""
+    for k in path.split("/"):
+        if not isinstance(params, dict) or k not in params:
+            return None
+        params = params[k]
+    return params
+
+
+def _llm_qkv_blocks(params, out: int):
+    q = params["llm"]["layers"]["o_kernel"].shape[-2]
+    return q, (out - q) // 2, (out - q) // 2
+
+
+# fused column-split leaves: their output dim holds blocks side by side
+# (q | k | v, gate | up), and a rank keeps the same 1/t of each block
+_FUSED = {
+    "llm/layers/qkv_kernel": _llm_qkv_blocks,
+    "llm/layers/gate_up_kernel": lambda params, out: (out // 2,) * 2,
+    "video_encoder/blocks/qkv_kernel": lambda params, out: (out // 3,) * 3,
+}
+
+
+def fused_blocks(params, path: str):
+    """The column blocks of a fused leaf of params (None for any other
+    leaf), from the tree's own shapes."""
+    make = _FUSED.get(path)
+    return None if make is None else make(params,
+                                          _leaf(params, path).shape[-1])
+
+
+# the modules whose layers split heads over 'tensor', by a leaf of theirs
+_HEAD_LEAVES = {"llm": "llm/layers/qkv_kernel",
+                "clip": "clip/layers/q/kernel",
+                "video": "video_encoder/blocks/qkv_kernel"}
+
+
+def check_tensor_split(params, cfg, t: int) -> None:
+    """Raise where a 'tensor' axis of t would split a head or an MLP column
+    pair of a module params holds (cfg: the VLMConfig). JAX's rules drop
+    the axis where a dim does not divide (or, for a fused qkv, split it off
+    the heads); the port computes split, head-aligned, and refuses
+    instead."""
+    present = [m for m, p in _HEAD_LEAVES.items()
+               if _leaf(params, p) is not None]
+    if t == 1 or not present:
+        return
+    if cfg is None:
+        raise ValueError(f"shard_params: a tensor axis of {t} splits the "
+                         "heads of " + ", ".join(present) +
+                         "; pass the model config (cfg=) to lay them out")
+    widths = {"llm": ("num_heads", "num_kv_heads", "intermediate_size"),
+              "clip": ("num_heads", "intermediate_size"),
+              "video": ("num_heads", "mlp_hidden")}
+    bad = [f"{m} {w} {getattr(getattr(cfg, m), w)}" for m in present
+           for w in widths[m] if getattr(getattr(cfg, m), w) % t]
+    if bad:
+        raise ValueError(
+            f"shard_params: tensor axis {t} does not divide " +
+            ", ".join(bad) +
+            " (the port splits whole heads and MLP columns over 'tensor')")
+
+
+def shard_params(params, mesh, cfg=None):
     """Every tensor leaf whose spec keeps an axis becomes a DTensor of this
     rank's shard (a contiguous copy); the others are returned as they are
-    (replicated: every rank keeps its own copy)."""
+    (replicated: every rank keeps its own copy). The shard of a fused leaf
+    over 'tensor' is head-aligned: the rank's 1/t of each block
+    (fused_blocks), so a rank holds whole heads of q, k and v and matching
+    gate and up columns. cfg (a VLMConfig) is needed where 'tensor' splits
+    heads: check_tensor_split refuses a t that does not divide them."""
+    check_tensor_split(params, cfg, mesh.shape[TENSOR_AXIS])
 
     def put(path, x):
         if not isinstance(x, torch.Tensor) or isinstance(x, DTensor):
@@ -116,10 +187,15 @@ def shard_params(params, mesh):
         spec = spec_for(path, tuple(x.shape), mesh)
         if all(ax is None for ax in spec):
             return x
+        blocks = fused_blocks(params, path)
         local = x.detach()
         for d, ax in enumerate(spec):
-            if ax is not None:
-                local = local.chunk(mesh.shape[ax], dim=d)[mesh.coord[ax]]
+            if ax is None:
+                continue
+            n, i = mesh.shape[ax], mesh.coord[ax]
+            local = (local_columns(local, blocks, n, i, dim=d)
+                     if ax == TENSOR_AXIS and blocks is not None
+                     else local.chunk(n, dim=d)[i])
         out = DTensor.from_local(local.contiguous().clone(),
                                  mesh.device_mesh, placements(spec),
                                  run_check=False, shape=x.shape,
@@ -174,73 +250,63 @@ def replicas(x, world: int) -> int:
     return world // n
 
 
-# newer torch (2.13) adds *_single names for the dim-0 collectives and
-# deprecates the old ones, which are what earlier releases have
-_ALL_GATHER = getattr(dist, "all_gather_single",
-                      dist.all_gather_into_tensor)
-_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single",
-                          dist.reduce_scatter_tensor)
-
-
-def _all_gather(x: torch.Tensor, dim: int, size: int, group) -> torch.Tensor:
-    x = x.movedim(dim, 0).contiguous()
-    out = x.new_empty((size * x.shape[0],) + tuple(x.shape[1:]))
-    _ALL_GATHER(out, x, group=group)
-    return out.movedim(0, dim)
-
-
-def _reduce_scatter(g: torch.Tensor, dim: int, size: int,
-                    group) -> torch.Tensor:
-    g = g.movedim(dim, 0).contiguous()
-    out = g.new_empty((g.shape[0] // size,) + tuple(g.shape[1:]))
-    _REDUCE_SCATTER(out, g, group=group)
-    return out.movedim(0, dim)
-
-
 class _Gather(torch.autograd.Function):
-    """All-gather of a local shard over the axes that split it (tensor,
-    then fsdp); backward: this rank's tensor slice, reduce-scattered over
-    fsdp."""
+    """All-gather of a local shard over 'fsdp'; backward: the gradient
+    reduce-scattered over fsdp. A 'tensor' split stays in place: the
+    layers compute with the rank's tensor shard (parallel/tensor.py), so
+    its gradient is local too."""
 
     @staticmethod
     def forward(ctx, shard, dims):
         ctx.dims = dims
-        x = shard
-        for ax in (TENSOR_AXIS, FSDP_AXIS):
-            if ax in dims:
-                d, size, _, group = dims[ax]
-                x = _all_gather(x, d, size, group)
-        return x.contiguous()
+        if FSDP_AXIS not in dims:
+            return shard.view_as(shard)
+        d, size, _, group = dims[FSDP_AXIS]
+        return all_gather(shard, d, size, group).contiguous()
 
     @staticmethod
     def backward(ctx, g):
-        dims = ctx.dims
-        if TENSOR_AXIS in dims:
-            d, size, idx, _ = dims[TENSOR_AXIS]
-            g = g.chunk(size, dim=d)[idx]
-        if FSDP_AXIS in dims:
-            d, size, _, group = dims[FSDP_AXIS]
-            g = _reduce_scatter(g, d, size, group)
-        return g.contiguous(), None
+        if FSDP_AXIS not in ctx.dims:
+            return g, None
+        d, size, _, group = ctx.dims[FSDP_AXIS]
+        return reduce_scatter(g, d, size, group).contiguous(), None
 
 
 def gather(x):
-    """The whole of a sharded leaf as a plain tensor (differentiable); any
-    other leaf as it is."""
+    """A sharded leaf gathered over 'fsdp' as a plain tensor
+    (differentiable): the whole leaf, or this rank's shard of a leaf that
+    'tensor' splits; any other leaf as it is."""
     if not isinstance(x, DTensor):
         return x
     return _Gather.apply(x.to_local(), _split_dims(x))
 
 
 def gather_layer(x, i: int):
-    """Layer i of a stacked [L, ...] sharded leaf, gathered: only that
-    layer's shards move."""
+    """Layer i of a stacked [L, ...] sharded leaf, gathered as gather()
+    does: only that layer's shards move."""
     return _Gather.apply(x.to_local()[i], _split_dims(x, drop=1))
 
 
+def _whole(x: DTensor, blocks) -> torch.Tensor:
+    """Every rank's shard of x gathered (tensor, then fsdp) and, for a
+    fused leaf, its head-aligned columns put back in place: JAX's
+    layout."""
+    dims = _split_dims(x)
+    out = x.to_local()
+    if TENSOR_AXIS in dims:
+        d, size, _, group = dims[TENSOR_AXIS]
+        out = all_gather(out, d, size, group)
+        if blocks is not None:
+            out = unpermute_columns(out, blocks, size, dim=d)
+    if FSDP_AXIS in dims:
+        d, size, _, group = dims[FSDP_AXIS]
+        out = all_gather(out, d, size, group)
+    return out.contiguous()
+
+
 def full_tree(params):
-    """A copy of the tree with every DTensor gathered to a plain tensor
-    (no gradient); other leaves as they are."""
+    """A copy of the tree with every DTensor gathered whole into JAX's
+    layout (no gradient); other leaves as they are."""
     with torch.no_grad():
-        return _tree_map(lambda p, x: gather(x).detach()
+        return _tree_map(lambda p, x: _whole(x, fused_blocks(params, p))
                          if isinstance(x, DTensor) else x, params)

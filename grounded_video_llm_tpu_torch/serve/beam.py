@@ -87,8 +87,9 @@ def beam_search_tokens(params, cfg: VLMConfig, input_ids: torch.Tensor,
         S_full = embeds.shape[1]
         max_len = _ceil128(S_full + max_new_tokens)
         dev = embeds.device
-        cache = llm_mod.KVCache.create(cfg.llm, B, max_len,
-                                       dtype=embeds.dtype, device=dev)
+        cache = llm_mod.KVCache.create(
+            llm_mod.rank_config(params["llm"], cfg.llm), B, max_len,
+            dtype=embeds.dtype, device=dev)
         logits, cache = llm_mod.prefill(params["llm"], cfg.llm, embeds, mask,
                                         cache)
         # the beams along the batch: row b·K + j is beam j of sample b

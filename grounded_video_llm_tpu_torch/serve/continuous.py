@@ -137,8 +137,9 @@ def _prefill_features_body(params, cfg: VLMConfig, input_ids, attn_mask,
     embeds, _, mask = vlm.splice_multimodal(
         input_ids, None, attn_mask, video_features, params["llm"]["embed"])
     S_full = embeds.shape[1]
-    cache = llm_mod.QuantKVCache.create(cfg.llm, k, max_len,
-                                        device=embeds.device)
+    cache = llm_mod.QuantKVCache.create(
+        llm_mod.rank_config(params["llm"], cfg.llm), k, max_len,
+        device=embeds.device)
     logits, cache = llm_mod.prefill(params["llm"], cfg.llm, embeds, mask,
                                     cache)
     valid = torch.zeros(k, max_len, dtype=torch.bool, device=embeds.device)
@@ -423,6 +424,8 @@ class ContinuousServer:
                  pipeline_chunks: bool = False):
         self.params = params
         self.cfg = cfg
+        # the caches hold this rank's kv heads on a 'tensor' split
+        self._rank_cfg = llm_mod.rank_config(params["llm"], cfg.llm)
         self.device = _params_device(params)
         self.pool_size = pool_size
         self.chunk = chunk
@@ -499,7 +502,7 @@ class ContinuousServer:
         self.graphs.clear()
         self.state = None      # the old pool goes before the new one exists
         self.state = None if self.shared_prefix else self._init_state(
-            llm_mod.QuantKVCache.create(self.cfg.llm, self.pool_size,
+            llm_mod.QuantKVCache.create(self._rank_cfg, self.pool_size,
                                         self.max_len, device=self.device),
             self.max_len)
         self.generator.manual_seed(self._seed)
@@ -542,7 +545,7 @@ class ContinuousServer:
         self.graphs.clear()
         self.state = self._pinned_prefix = None
         pkq, pks, pvq, pvs, pmask = _quantize_prefix_hd(*prefix)
-        tail = llm_mod.QuantKVCache.create(self.cfg.llm, self.pool_size,
+        tail = llm_mod.QuantKVCache.create(self._rank_cfg, self.pool_size,
                                            self._tail_len, device=self.device)
         self.state = self._init_state(
             llm_mod.SharedPrefixCache(pkq, pks, pvq, pvs, pmask, tail),
@@ -569,8 +572,9 @@ class ContinuousServer:
                 Sp = self._prefix_len
                 if Sp is None:
                     raise ValueError("prefix warmup needs prefix_len")
-                pk = torch.zeros(lcfg.num_layers, 1, Sp, lcfg.num_kv_heads,
-                                 lcfg.head_dim, dtype=torch.bfloat16,
+                rcfg = self._rank_cfg
+                pk = torch.zeros(rcfg.num_layers, 1, Sp, rcfg.num_kv_heads,
+                                 rcfg.head_dim, dtype=torch.bfloat16,
                                  device=dev)
                 req = req._replace(prefix=(pk, pk, torch.ones(
                     1, Sp, dtype=torch.int32, device=dev)))

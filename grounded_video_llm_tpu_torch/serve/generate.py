@@ -131,11 +131,12 @@ def _generate_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
     S_full = embeds.shape[1]
     max_len = _ceil128(S_full + max_new_tokens)
 
+    rank_cfg = llm_mod.rank_config(params["llm"], cfg.llm)
     if quantize_cache:
-        cache = llm_mod.QuantKVCache.create(cfg.llm, B, max_len,
+        cache = llm_mod.QuantKVCache.create(rank_cfg, B, max_len,
                                             device=embeds.device)
     else:
-        cache = llm_mod.KVCache.create(cfg.llm, B, max_len,
+        cache = llm_mod.KVCache.create(rank_cfg, B, max_len,
                                        dtype=embeds.dtype,
                                        device=embeds.device)
     logits, cache = llm_mod.prefill(params["llm"], cfg.llm, embeds, mask,
@@ -283,8 +284,8 @@ def build_prefix_kv(params, cfg: VLMConfig, pre_ids: torch.Tensor,
         mask = torch.cat([pre_mask.long(),
                           torch.ones(Bp, NV, dtype=torch.long,
                                      device=pre_mask.device)], dim=1)
-        cache = llm_mod.KVCache.create(cfg.llm, Bp, embeds.shape[1],
-                                       dtype=torch.bfloat16,
+        cache = llm_mod.KVCache.create(llm_mod.rank_config(lp, cfg.llm), Bp,
+                                       embeds.shape[1], dtype=torch.bfloat16,
                                        device=embeds.device)
         llm_mod.forward_hidden(lp, cfg.llm, embeds, mask, cache,
                                rope_hint=rope_hint)

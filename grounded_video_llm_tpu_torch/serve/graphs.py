@@ -49,9 +49,9 @@ the counter and adds the change on every replay.
 
 No fallback: on the card a capture or replay that fails raises, and the
 eager loop is reached only through ``StepGraphs.eager()``, the switch the
-comparison legs of chip_smoke.py and the tests use. A tree with sharded
-leaves (serving on a device mesh gathers layers with collectives) is
-refused on the card.
+comparison legs of chip_smoke.py and the tests use. A capture of a tree
+with sharded leaves (serving on a device mesh runs collectives in every
+layer) is refused on the card: such a tree serves there inside eager().
 """
 
 from __future__ import annotations
@@ -318,7 +318,7 @@ class StepGraphs:
         tensors. body(state) → state is this call's step (or a tuple of
         bodies, stepped by index); generator: the sampling draws' (registered
         with the graph on the card); params: the tree the body reads,
-        refused on the card if sharded."""
+        refused on the card if sharded, unless the runner is eager()."""
         named = leaves(state)
         refs = tuple(refs)
         full = (tuple(key), tuple(id(r) for r in refs),
@@ -326,11 +326,13 @@ class StepGraphs:
                       for n, t in named))
         entry = self._entries.get(full)
         if entry is None:
-            if (params is not None and any(t.is_cuda for _, t in named)
+            if (self.capture and params is not None
+                    and any(t.is_cuda for _, t in named)
                     and _sharded(params)):
                 raise NotImplementedError(
                     "step graphs do not capture collectives: a tree with "
-                    "sharded leaves serves only on the CPU ranks")
+                    "sharded leaves serves on the card only inside "
+                    "StepGraphs.eager()")
             entry = StepLoop(self, full, state, refs)
             budget = self.max_state_bytes
             if budget is None or _nbytes([entry]) <= budget:

@@ -257,8 +257,8 @@ def _spec_from_features(params, cfg: VLMConfig, input_ids, attn_mask,
     # + the draft margin: a pass may write S_v slots past the last committed
     # token of a nearly finished row
     max_len = _ceil128(S_full + max_new_tokens + draft_len + 1)
-    cache = llm_mod.QuantKVCache.create(cfg.llm, B, max_len,
-                                        device=embeds.device)
+    cache = llm_mod.QuantKVCache.create(llm_mod.rank_config(lp, cfg.llm), B,
+                                        max_len, device=embeds.device)
     logits, cache = llm_mod.prefill(lp, cfg.llm, embeds, mask, cache)
     clock.mark("prefill")
     valid0 = torch.zeros(B, max_len, dtype=torch.bool, device=embeds.device)

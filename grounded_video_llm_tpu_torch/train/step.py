@@ -14,12 +14,17 @@ frozen leaves form no gradient), and make_host_accum_step is this loop.
 On a mesh (parallel/mesh.Mesh) the parameters are sharded by
 parallel/partitioning.shard_params and each rank runs its own rows of the
 batch (shard_batch splits the batch dim over data x fsdp; ranks of one
-tensor group hold the same rows). A rank's loss is its share of the whole
-batch's (llm.causal_lm_loss_from_hidden), so the sums over the batch ranks
-are JAX's loss and gradient: the gathers' backward reduce-scatters over
-fsdp, and after the microbatches the step sums the accumulators over data
-(and over fsdp for the leaves fsdp does not split) and the loss over
-data x fsdp.
+tensor group hold the same rows and compute their own heads and columns,
+parallel/tensor.py). A rank's loss is its share of the whole batch's
+(llm.causal_lm_loss_from_hidden), so the sums over the batch ranks are
+JAX's loss and gradient: the gathers' backward reduce-scatters over fsdp,
+and after the microbatches the step sums the accumulators over data (and
+over fsdp for the leaves fsdp does not split) and the loss over data x
+fsdp. The gradient of a tensor-split leaf is the rank's own shard's, and
+that of a replicated leaf is the same on every rank of a tensor group (the
+split layers sum its parts over the group), so neither is summed over
+'tensor' here; the global norm counts each element once
+(partitioning.replicas).
 
 LoRA dropout masks come from seeds derived from (dropout_seed, step,
 microbatch), and on more than one batch rank also from the batch rank, so
@@ -56,12 +61,13 @@ def set_trainable(params, optimizer: Optimizer) -> None:
         t.requires_grad_(optimizer.trainable(path))
 
 
-def create_train_state(params, optimizer: Optimizer,
-                       mesh=None) -> TrainState:
-    """With a mesh the params are sharded first (shard_params) and the
+def create_train_state(params, optimizer: Optimizer, mesh=None,
+                       cfg=None) -> TrainState:
+    """With a mesh the params are sharded first (shard_params; cfg, the
+    VLMConfig, lays out the heads a 'tensor' axis splits) and the
     optimizer state is made from the shards."""
     if mesh is not None:
-        params = shard_params(params, mesh)
+        params = shard_params(params, mesh, cfg)
         optimizer.use_mesh(mesh, params)
     set_trainable(params, optimizer)
     return TrainState(params, optimizer.init(params), 0)

@@ -97,7 +97,8 @@ class TrainingStrategy:
         self._lr_schedule = warmup_cosine_decay(
             0.0, self.stage.lr_llm or self.stage.lr_video_projector, warmup,
             max(total_steps, warmup + 1), 0.0)
-        self.state = create_train_state(params, self.optimizer, mesh=mesh)
+        self.state = create_train_state(params, self.optimizer, mesh=mesh,
+                                        cfg=cfg)
         self.step_fn = make_train_step(
             cfg, self.optimizer, grad_accum=self.grad_accum, remat=True,
             lora_dropout=self.stage.lora_dropout, dropout_seed=seed,

@@ -7,13 +7,17 @@ blocking save of the same state and to the run that was not interrupted,
 in one process and on 4 gloo ranks (one group, mesh (1, 4, 1): each rank
 writes its own file). The 4-rank run reads 14 samples, which shard 4, 4,
 3, 3 over the ranks: every rank must take the same 3 steps, or the ranks
-with a fourth would wait in its collectives until the group timed out."""
+with a fourth would wait in its collectives until the group timed out.
+The same group exports a tree sharded on a (1, 2, 2) mesh (head-aligned
+over 'tensor'): every file equals the single-process export bit for
+bit."""
 
 import os
 
 import pytest
 import torch
 import torch_mesh_ranks as ranks
+from torch_threads import one_thread  # noqa: F401
 
 from grounded_video_llm_tpu_torch.core import checkpoint as ckpt
 from grounded_video_llm_tpu_torch.parallel.launch import spawn
@@ -76,6 +80,22 @@ def test_resume_from_async_save_on_four_ranks(four_ranks):
         _check_resume(r)
     files = sorted(os.listdir(run_dir / "a" / "state_latest.pt"))
     assert files == [f"rank{r}-of-4.pt" for r in range(4)]
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_same(a[k], b[k]) for k in a)
+    return torch.equal(a, b)
+
+
+def test_export_from_tensor_mesh_equals_single_process(four_ranks,
+                                                       tmp_path):
+    _, results = four_ranks
+    got, want = results[0]["export"], ranks.export_dumps(str(tmp_path))
+    assert [r["export"] for r in results[1:]] == [None] * 3
+    assert sorted(got) == sorted(want) and len(want) == 6
+    for f in want:
+        assert _same(got[f], want[f]), f
 
 
 def test_uneven_shards_take_the_same_steps_on_four_ranks(four_ranks):

@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 from hypothesis import given, settings
 from hypothesis import strategies as st
 

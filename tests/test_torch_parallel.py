@@ -3,10 +3,12 @@ the mesh half of train/step.py) on the CPU: the partition specs against
 the JAX package's leaf for leaf; one group of 4 gloo ranks (spawned once
 for the module) running a grounded-preset step (grad_accum 2, LoRA
 dropout 0, at optimizer count 1 so that it moves the parameters) at
-meshes (1, 4, 1) and (2, 1, 2) with genuinely sharded leaves, held to the
-single-process step (loss, grad_norm and every parameter within rtol
-2e-4, atol 1e-6, fp32), the gather's gradient summed
-over the batch ranks, and dryrun_multichip's three legs; that
+meshes (1, 4, 1), (2, 1, 2) and (1, 2, 2) with genuinely sharded leaves,
+the last two computing split over 'tensor' (no layer reads a
+tensor-split leaf whole), held to the single-process step (loss,
+grad_norm and every parameter within rtol 2e-4, atol 1e-6, fp32), the
+gather's gradient summed over the batch ranks, and dryrun_multichip's
+three legs; that
 single-process step against the JAX make_train_step on the same weights
 and batch (tests/test_train.py's step bar); a hung rank failing its group
 within the collective timeout; the sampler giving every rank the same
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 import torch_mesh_ranks as ranks
+from torch_threads import one_thread  # noqa: F401
 from torch.distributed.tensor import Replicate, Shard
 
 from grounded_video_llm_tpu.core.config import STAGE_PRESETS, micro_vlm_config
@@ -167,7 +170,11 @@ def test_sharded_step_matches_single_process(group, single, shape):
                  "video_projector/fc1/kernel": (16, 64)}),
     ((2, 1, 2), {"llm/layers/qkv_kernel": (2, 64, 96),
                  "llm/embed": (814, 32), "llm/lm_head": (32, 814),
-                 "clip/layers/o/kernel": (2, 16, 32)})])
+                 "clip/layers/o/kernel": (2, 16, 32)}),
+    ((1, 2, 2), {"llm/layers/qkv_kernel": (2, 32, 96),
+                 "llm/layers/gate_up_kernel": (2, 32, 128),
+                 "llm/embed": (407, 32), "llm/lm_head": (32, 407),
+                 "video_encoder/blocks/qkv_kernel": (2, 32, 96)})])
 def test_step_leaves_are_sharded(group, shape, want):
     """The leaves are DTensors holding a part of the leaf on each rank."""
     sharded = group[0][shape]["sharded"]
@@ -180,7 +187,20 @@ def test_step_leaves_are_sharded(group, shape, want):
 def test_gather_gradient_sums_over_batch_ranks(group):
     for r in group:
         assert r["gather"]["err"] == 0.0
+        assert r["gather"]["columns"] == (4, 3)    # the tensor split stays
+        assert r["gather"]["tensor_group"]
     assert "Shard(dim=0)" in group[0]["gather"]["placements"]
+
+
+@pytest.mark.parametrize("shape", [s for s in ranks.STEP_MESHES
+                                   if s[2] > 1])
+def test_split_step_reads_tensor_shards(group, shape):
+    """On a mesh with tensor 2 every fsdp gather of a tensor-split leaf
+    (each LLM, InternVideo2 and CLIP layer, the embedding and the
+    lm_head) gave the layer this rank's shard, never the whole leaf."""
+    for r in group:
+        seen = r[shape]["watch"]
+        assert seen["whole"] == 0 and seen["split"] > 0, seen
 
 
 def test_dryrun_multichip_legs(group):

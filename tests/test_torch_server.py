@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from grounded_video_llm_tpu.core.config import GenerateConfig as JGen
 from grounded_video_llm_tpu.core.config import micro_vlm_config

@@ -27,6 +27,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_thread  # noqa: F401
 
 from grounded_video_llm_tpu.core.config import micro_vlm_config, replace
 from grounded_video_llm_tpu.models import llm as jllm

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 from torch_mesh_ranks import InMemoryGrounded
+from torch_threads import one_thread  # noqa: F401
 
 from grounded_video_llm_tpu.core.config import (LLMConfig, STAGE_PRESETS,
                                                 micro_vlm_config)

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 from torch_mesh_ranks import InMemoryGrounded
+from torch_threads import one_thread  # noqa: F401
 
 from grounded_video_llm_tpu.core.config import STAGE_PRESETS, micro_vlm_config
 from grounded_video_llm_tpu.models import vlm as jvlm

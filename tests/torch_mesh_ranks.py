@@ -11,13 +11,17 @@ from __future__ import annotations
 import dataclasses
 import os
 
+import contextlib
+
 import numpy as np
 import torch
 
 from grounded_video_llm_tpu_torch.core.config import (STAGE_PRESETS,
                                                       micro_vlm_config)
+from grounded_video_llm_tpu_torch.models import llm as llm_mod
 from grounded_video_llm_tpu_torch.models import vlm
-from grounded_video_llm_tpu_torch.parallel.mesh import build_mesh
+from grounded_video_llm_tpu_torch.parallel import partitioning
+from grounded_video_llm_tpu_torch.parallel.mesh import TENSOR_AXIS, build_mesh
 from grounded_video_llm_tpu_torch.parallel.partitioning import (
     full_tree, gather, is_sharded, local, shard_params)
 from grounded_video_llm_tpu_torch.text.templates import IMAGE_TOKEN_INDEX
@@ -28,7 +32,7 @@ from grounded_video_llm_tpu_torch.train.step import (create_train_state,
                                                      make_train_step,
                                                      shard_batch)
 
-STEP_MESHES = ((1, 4, 1), (2, 1, 2))
+STEP_MESHES = ((1, 4, 1), (2, 1, 2), (1, 2, 2))
 GREEDY = dict(do_sample=False, temperature=0.0, eos_token_id=-2,
               pad_token_id=0)
 
@@ -83,7 +87,7 @@ def grounded_step(mesh=None):
     cfg, params = micro_params(lora=True)
     stage = dataclasses.replace(STAGE_PRESETS["grounded"], lora_dropout=0.0)
     opt, _ = make_optimizer(stage, 100, params)
-    state = create_train_state(params, opt, mesh=mesh)
+    state = create_train_state(params, opt, mesh=mesh, cfg=cfg)
     state.opt_state["count"] = 1
     batch = step_batch(cfg)
     if mesh is not None:
@@ -94,40 +98,50 @@ def grounded_step(mesh=None):
 
 
 def gather_grad_check(mesh):
-    """A [4, 6] leaf split over fsdp (dim 0) and tensor (dim 1); each batch
-    rank's loss weighs the gathered leaf by its own X. The gradient on this
-    rank's shard must be the shard of the sum over batch ranks (DTensor's
-    own full_tensor() would leave each rank its own term)."""
+    """A [4, 6] leaf split over fsdp (dim 0) and tensor (dim 1); gather()
+    gives this rank's tensor columns, whole over fsdp, and each batch
+    rank's loss weighs them by its own X. The gradient on this rank's shard
+    must be the shard of the sum over batch ranks (DTensor's own
+    full_tensor() would leave each rank its own term)."""
     w = torch.arange(24.0).reshape(4, 6)
     sp = shard_params({"llm": {"embed": w}}, mesh)["llm"]["embed"]
     sp.requires_grad_(True)
+    f, t = mesh.coord["fsdp"], mesh.coord["tensor"]
 
     def x_of(r):
-        return torch.full((4, 6), float(r + 1)) + torch.arange(24.0).reshape(
+        x = torch.full((4, 6), float(r + 1)) + torch.arange(24.0).reshape(
             4, 6) * r
+        return x.chunk(mesh.shape["tensor"], 1)[t]
 
-    loss = (gather(sp) * x_of(mesh.batch_rank)).sum()
+    cols = gather(sp)
+    loss = (cols * x_of(mesh.batch_rank)).sum()
     g = local(torch.autograd.grad(loss, [sp])[0])
     want = sum(x_of(r) for r in range(mesh.batch_ranks))
-    f, t = mesh.coord["fsdp"], mesh.coord["tensor"]
-    want = want.chunk(mesh.shape["fsdp"], 0)[f].chunk(
-        mesh.shape["tensor"], 1)[t]
+    want = want.chunk(mesh.shape["fsdp"], 0)[f]
+    from grounded_video_llm_tpu_torch.parallel.tensor import tensor_group
+
     return {"placements": str(sp.placements),
+            "columns": tuple(cols.shape),
+            "tensor_group": mesh.tensor_group[:2] == tensor_group(sp)[:2]
+            == (mesh.shape["tensor"], t),
             "err": float((g - want).abs().max())}
 
 
 def parallel_rank(rank: int, world: int):
     """test_torch_parallel.py's group: the grounded step at each of
-    STEP_MESHES, the gather's gradient, and the dry run's three legs."""
+    STEP_MESHES (its gathers watched), the gather's gradient, and the dry
+    run's three legs."""
     from grounded_video_llm_tpu_torch.cli.dryrun_multichip import run_legs
 
     out = {}
     for shape in STEP_MESHES:
         mesh = build_mesh(*shape)
-        metrics, state = grounded_step(mesh)
+        with watch_split({"split": 0, "whole": 0, "kv_heads": set()}) as seen:
+            metrics, state = grounded_step(mesh)
         full = full_tree(state.params)
         out[shape] = {
             "metrics": metrics,
+            "watch": seen,
             "sharded": {p: (tuple(local(t).shape), tuple(t.shape))
                         for p, t in tree_items(state.params)
                         if is_sharded(t)},
@@ -159,6 +173,41 @@ def pixel_prompt(cfg, B=1, S=10, seed=0):
     return (torch.from_numpy(ids), torch.ones(B, S, dtype=torch.long),
             torch.zeros(B, cfg.num_segs, 336, 336, 3),
             torch.zeros(B, cfg.num_frames, 224, 224, 3))
+
+
+@contextlib.contextmanager
+def watch_split(seen):
+    """Count, while it is open, the fsdp gathers of tensor-split leaves
+    that gave a layer this rank's columns ("split") or the whole leaf
+    ("whole"), and the kv heads of every cache made (seen["kv_heads"])."""
+    gather_apply = partitioning._Gather.apply
+    creates = {cls: cls.create for cls in (llm_mod.KVCache,
+                                           llm_mod.QuantKVCache)}
+
+    def apply(shard, dims):
+        out = gather_apply(shard, dims)
+        if TENSOR_AXIS in dims:
+            d = dims[TENSOR_AXIS][0]
+            seen["split" if out.shape[d] == shard.shape[d] else "whole"] += 1
+        return out
+
+    def create(cls):
+        def make(*args, **kw):
+            cache = creates[cls](*args, **kw)
+            seen["kv_heads"].add(cache.k.shape[
+                3 if cls is llm_mod.KVCache else 2])
+            return cache
+        return make
+
+    partitioning._Gather.apply = apply
+    for cls in creates:
+        cls.create = create(cls)
+    try:
+        yield seen
+    finally:
+        partitioning._Gather.apply = gather_apply
+        for cls, fn in creates.items():
+            cls.create = fn
 
 
 def generate_leg(cfg, params):
@@ -242,17 +291,20 @@ def serving_legs(cfg, params):
 
 def serving_rank(rank: int, world: int):
     """test_torch_sharded_serving.py's group: greedy generate on each of
-    SERVING_MESHES, every leg on the (1, 2, 2) mesh."""
+    SERVING_MESHES, every leg on the (1, 2, 2) mesh, with the gathers and
+    caches of each mesh watched (watch_split)."""
     cfg, params = micro_params()
     out = {}
     for shape in SERVING_MESHES:
-        sharded = shard_params(params, build_mesh(*shape))
+        sharded = shard_params(params, build_mesh(*shape), cfg)
         out[shape] = {"qkv_sharded": is_sharded(
             sharded["llm"]["layers"]["qkv_kernel"])}
-        if shape == (1, 2, 2):
-            out[shape].update(serving_legs(cfg, sharded))
-        else:
-            out[shape]["generate"] = generate_leg(cfg, sharded)
+        with watch_split({"split": 0, "whole": 0, "kv_heads": set()}) as seen:
+            if shape == (1, 2, 2):
+                out[shape].update(serving_legs(cfg, sharded))
+            else:
+                out[shape]["generate"] = generate_leg(cfg, sharded)
+        out[shape]["watch"] = seen
     return out
 
 
@@ -365,8 +417,34 @@ def resume_check(run_dir: str, mesh=None, global_batch: int = 1):
         torch.use_deterministic_algorithms(deterministic)
 
 
+def export_dumps(workdir: str, mesh=None):
+    """models/export.write_weight_dumps of micro_params(lora=True), from
+    the tree sharded on mesh and gathered back by full_tree (rank 0
+    writes), or from the tree itself → {file: {name: tensor}}."""
+    from grounded_video_llm_tpu_torch.models.export import \
+        write_weight_dumps
+
+    cfg, params = micro_params(lora=True)
+    if mesh is not None:
+        params = full_tree(shard_params(params, mesh, cfg))
+        if any(mesh.coord.values()):
+            return None
+    write_weight_dumps(params, cfg, workdir)
+    out = {}
+    for root, _, files in os.walk(workdir):
+        for f in files:
+            path = os.path.join(root, f)
+            out[os.path.relpath(path, workdir)] = torch.load(
+                path, weights_only=True)
+    return out
+
+
 def checkpoint_rank(rank: int, world: int, run_dir: str):
     """test_torch_async_checkpoint.py's group: resume_check on a (1, 4, 1)
     mesh (global batch 4: one row a rank and step; 14 samples, so the
-    ranks' shards differ in size)."""
-    return resume_check(run_dir, mesh=build_mesh(1, 4, 1), global_batch=4)
+    ranks' shards differ in size), and export_dumps from a (1, 2, 2)
+    mesh."""
+    out = resume_check(run_dir, mesh=build_mesh(1, 4, 1), global_batch=4)
+    out["export"] = export_dumps(os.path.join(run_dir, "export"),
+                                 build_mesh(1, 2, 2))
+    return out

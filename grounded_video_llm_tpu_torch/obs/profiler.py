@@ -12,13 +12,21 @@ the tree x; CUDA launches return before the device has run them, so a host
 clock read after ``sync`` times the work. ``PhaseTimer`` sums wall time per
 phase, with that barrier at the end of each, and reports it in the JAX
 module's keys and line format.
+
+``SpanLog`` and ``record`` are the serving path's spans and counters (not in
+the JAX module): ``record`` closes a span begun at a
+``time.perf_counter_ns()`` stamp, always adds its seconds (and a count) to a
+counter dict such as ``ContinuousServer.timings``, and appends it to a
+``SpanLog`` only where one is attached (none by default).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import tempfile
+import threading
 import time
 from collections import defaultdict
 from typing import Dict, Optional
@@ -99,3 +107,38 @@ class PhaseTimer:
             lines.append(f"{name:>16}: {s['mean_s']*1000:8.1f} ms/call "
                          f"x{s['count']} = {s['total_s']:.2f}s")
         return "\n".join(lines)
+
+
+class SpanLog:
+    """A bounded in-memory log of spans (name, request_id, thread_name,
+    t0_ns, t1_ns) on the ``time.perf_counter_ns()`` clock; past ``limit``
+    spans the oldest go. Appends from several threads are safe (a deque)."""
+
+    def __init__(self, limit: int = 1 << 20):
+        self.spans = collections.deque(maxlen=limit)
+
+    def add(self, name: str, request_id: Optional[int], t0: int,
+            t1: int) -> None:
+        self.spans.append((name, request_id, threading.current_thread().name,
+                           t0, t1))
+
+
+def record(timings: Optional[dict], key: Optional[str], t0: int, *,
+           count: Optional[str] = None, log: Optional[SpanLog] = None,
+           name: Optional[str] = None, request_id: Optional[int] = None,
+           t1: Optional[int] = None) -> int:
+    """Close the span [t0, t1] (``time.perf_counter_ns()`` stamps; t1 now
+    unless given): add its seconds to timings[key] and 1 to timings[count]
+    (each where given; nothing where timings is None), and append it to log
+    as ``name`` where a log is attached. → t1. A key must not take adds
+    from two threads without a lock."""
+    if t1 is None:
+        t1 = time.perf_counter_ns()
+    if timings is not None:
+        if key is not None:
+            timings[key] = timings.get(key, 0) + (t1 - t0) / 1e9
+        if count is not None:
+            timings[count] = timings.get(count, 0) + 1
+    if log is not None:
+        log.add(name, request_id, t0, t1)
+    return t1

@@ -58,6 +58,7 @@ import torch
 from ..core.config import VLMConfig
 from ..models import llm as llm_mod
 from ..models import vlm
+from ..obs.profiler import record
 from ..ops.int8_matmul import Int8Embedding
 from ..text.templates import IMAGE_TOKEN_INDEX
 from .generate import sample_logits
@@ -103,7 +104,7 @@ class _InflightChunk(NamedTuple):
     slot_req: tuple             # slot → rid at dispatch
     slot_cb: tuple              # slot → on_token at dispatch
     steps: int                  # decode steps or verify passes
-    t0: float                   # host clock at dispatch
+    t0: int                     # host clock at dispatch (perf_counter_ns)
     events: Optional[tuple]     # (start, end) CUDA events around the chunk
 
 
@@ -127,6 +128,11 @@ class Request(NamedTuple):
     #                                        input_ids/attn_mask hold only
     #                                        the post-image question chunk;
     #                                        same-video requests share it
+    request_id: Optional[int] = None       # the front end's id, marking the
+    #                                        request's spans to retirement
+    queued_ns: Optional[int] = None        # perf_counter_ns of the
+    #                                        scheduler's queue put: the start
+    #                                        of its queue wait
 
 
 def _prefill_features_body(params, cfg: VLMConfig, input_ids, attn_mask,
@@ -404,11 +410,21 @@ class ContinuousServer:
 
     ``timings`` (cleared by the caller at will) sums: ``admit`` seconds
     over ``admissions`` (host clock; each admission ends on its first
-    token's fetch); ``chunks`` and ``steps`` (decode steps or verify
-    passes) as they are launched; and over the ``timed_steps`` of the
-    chunks whose tokens the host has read, ``chunk`` host seconds from
-    each chunk's launch to its tokens landing and, on the card,
-    ``chunk_device_ms`` between CUDA events around its launches."""
+    token's fetch) and, for requests that came through the scheduler's
+    queue, ``queue_wait`` seconds from the queue put to the admission's
+    start; ``chunks`` and ``steps`` (decode steps or verify passes) as
+    they are launched; and over the ``timed_steps`` of the chunks whose
+    tokens the host has read, ``chunk`` host seconds from each chunk's
+    launch to its tokens landing, ``slot_tokens`` (the tokens those chunks
+    gave live requests, an EOS included; at most pool_size × steps
+    without drafts) and, on the card, ``chunk_device_ms`` between CUDA
+    events around its launches. ServingFrontend adds its own and the
+    engine's counters to the same dict.
+
+    ``span_log`` (obs/profiler.SpanLog, None by default): where attached,
+    the spans scheduler.queue, .admit and .decode (marked with the
+    Request's request_id), scheduler.chunk and scheduler.wait (the loop
+    blocked on an empty queue with the pool idle), and the front end's."""
 
     def __init__(self, params, cfg: VLMConfig, pool_size: int = 4,
                  prompt_len: int = 64, max_new_tokens: int = 64,
@@ -489,6 +505,7 @@ class ContinuousServer:
         self._seed = seed
         self.generator = torch.Generator(device=self.device)
         self.timings: dict = {}
+        self.span_log = None
         # the chunks' step graphs (chunk and chunk_long), over the pool's
         # state tensors: no budget, the state is the pool's own
         self.graphs = StepGraphs(max_state_bytes=None)
@@ -509,6 +526,9 @@ class ContinuousServer:
         self._slot_req: List[Optional[int]] = [None] * self.pool_size
         self._slot_budget = [0] * self.pool_size
         self._slot_cb: List[Optional[object]] = [None] * self.pool_size
+        # slot → (request_id, perf_counter_ns of its first token): the
+        # scheduler.decode span's start
+        self._slot_first: List[Optional[tuple]] = [None] * self.pool_size
         # size of the most recently dispatched chunk: the pipelined
         # chunk_long gate's staleness allowance
         self._last_dispatch_chunk = self.chunk
@@ -672,6 +692,7 @@ class ContinuousServer:
         request already finished (EOS or a budget of 1)."""
         self._slot_req[slot] = rid
         self._slot_cb[slot] = req.on_token
+        self._slot_first[slot] = (req.request_id, time.perf_counter_ns())
         budget = req.max_new_tokens or self.max_new_tokens
         self._slot_budget[slot] = min(budget, self.max_new_tokens) - 1
         if first_i != self.eos_token_id and req.on_token is not None:
@@ -679,10 +700,34 @@ class ContinuousServer:
         emitted[rid].append(first_i)
         if first_i == self.eos_token_id or self._slot_budget[slot] == 0:
             results[rid] = self._finish(rid, emitted)
-            self._slot_req[slot] = None
-            self._slot_cb[slot] = None
+            self._retire(slot)
             return True
         return False
+
+    def _retire(self, slot: int) -> None:
+        """Free a slot whose request finished; its scheduler.decode span
+        ends here."""
+        request_id, t0 = self._slot_first[slot]
+        record(None, None, t0, log=self.span_log, name="scheduler.decode",
+               request_id=request_id)
+        self._slot_req[slot] = None
+        self._slot_cb[slot] = None
+        self._slot_first[slot] = None
+
+    def _admitted(self, take, t0: int) -> None:
+        """Count an admission of take [(rid, Request), ...] that began at
+        t0: admit and admissions, each queued request's queue_wait, and
+        the spans scheduler.queue and scheduler.admit."""
+        log = self.span_log
+        t1 = record(self.timings, "admit", t0)
+        self._add("admissions", len(take))
+        for _, req in take:
+            if req.queued_ns is not None:
+                record(self.timings, "queue_wait", req.queued_ns, t1=t0,
+                       log=log, name="scheduler.queue",
+                       request_id=req.request_id)
+            record(None, None, t0, t1=t1, log=log, name="scheduler.admit",
+                   request_id=req.request_id)
 
     def _sample_kw(self) -> dict:
         gk = self.gen_kwargs
@@ -723,7 +768,7 @@ class ContinuousServer:
                     take = take[:j]
                     break
             del pending[: len(take)]
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             if len(take) == 1:
                 rid, req = take[0]
                 slot = free[0]
@@ -749,8 +794,7 @@ class ContinuousServer:
             else:
                 self._admit_batch(take, want, free, emitted, results,
                                   sample_kw)
-            self._add("admit", time.perf_counter() - t0)
-            self._add("admissions", len(take))
+            self._admitted(take, t0)
 
     def _admit_batch(self, take, want, free, emitted, results,
                      sample_kw) -> None:
@@ -821,7 +865,7 @@ class ContinuousServer:
                     f"tail (tail_len={self._tail_len}); build the server "
                     "with a larger prompt_len")
             slot = free[0]
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             self.state, first = _admit_one_shared(
                 self.params, self.state, self.cfg, req.input_ids,
                 req.attn_mask, *self._pinned_prefix, slot,
@@ -829,8 +873,7 @@ class ContinuousServer:
                 **sample_kw)
             self._book_first_token(rid, req, slot, int(first), emitted,
                                    results)
-            self._add("admit", time.perf_counter() - t0)
-            self._add("admissions", 1)
+            self._admitted([(rid, req)], t0)
 
     def _run_chunk(self, emitted, results, tail: bool = False,
                    force_chunk: Optional[int] = None) -> None:
@@ -863,7 +906,7 @@ class ContinuousServer:
             if budgets and min(budgets) >= (self.chunk_long + stale) \
                     * self._toks_per_iter:
                 chunk = self.chunk_long
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         cuda = self.device.type == "cuda"
         events = None
         if cuda:
@@ -945,7 +988,8 @@ class ContinuousServer:
         toks = toks.numpy()
         counts = (counts.numpy() if counts is not None
                   else np.full(self.pool_size, toks.shape[1]))
-        self._add("chunk", time.perf_counter() - inflight.t0)
+        record(self.timings, "chunk", inflight.t0, log=self.span_log,
+               name="scheduler.chunk")
         self._add("timed_steps", inflight.steps)
         if inflight.events is not None:
             self._add("chunk_device_ms",
@@ -957,8 +1001,10 @@ class ContinuousServer:
             # every token up to and including an EOS is real: the device
             # pads only after an in-chunk EOS (or compacts per-row counts)
             cb = inflight.slot_cb[slot]
+            used = 0
             for t in toks[slot][:counts[slot]]:
                 t = int(t)
+                used += 1
                 done = t == self.eos_token_id
                 if not done:
                     emitted[rid].append(t)
@@ -968,9 +1014,9 @@ class ContinuousServer:
                 if done or self._slot_budget[slot] <= 0:
                     results[rid] = self._finish(rid, emitted)
                     # no launch: the next chunk's deactivate retires the row
-                    self._slot_req[slot] = None
-                    self._slot_cb[slot] = None
+                    self._retire(slot)
                     break
+            self._add("slot_tokens", used)
 
     def _finish(self, ridx: int, emitted) -> np.ndarray:
         return np.asarray(emitted[ridx], np.int32)
@@ -997,8 +1043,8 @@ class ContinuousScheduler:
     def submit(self, req: Request) -> Future:
         fut: Future = Future()
         # stage the transfers at submit time: they overlap the pool's chunks
-        self._queue.put((ContinuousServer.stage_request(req,
-                                                        self.server.device),
+        staged = ContinuousServer.stage_request(req, self.server.device)
+        self._queue.put((staged._replace(queued_ns=time.perf_counter_ns()),
                          fut))
         return fut
 
@@ -1029,9 +1075,13 @@ class ContinuousScheduler:
         alive = True
         inflight = None  # pipeline_chunks: chunk launched, tokens not read
         while self._running and alive:
-            # block for work only when fully idle
-            alive = self._drain(pending, block=not (
-                pending or server._busy() or inflight is not None))
+            # block for work only when fully idle: the scheduler.wait span
+            idle = not (pending or server._busy() or inflight is not None)
+            t0 = time.perf_counter_ns()
+            alive = self._drain(pending, block=idle)
+            if idle:
+                record(None, None, t0, log=server.span_log,
+                       name="scheduler.wait")
             while alive and not self._queue.empty():
                 alive = self._drain(pending, block=False)
             if not (pending or server._busy() or inflight is not None):
@@ -1063,6 +1113,7 @@ class ContinuousScheduler:
                 inflight = None
                 server._slot_req = [None] * server.pool_size
                 server._slot_cb = [None] * server.pool_size
+                server._slot_first = [None] * server.pool_size
                 if server.state is not None:   # shared pools pin lazily
                     server.state.active.fill_(False)
                 continue

@@ -87,6 +87,7 @@ import torch
 from ..core.config import GenerateConfig, VLMConfig
 from ..ops.int8_matmul import Int8Embedding
 from ..models import vlm
+from ..obs.profiler import record
 from ..ops.preprocess import dual_stream_resize_host
 from ..text import codec
 from ..text.templates import (DEFAULT_IMAGE_TOKEN, GROUNDING_TOKEN,
@@ -384,27 +385,33 @@ class InferenceEngine:
         return feats[0].cpu()
 
     def encode_video_cached(self, video_path: str, prepped=None,
-                            timings: Optional[dict] = None):
+                            timings: Optional[dict] = None,
+                            span_log=None, request_id=None):
         """(features [NV, H] on the host, duration) of a video through the
         LRU, keyed on path, mtime and size (an overwritten file encodes
         anew). prepped: (temporal, spatial, duration) already decoded, for
-        callers that prefetched the host decode. timings gets encode and
-        encodes, and preprocess for a decode done here."""
+        callers that prefetched the host decode. timings gets
+        feature_lookups and feature_hits, encode and encodes, and
+        preprocess for a decode done here; span_log (obs/profiler.SpanLog)
+        the spans engine.preprocess and engine.encode."""
         key = self._video_key(video_path)
         hit = self._feature_cache.get(key)
+        _add(timings, "feature_lookups", 1)
         if hit is not None:
+            _add(timings, "feature_hits", 1)
             self._feature_cache.move_to_end(key)
             return hit
         if prepped is None:
-            t0 = time.perf_counter()
+            t0 = time.perf_counter_ns()
             prepped = self.preprocess_video(video_path)
-            _add(timings, "preprocess", time.perf_counter() - t0)
+            record(timings, "preprocess", t0, log=span_log,
+                   name="engine.preprocess", request_id=request_id)
         temporal, spatial, duration = prepped
-        t0 = time.perf_counter()
+        t0 = time.perf_counter_ns()
         # ends on the device→host copy of the features
         entry = (self.encode_features(temporal, spatial), duration)
-        _add(timings, "encode", time.perf_counter() - t0)
-        _add(timings, "encodes", 1)
+        record(timings, "encode", t0, count="encodes", log=span_log,
+               name="engine.encode", request_id=request_id)
         if self.feature_cache_size > 0:
             self._feature_cache[key] = entry
             while len(self._feature_cache) > self.feature_cache_size:
@@ -549,26 +556,34 @@ class InferenceEngine:
         return input_ids[0], attn_mask[0]
 
     def prefix_kv_cached(self, video_path: str, pre_ids, features,
-                         rope_hint: int):
+                         rope_hint: int, timings: Optional[dict] = None,
+                         span_log=None, request_id=None):
         """The bf16 prefix K/V (build_prefix_kv: k, v, mask on the device)
         of a video's [pre-image text | video tokens] head through an LRU of
         prefix_kv_cache_size entries, keyed on the video file's stat, the
         pre-image ids and the hint. Eviction does not free a prefix that a
-        queued Request still holds."""
+        queued Request still holds. timings gets prefix_lookups and
+        prefix_hits, prefix and prefixes (the builds); span_log the span
+        engine.prefix."""
         try:
             vid_key = self._video_key(video_path)
         except OSError:
             vid_key = (video_path,)
         key = (vid_key, tuple(pre_ids), rope_hint)
         hit = self._prefix_cache.get(key)
+        _add(timings, "prefix_lookups", 1)
         if hit is not None:
+            _add(timings, "prefix_hits", 1)
             self._prefix_cache.move_to_end(key)
             return hit
+        t0 = time.perf_counter_ns()
         pre = torch.tensor([list(pre_ids)], device=self.device)
         entry = build_prefix_kv(self.params, self.cfg, pre,
                                 torch.ones_like(pre),
                                 self._dev(torch.as_tensor(features)[None]),
                                 rope_hint)
+        record(timings, "prefix", t0, count="prefixes", log=span_log,
+               name="engine.prefix", request_id=request_id)
         self._prefix_cache[key] = entry
         while len(self._prefix_cache) > max(1, self.prefix_kv_cache_size):
             self._prefix_cache.popitem(last=False)
@@ -578,7 +593,10 @@ class InferenceEngine:
                                 mode: str = "qa", prompt_len: int = 64,
                                 max_new_tokens: Optional[int] = None,
                                 on_token=None,
-                                prefix_rope_hint: Optional[int] = None):
+                                prefix_rope_hint: Optional[int] = None,
+                                timings: Optional[dict] = None,
+                                span_log=None,
+                                request_id: Optional[int] = None):
         """→ (a feature-backed continuous-batching Request, the video's
         duration): the features come through the feature cache, so a
         repeated video skips the encoders at admission; the prompt is
@@ -588,20 +606,30 @@ class InferenceEngine:
         prefix_rope_hint (the pool's max_len): a prefix-backed Request
         instead, the video's [system | video tokens] head from
         prefix_kv_cached and only the post-image question chunk in the
-        bucket; same-video requests share the prefix tensors."""
+        bucket; same-video requests share the prefix tensors.
+
+        timings gets the caches' counters (encode_video_cached,
+        prefix_kv_cached) and tokenize seconds; span_log their spans and
+        engine.tokenize, marked with request_id, which the Request
+        carries."""
         from .continuous import Request
 
-        features, duration = self.encode_video_cached(video_path)
+        trace = dict(span_log=span_log, request_id=request_id)
+        features, duration = self.encode_video_cached(
+            video_path, timings=timings, **trace)
+        t0 = time.perf_counter_ns()
         seq = self.tokenize_prompt(self.build_prompt(prompt, mode, duration))
+        record(timings, "tokenize", t0, log=span_log, name="engine.tokenize",
+               request_id=request_id)
         if prefix_rope_hint is not None:
             img = seq.index(IMAGE_TOKEN_INDEX)
             prefix = self.prefix_kv_cached(video_path, seq[:img], features,
-                                           prefix_rope_hint)
+                                           prefix_rope_hint, timings, **trace)
             input_ids, attn_mask = self._pad_bucket(seq[img + 1:], prompt_len)
             return Request(input_ids=input_ids, attn_mask=attn_mask,
                            spatial_pixels=None, temporal_pixels=None,
                            max_new_tokens=max_new_tokens, on_token=on_token,
-                           prefix=prefix), duration
+                           prefix=prefix, request_id=request_id), duration
         input_ids, attn_mask = self._pad_bucket(seq, prompt_len)
         if not np.any(input_ids == IMAGE_TOKEN_INDEX):
             # the tail-keeping cut dropped the image slot: the splice would
@@ -614,7 +642,7 @@ class InferenceEngine:
         return Request(input_ids=input_ids, attn_mask=attn_mask,
                        spatial_pixels=None, temporal_pixels=None,
                        max_new_tokens=max_new_tokens, on_token=on_token,
-                       features=features), duration
+                       features=features, request_id=request_id), duration
 
     def run_stream_prefix(self, video_paths: List[str], prompts: List[str],
                           mode: str = "qa", batch_size: int = 6,

@@ -31,11 +31,13 @@ from __future__ import annotations
 import json
 import queue as queue_mod
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
 
+from ..obs.profiler import record
 from ..text.streaming import TokenTextStream
 from .continuous import ContinuousScheduler, ContinuousServer
 from .engine import InferenceEngine
@@ -91,19 +93,42 @@ class ServingFrontend:
                 kind="prefix" if prefix_cache else "feats")
         self.scheduler = ContinuousScheduler(self.server)
         self._lock = threading.Lock()  # engine cache + rng aren't thread-safe
+        # the counters added after _lock is released (stage, submits)
+        self._count_lock = threading.Lock()
+        self._next_request_id = 0
 
     def submit(self, video_path: str, prompt: str, mode: str = "qa",
                max_new_tokens: Optional[int] = None, on_token=None):
         """→ (Future[np.int32 tokens], duration). Encode (feature-cached),
         the prefix build and tokenization run on the calling thread under
         the frontend's lock; admission and decode on the scheduler
-        thread."""
+        thread.
+
+        Adds to the pool's ``timings``: ``lock_wait`` and ``lock_hold``
+        seconds (waiting for the lock, holding it) and the engine's
+        counters under the hold, then ``stage`` seconds (the staged
+        transfers and the queue put) and ``submits``. The request's id,
+        drawn here, marks its spans in the pool's ``span_log`` where one is
+        attached: frontend.submit, .lock_wait, .hold, .stage."""
+        log = self.server.span_log
+        t0 = time.perf_counter_ns()
         with self._lock:
-            req, duration = self.engine.make_continuous_request(
-                video_path, prompt, mode=mode, prompt_len=self.prompt_len,
-                max_new_tokens=max_new_tokens, on_token=on_token,
-                prefix_rope_hint=(self.server.max_len if self.prefix_cache
-                                  else None))
+            rid = self._next_request_id
+            self._next_request_id += 1
+            t1 = record(self.server.timings, "lock_wait", t0, log=log,
+                        name="frontend.lock_wait", request_id=rid)
+            try:
+                req, duration = self.engine.make_continuous_request(
+                    video_path, prompt, mode=mode,
+                    prompt_len=self.prompt_len,
+                    max_new_tokens=max_new_tokens, on_token=on_token,
+                    prefix_rope_hint=(self.server.max_len
+                                      if self.prefix_cache else None),
+                    timings=self.server.timings, span_log=log,
+                    request_id=rid)
+            finally:
+                record(self.server.timings, "lock_hold", t1, log=log,
+                       name="frontend.hold", request_id=rid)
         if req.prefix is not None:
             # validate HERE so an oversized prefix fails only THIS caller —
             # the same check inside _admit would take down every in-flight
@@ -118,7 +143,14 @@ class ServingFrontend:
                     f"but the pool has max_len={self.server.max_len}; this "
                     "video's pre-image prompt head is longer than the one "
                     "the server was sized for")
-        return self.scheduler.submit(req), duration
+        t2 = time.perf_counter_ns()
+        fut = self.scheduler.submit(req)
+        with self._count_lock:
+            record(self.server.timings, "stage", t2, count="submits",
+                   log=log, name="frontend.stage", request_id=rid)
+        record(None, None, t0, log=log, name="frontend.submit",
+               request_id=rid)
+        return fut, duration
 
     def result_payload(self, tokens: np.ndarray, duration: float) -> dict:
         eos = self.engine.tokenizer.eos_token_id

@@ -392,8 +392,9 @@ class InferenceEngine:
         anew). prepped: (temporal, spatial, duration) already decoded, for
         callers that prefetched the host decode. timings gets
         feature_lookups and feature_hits, encode and encodes, and
-        preprocess for a decode done here; span_log (obs/profiler.SpanLog)
-        the spans engine.preprocess and engine.encode."""
+        preprocess and preprocesses for a decode done here; span_log
+        (obs/profiler.SpanLog) the spans engine.preprocess and
+        engine.encode."""
         key = self._video_key(video_path)
         hit = self._feature_cache.get(key)
         _add(timings, "feature_lookups", 1)
@@ -404,8 +405,9 @@ class InferenceEngine:
         if prepped is None:
             t0 = time.perf_counter_ns()
             prepped = self.preprocess_video(video_path)
-            record(timings, "preprocess", t0, log=span_log,
-                   name="engine.preprocess", request_id=request_id)
+            record(timings, "preprocess", t0, count="preprocesses",
+                   log=span_log, name="engine.preprocess",
+                   request_id=request_id)
         temporal, spatial, duration = prepped
         t0 = time.perf_counter_ns()
         # ends on the device→host copy of the features
@@ -596,12 +598,21 @@ class InferenceEngine:
                                 prefix_rope_hint: Optional[int] = None,
                                 timings: Optional[dict] = None,
                                 span_log=None,
-                                request_id: Optional[int] = None):
+                                request_id: Optional[int] = None,
+                                prepped=None):
         """→ (a feature-backed continuous-batching Request, the video's
         duration): the features come through the feature cache, so a
         repeated video skips the encoders at admission; the prompt is
         left-padded to the prompt_len bucket, and a prompt whose <image>
         slot the bucket would cut raises.
+
+        prepped: the video's (temporal, spatial, duration), decoded and
+        resized by the caller (ServingFrontend.submit does so outside its
+        lock), for the encode on a feature-cache miss; dropped on a hit.
+        Without it a miss decodes and resizes here, inside the caller's
+        critical section. Everything this call runs needs the caller's
+        serialisation: the LRUs, the encode, the tokenizer, the prefix
+        build.
 
         prefix_rope_hint (the pool's max_len): a prefix-backed Request
         instead, the video's [system | video tokens] head from
@@ -616,7 +627,7 @@ class InferenceEngine:
 
         trace = dict(span_log=span_log, request_id=request_id)
         features, duration = self.encode_video_cached(
-            video_path, timings=timings, **trace)
+            video_path, prepped=prepped, timings=timings, **trace)
         t0 = time.perf_counter_ns()
         seq = self.tokenize_prompt(self.build_prompt(prompt, mode, duration))
         record(timings, "tokenize", t0, log=span_log, name="engine.tokenize",

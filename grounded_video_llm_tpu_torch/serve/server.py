@@ -32,6 +32,7 @@ import json
 import queue as queue_mod
 import threading
 import time
+from concurrent.futures import Future
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
@@ -93,42 +94,70 @@ class ServingFrontend:
                 kind="prefix" if prefix_cache else "feats")
         self.scheduler = ContinuousScheduler(self.server)
         self._lock = threading.Lock()  # engine cache + rng aren't thread-safe
-        # the counters added after _lock is released (stage, submits)
+        # the counters added outside _lock: before it is taken (preprocess,
+        # preprocesses, preprocess_joins) and after it is released (stage,
+        # submits); and the request ids
         self._count_lock = threading.Lock()
         self._next_request_id = 0
+        # a video's feature-cache key → Future of its preprocessed pixels,
+        # from the first submit that missed the cache until that submit's
+        # hold ends (its features are in the LRU by then)
+        self._preps: dict = {}
+        self._preps_lock = threading.Lock()
 
     def submit(self, video_path: str, prompt: str, mode: str = "qa",
                max_new_tokens: Optional[int] = None, on_token=None):
-        """→ (Future[np.int32 tokens], duration). Encode (feature-cached),
-        the prefix build and tokenization run on the calling thread under
-        the frontend's lock; admission and decode on the scheduler
-        thread.
+        """→ (Future[np.int32 tokens], duration). A video the feature cache
+        lacks is decoded and resized (``engine.preprocess_video``) on the
+        calling thread before the frontend's lock, so clients resize at
+        the same time; a submit of a video another submit is preparing
+        waits for that one's pixels and does not resize again. Under the
+        lock run the feature LRU (the encode on a miss), the prefix build
+        and tokenization, also on the calling thread; admission and decode
+        run on the scheduler thread.
 
-        Adds to the pool's ``timings``: ``lock_wait`` and ``lock_hold``
+        Adds to the pool's ``timings``: ``preprocess`` seconds and
+        ``preprocesses`` (the resizes run) and ``preprocess_joins`` (the
+        submits that took another's), ``lock_wait`` and ``lock_hold``
         seconds (waiting for the lock, holding it) and the engine's
         counters under the hold, then ``stage`` seconds (the staged
         transfers and the queue put) and ``submits``. The request's id,
         drawn here, marks its spans in the pool's ``span_log`` where one is
-        attached: frontend.submit, .lock_wait, .hold, .stage."""
+        attached: frontend.submit, engine.preprocess (before the lock
+        wait), frontend.lock_wait, .hold, .stage."""
         log = self.server.span_log
         t0 = time.perf_counter_ns()
-        with self._lock:
+        with self._count_lock:
             rid = self._next_request_id
             self._next_request_id += 1
-            t1 = record(self.server.timings, "lock_wait", t0, log=log,
-                        name="frontend.lock_wait", request_id=rid)
-            try:
-                req, duration = self.engine.make_continuous_request(
-                    video_path, prompt, mode=mode,
-                    prompt_len=self.prompt_len,
-                    max_new_tokens=max_new_tokens, on_token=on_token,
-                    prefix_rope_hint=(self.server.max_len
-                                      if self.prefix_cache else None),
-                    timings=self.server.timings, span_log=log,
-                    request_id=rid)
-            finally:
-                record(self.server.timings, "lock_hold", t1, log=log,
-                       name="frontend.hold", request_id=rid)
+        key, prepped, owner = self._prepare(video_path, rid)
+        tw = t0 if prepped is None else time.perf_counter_ns()
+        try:
+            with self._lock:
+                t1 = record(self.server.timings, "lock_wait", tw, log=log,
+                            name="frontend.lock_wait", request_id=rid)
+                try:
+                    if (prepped is None
+                            and key not in self.engine._feature_cache):
+                        # evicted since _prepare found it: resize here, not
+                        # in the engine, so the count takes _count_lock as
+                        # the resizes outside the lock do
+                        prepped = self._preprocess(video_path, rid)
+                    req, duration = self.engine.make_continuous_request(
+                        video_path, prompt, mode=mode,
+                        prompt_len=self.prompt_len,
+                        max_new_tokens=max_new_tokens, on_token=on_token,
+                        prefix_rope_hint=(self.server.max_len
+                                          if self.prefix_cache else None),
+                        timings=self.server.timings, span_log=log,
+                        request_id=rid, prepped=prepped)
+                finally:
+                    record(self.server.timings, "lock_hold", t1, log=log,
+                           name="frontend.hold", request_id=rid)
+        finally:
+            if owner:
+                with self._preps_lock:
+                    del self._preps[key]
         if req.prefix is not None:
             # validate HERE so an oversized prefix fails only THIS caller —
             # the same check inside _admit would take down every in-flight
@@ -151,6 +180,45 @@ class ServingFrontend:
         record(None, None, t0, log=log, name="frontend.submit",
                request_id=rid)
         return fut, duration
+
+    def _prepare(self, video_path: str, rid: int):
+        """Outside the frontend's lock: → (the video's feature-cache key,
+        its (temporal, spatial, duration) or None where the features are
+        cached, whether this call owns the in-flight entry and so removes
+        it). The cache is only peeked at (no counter, no LRU reorder): a
+        wrong answer costs time, never tokens."""
+        key = self.engine._video_key(video_path)
+        with self._preps_lock:
+            fut = self._preps.get(key)
+            owner = fut is None
+            if owner:
+                if key in self.engine._feature_cache:
+                    return key, None, False
+                fut = self._preps[key] = Future()
+        if not owner:
+            with self._count_lock:
+                t = self.server.timings
+                t["preprocess_joins"] = t.get("preprocess_joins", 0) + 1
+            return key, fut.result(), False
+        try:
+            prepped = self._preprocess(video_path, rid)
+        except BaseException as e:
+            # every waiter gets this error; the next submit resizes anew
+            with self._preps_lock:
+                del self._preps[key]
+            fut.set_exception(e)
+            raise
+        fut.set_result(prepped)
+        return key, prepped, True
+
+    def _preprocess(self, video_path: str, rid: int):
+        t0 = time.perf_counter_ns()
+        prepped = self.engine.preprocess_video(video_path)
+        with self._count_lock:
+            record(self.server.timings, "preprocess", t0,
+                   count="preprocesses", log=self.server.span_log,
+                   name="engine.preprocess", request_id=rid)
+        return prepped
 
     def result_payload(self, tokens: np.ndarray, duration: float) -> dict:
         eos = self.engine.tokenizer.eos_token_id

@@ -9,8 +9,13 @@ attached to the pool and once without.
   the sums of their spans; slot_tokens within pool_size × timed_steps and
   equal to the tokens the chunks gave the requests.
 - Spans: one id a request from submit to retirement, nested as the code
-  runs (hold inside submit, the engine's spans inside the hold, queue
-  before admission before decode); the pool's thread owns the scheduler's.
+  runs (hold inside submit; the preprocess inside submit before the lock
+  wait, the engine's other spans inside the hold; queue before admission
+  before decode); the pool's thread owns the scheduler's.
+- The preprocess outside the lock: two uncached videos resize at once;
+  8 submits of one uncached video resize once and take the same tokens as
+  a serial run; a resize that raises fails every waiter with its error and
+  leaves the next submit to resize anew.
 - Without a log nothing is recorded, and the tokens equal the logged run's.
 - SpanLog and record on their own.
 """
@@ -128,6 +133,7 @@ def test_cache_and_request_counters(rounds, run):
     assert t["feature_lookups"] == 6 and t["feature_hits"] == 4
     assert t["prefix_lookups"] == 6 and t["prefix_hits"] == 4
     assert t["encodes"] == 2 and t["prefixes"] == 2
+    assert t["preprocesses"] == 2 and "preprocess_joins" not in t
     for key in ("lock_wait", "lock_hold", "stage", "queue_wait",
                 "preprocess", "encode", "prefix", "tokenize", "admit",
                 "chunk"):
@@ -173,9 +179,14 @@ def test_spans_share_one_id_and_nest(rounds):
         (w0, w1, _), = spans["frontend.lock_wait"]
         (h0, h1, _), = spans["frontend.hold"]
         (g0, g1, _), = spans["frontend.stage"]
-        assert s0 == w0 <= w1 == h0 <= h1 <= g0 <= g1 <= s1
-        for name in ("engine.preprocess", "engine.encode", "engine.prefix",
-                     "engine.tokenize"):
+        assert s0 <= w0 <= w1 == h0 <= h1 <= g0 <= g1 <= s1
+        # the resize runs on the client's thread before the lock wait; a
+        # request that ran none waits for the lock from its start
+        for t0, t1, th in spans.get("engine.preprocess", ()):
+            assert s0 <= t0 <= t1 <= w0 and th == client, rid
+        if "engine.preprocess" not in spans:
+            assert s0 == w0, rid
+        for name in ("engine.encode", "engine.prefix", "engine.tokenize"):
             for t0, t1, th in spans.get(name, ()):
                 assert h0 <= t0 <= t1 <= h1 and th == client, (rid, name)
         (q0, q1, _), = spans["scheduler.queue"]
@@ -278,9 +289,184 @@ def test_counters_lose_no_update_under_many_clients(micro, clips):
     assert t["submits"] == t["admissions"] == 2 * n
     assert t["feature_lookups"] == t["prefix_lookups"] == 2 * n
     assert t["feature_hits"] == t["prefix_hits"] == 2 * n - 2
+    assert t["preprocesses"] == 2
     names = [s[0] for s in log.spans]
     for name in EVERY_REQUEST:
         assert names.count(name) == 2 * n, name
     assert t["stage"] == pytest.approx(
         sum(t1 - t0 for name, _, _, t0, t1 in log.spans
             if name == "frontend.stage") / 1e9, rel=1e-9)
+
+
+def wait_for_joins(fe, n, timeout=60.0):
+    """Block until n submits wait on another's preprocess."""
+    deadline = time.monotonic() + timeout
+    while fe.server.timings.get("preprocess_joins", 0) < n:
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{n} joins not seen in {timeout} s")
+        time.sleep(0.005)
+
+
+def run_clients(target, n):
+    """n threads running target(i) → the exceptions they raised, by i."""
+    errors = {}
+
+    def client(i):
+        try:
+            target(i)
+        except Exception as e:  # noqa: BLE001 — returned to the test
+            errors[i] = e
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    assert not any(th.is_alive() for th in threads)
+    return errors
+
+
+def test_uncached_videos_preprocess_at_once(micro, clips):
+    """Each resize waits at a barrier that only two resizes running at the
+    same time pass: under the frontend's lock the second never starts."""
+    fe = frontend(micro, clips, None)
+    resize, barrier = fe.engine.preprocess_video, threading.Barrier(2, timeout=30)
+
+    def hook(path):
+        barrier.wait()
+        return resize(path)
+
+    fe.engine.preprocess_video = hook
+    paths = list(clips)
+    try:
+        errors = run_clients(lambda i: fe.submit(
+            paths[i], QUESTIONS[i], "grounding", 2)[0].result(timeout=300),
+            2)
+    finally:
+        fe.shutdown()
+    assert not errors, errors
+    t = fe.server.timings
+    assert t["preprocesses"] == t["encodes"] == 2
+    assert "preprocess_joins" not in t
+
+
+def test_concurrent_misses_of_one_video_resize_once(micro, clips):
+    """8 submits of one uncached video: the first resizes while the other
+    7 wait for its pixels; one encode; every client's tokens are a serial
+    run's."""
+    n, path = 8, list(clips)[0]
+    asks = [(QUESTIONS[i % 3], BUDGETS[i % 3]) for i in range(n)]
+    serial = frontend(micro, clips, None)
+    try:
+        want = [serial.submit(path, q, "grounding", b)[0].result(timeout=300)
+                for q, b in asks]
+    finally:
+        serial.shutdown()
+    fe = frontend(micro, clips, SpanLog())
+    resize, calls = fe.engine.preprocess_video, []
+
+    def hook(p):
+        calls.append(p)
+        if len(calls) == 1:
+            wait_for_joins(fe, n - 1)
+        return resize(p)
+
+    fe.engine.preprocess_video = hook
+    got = {}
+
+    def client(i):
+        question, budget = asks[i]
+        got[i] = fe.submit(path, question, "grounding",
+                           budget)[0].result(timeout=300)
+
+    try:
+        errors = run_clients(client, n)
+    finally:
+        fe.shutdown()
+    assert not errors, errors
+    t = fe.server.timings
+    assert t["preprocesses"] == 1 and t["encodes"] == 1
+    assert t["preprocess_joins"] == n - 1
+    assert t["feature_lookups"] == n and t["feature_hits"] == n - 1
+    assert len(calls) == 1 and [s[0] for s in fe.server.span_log.spans
+                                ].count("engine.preprocess") == 1
+    assert not fe._preps
+    for i in range(n):
+        np.testing.assert_array_equal(got[i], want[i])
+
+
+def test_failed_preprocess_reaches_every_waiter(micro, clips):
+    """A resize that raises: its submit and the 3 waiting on it fail with
+    that error, nothing stays in flight, and the next submit of the video
+    resizes anew and is served."""
+    n, path = 4, list(clips)[1]
+    fe = frontend(micro, clips, None)
+    resize, calls = fe.engine.preprocess_video, []
+    boom = RuntimeError("the decoder failed")
+
+    def hook(p):
+        calls.append(p)
+        if len(calls) == 1:
+            wait_for_joins(fe, n - 1)
+            raise boom
+        return resize(p)
+
+    fe.engine.preprocess_video = hook
+    try:
+        errors = run_clients(lambda i: fe.submit(
+            path, QUESTIONS[0], "grounding", 2), n)
+        assert sorted(errors) == list(range(n))
+        assert all(e is boom for e in errors.values())
+        t = fe.server.timings
+        assert t["preprocess_joins"] == n - 1
+        assert "preprocesses" not in t and "feature_lookups" not in t
+        assert not fe._preps
+        tokens = fe.submit(path, QUESTIONS[0], "grounding",
+                           2)[0].result(timeout=300)
+    finally:
+        fe.shutdown()
+    assert len(calls) == 2 and len(tokens) >= 1
+    assert t["preprocesses"] == t["encodes"] == 1
+
+
+def test_video_evicted_after_the_peek_resizes_under_the_lock(micro, clips):
+    """A video the peek finds cached but the LRU drops before the lock is
+    taken is resized under the lock, counted once, and takes the tokens a
+    serial run gives."""
+    path = list(clips)[0]
+    asks = list(zip(QUESTIONS[:2], BUDGETS[:2]))
+    serial = frontend(micro, clips, None)
+    try:
+        want = [serial.submit(path, q, "grounding", b)[0].result(timeout=300)
+                for q, b in asks]
+    finally:
+        serial.shutdown()
+    fe = frontend(micro, clips, SpanLog())
+    lock = fe._lock
+
+    class EvictingLock:
+        def __enter__(self):
+            fe.engine._feature_cache.clear()
+            return lock.__enter__()
+
+        def __exit__(self, *exc):
+            return lock.__exit__(*exc)
+
+    got = []
+    try:
+        for i, (question, budget) in enumerate(asks):
+            if i == 1:
+                fe._lock = EvictingLock()
+            got.append(fe.submit(path, question, "grounding",
+                                 budget)[0].result(timeout=300))
+    finally:
+        fe.shutdown()
+    t = fe.server.timings
+    assert t["preprocesses"] == t["encodes"] == 2
+    assert t["feature_lookups"] == 2 and "feature_hits" not in t
+    spans = by_request(fe.server.span_log)
+    (h0, h1, _), = spans[1]["frontend.hold"]
+    (p0, p1, _), = spans[1]["engine.preprocess"]
+    assert h0 <= p0 <= p1 <= h1
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
